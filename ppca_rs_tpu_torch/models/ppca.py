@@ -1,0 +1,368 @@
+"""Probabilistic PCA with missing data — single model, on torch tensors.
+
+Port of ``ppca_rs_tpu/models/ppca.py`` (itself a rebuild of
+`ppca/src/ppca_model.rs`) on the blocked masked algebra of
+:mod:`ppca_rs_tpu_torch.ops.masked_linalg`.  The statistical model
+(`ppca_model.rs:24-40`):
+
+    x ~ N(0, I_k)            # latent state
+    y = C x + mu + eps       # observed, D dims
+    eps ~ N(0, sigma^2 I_D)  # isotropic noise
+
+Every masked dataset takes the general masked path.  Computations run on the
+device of the model's parameters, which must match the dataset's.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import config
+from ..dataset import Dataset
+from ..ops import masked_linalg as ml
+from ..prior import Prior
+from ..utils.rng import ensure_generator
+from ..utils.serialization import dump_bytes, load_bytes
+
+
+def _as_vector(arr, name: str) -> np.ndarray:
+    """Accept (D,), (D,1) or (1,D) arrays, like the bindings' numpy->vector
+    converter (`src/utils.rs:12-23`)."""
+    a = np.asarray(arr, dtype=np.float64)
+    if a.ndim == 2:
+        if 1 in a.shape:
+            a = a.reshape(-1)
+        else:
+            raise ValueError(f"{name} must be a vector; got shape {a.shape}")
+    elif a.ndim != 1:
+        raise ValueError(f"{name} must be a vector; got shape {a.shape}")
+    return a
+
+
+class PPCAModel(nn.Module):
+    """A PPCA model which can infer missing values (`ppca_model.rs:24-40`).
+
+    ``transform`` (D, k), ``mean`` (D,) and ``isotropic_noise`` (a 0-dim
+    tensor) are buffers: EM needs no autograd."""
+
+    transform: torch.Tensor
+    mean: torch.Tensor
+    isotropic_noise: torch.Tensor
+
+    def __init__(self, isotropic_noise=None, transform=None, mean=None, *,
+                 device=None, dtype=None):
+        super().__init__()
+        if transform is None or mean is None or isotropic_noise is None:
+            raise TypeError("PPCAModel requires isotropic_noise, transform and mean")
+        t = np.asarray(transform, dtype=np.float64)
+        if t.ndim != 2:
+            raise ValueError(f"transform must be 2D (D, state_size); got {t.shape}")
+        m = _as_vector(mean, "mean")
+        if m.shape[0] != t.shape[0]:
+            raise ValueError(
+                f"mean length {m.shape[0]} does not match transform rows {t.shape[0]}"
+            )
+        device = torch.device(device) if device is not None else config.device
+        dtype = dtype or config.dtype
+        self.register_buffer("transform", torch.as_tensor(t, dtype=dtype, device=device))
+        self.register_buffer("mean", torch.as_tensor(m, dtype=dtype, device=device))
+        self.register_buffer(
+            "isotropic_noise", torch.tensor(float(isotropic_noise), dtype=dtype, device=device))
+
+    @classmethod
+    def _from_params(cls, transform, mean, isotropic_noise) -> "PPCAModel":
+        obj = cls.__new__(cls)
+        nn.Module.__init__(obj)
+        obj.register_buffer("transform", transform)
+        obj.register_buffer("mean", mean)
+        obj.register_buffer("isotropic_noise", isotropic_noise.reshape(()))
+        return obj
+
+    # ------------------------------------------------------------------ #
+    # construction
+
+    @staticmethod
+    def init(state_size: int, dataset: Dataset,
+             generator: Optional[torch.Generator] = None) -> "PPCAModel":
+        """Random untrained model: C ~ N(0,1) with empty-dimension rows
+        zeroed, sigma = 1, mu = 0 (`ppca_model.rs:51-70`)."""
+        if dataset.is_empty():
+            raise ValueError("dataset must not be empty")
+        D = dataset.output_size()
+        device = dataset.device
+        dtype = torch.promote_types(dataset.dtype, torch.float32)
+        gen = ensure_generator(generator, device)
+        C = torch.randn((D, state_size), generator=gen, dtype=dtype, device=gen.device).to(device)
+        empty = dataset.empty_dimensions()
+        if empty:
+            C[torch.as_tensor(empty, device=device)] = 0.0
+        mean = torch.zeros(D, dtype=dtype, device=device)
+        return PPCAModel._from_params(C, mean, torch.ones((), dtype=dtype, device=device))
+
+    # ------------------------------------------------------------------ #
+    # properties (ppca_model.rs:73-121)
+
+    @property
+    def output_size(self) -> int:
+        return int(self.transform.shape[0])
+
+    @property
+    def state_size(self) -> int:
+        return int(self.transform.shape[1])
+
+    @property
+    def n_parameters(self) -> int:
+        """1 + k*D + D (`ppca_model.rs:107-109`)."""
+        return 1 + self.state_size * self.output_size + self.output_size
+
+    @property
+    def singular_values(self) -> torch.Tensor:
+        """sqrt of each column norm — matches the reference exactly, which
+        takes ``column.norm().sqrt()`` (`ppca_model.rs:113-121`)."""
+        return torch.sqrt(torch.linalg.vector_norm(self.transform, dim=0))
+
+    @property
+    def device(self) -> torch.device:
+        return self.transform.device
+
+    def extra_repr(self) -> str:
+        return (f"output_size={self.output_size}, state_size={self.state_size}, "
+                f"isotropic_noise={float(self.isotropic_noise)}")
+
+    # ------------------------------------------------------------------ #
+    # serialization (src/python_bindings.rs:388-401,513-532)
+
+    def dump(self) -> bytes:
+        def host(t):
+            return t.detach().cpu().to(torch.float64).numpy()
+
+        return dump_bytes(
+            "ppca_model",
+            {
+                "transform": host(self.transform),
+                "mean": host(self.mean),
+                "isotropic_noise": host(self.isotropic_noise),
+            },
+        )
+
+    @staticmethod
+    def load(data: bytes, *, device=None, dtype=None) -> "PPCAModel":
+        arrays, _ = load_bytes(data, "ppca_model")
+        return PPCAModel(
+            isotropic_noise=float(arrays["isotropic_noise"]),
+            transform=arrays["transform"],
+            mean=arrays["mean"],
+            device=device,
+            dtype=dtype,
+        )
+
+    def __reduce__(self):
+        return (PPCAModel.load, (self.dump(),))
+
+    # ------------------------------------------------------------------ #
+    # likelihood (ppca_model.rs:124-159)
+
+    def _params(self):
+        return self.transform, self.mean, self.isotropic_noise
+
+    def llk(self, dataset: Dataset) -> float:
+        """Weighted total log-likelihood (`ppca_model.rs:142-149`)."""
+        if dataset.is_empty():
+            return 0.0
+        return float((self.llks(dataset) * dataset.weights_dev).sum())
+
+    def llks(self, dataset: Dataset) -> torch.Tensor:
+        """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
+        return ml.llks(*self._params(), dataset.data, dataset.mask,
+                       block_size=config.block_size)
+
+    # ------------------------------------------------------------------ #
+    # sampling (ppca_model.rs:164-191)
+
+    def sample(self, dataset_size: int, mask_prob: float,
+               generator: Optional[torch.Generator] = None) -> Dataset:
+        """Generative sampling with Bernoulli masking: each entry is masked
+        with probability ``mask_prob``."""
+        C, mean, sigma = self._params()
+        gen = ensure_generator(generator, self.device)
+        opts = dict(generator=gen, dtype=C.dtype, device=gen.device)
+        n, D = int(dataset_size), self.output_size
+        z = torch.randn((n, self.state_size), **opts).to(self.device)
+        eps = torch.randn((n, D), **opts).to(self.device)
+        observed = (torch.rand((n, D), **opts) < 1.0 - mask_prob).to(self.device)
+        values = z @ C.T + mean + sigma * eps
+        return Dataset.from_parts(torch.where(observed, values, torch.zeros_like(values)),
+                                  observed)
+
+    # ------------------------------------------------------------------ #
+    # inference (ppca_model.rs:195-261)
+
+    def infer(self, dataset: Dataset) -> "InferredMasked":
+        states, covs = ml.infer(*self._params(), dataset.data, dataset.mask,
+                                block_size=config.block_size)
+        return InferredMasked(self, states, covs)
+
+    def _smoothed(self, dataset: Dataset) -> torch.Tensor:
+        C, mean, sigma = self._params()
+        states = ml.states(C, mean, sigma, dataset.data, dataset.mask,
+                           block_size=config.block_size)
+        return states @ C.T + mean
+
+    def smooth(self, dataset: Dataset) -> Dataset:
+        """De-noise observed values and fill missing ones
+        (`ppca_model.rs:231-244`); preserves dataset weights."""
+        return Dataset.unmasked(self._smoothed(dataset), dataset.weights_dev)
+
+    def extrapolate(self, dataset: Dataset) -> Dataset:
+        """Fill missing values, keeping observed ones untouched
+        (`ppca_model.rs:248-261`); preserves dataset weights."""
+        out = torch.where(dataset.mask, dataset.data, self._smoothed(dataset))
+        return Dataset.unmasked(out, dataset.weights_dev)
+
+    # ------------------------------------------------------------------ #
+    # EM (ppca_model.rs:263-393)
+
+    def iterate(self, dataset: Dataset) -> "PPCAModel":
+        """One EM iteration; the log-likelihood never decreases
+        (`ppca_model.rs:263-269`)."""
+        return self._em_step(dataset, None)[0]
+
+    def iterate_with_prior(self, dataset: Dataset, prior: Prior) -> "PPCAModel":
+        """One MAP-EM iteration with the supplied prior
+        (`ppca_model.rs:271-393`)."""
+        return self._em_step(dataset, prior)[0]
+
+    def _em_step(self, dataset: Dataset, prior: Optional[Prior]) -> Tuple["PPCAModel", torch.Tensor]:
+        """One EM step: (new model, weighted llk of *this* model as a 0-dim
+        tensor), both from the same pass over the data."""
+        if dataset.is_empty():
+            # the reference panics with expect("non-empty dataset")
+            # (ppca_model.rs:358); raise instead of returning a NaN model.
+            raise ValueError("cannot iterate on an empty dataset")
+        C, mean, sigma = self._params()
+        tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(C.dtype, C.device)
+        stats = ml.em_stats(C, mean, sigma, dataset.data, dataset.mask, dataset.weights_dev,
+                            block_size=config.block_size)
+        new_C, new_mean, new_sigma = ml.em_finalize(
+            C, mean, sigma, stats, transformation_precision=tprec,
+            noise_prior=noise_prior, mean_prior=mean_prior,
+        )
+        return PPCAModel._from_params(new_C, new_mean, new_sigma), stats.llk
+
+    def _iterate_with_llk(self, dataset: Dataset, prior: Optional[Prior]) -> Tuple["PPCAModel", float]:
+        """EM step: (new model, llk of *this* model on the dataset)."""
+        model, llk = self._em_step(dataset, prior)
+        return model, float(llk)
+
+    def iterate_n(self, dataset: Dataset, n_iters: int,
+                  prior: Optional[Prior] = None) -> Tuple["PPCAModel", torch.Tensor]:
+        """``n_iters`` (MAP-)EM iterations.  Returns ``(model, llks)`` with
+        ``llks[i]`` the log-likelihood of the model *before* iteration ``i``;
+        nothing is copied to the host between iterations."""
+        if dataset.is_empty():
+            raise ValueError("cannot iterate on an empty dataset")
+        model, llks = self, []
+        for _ in range(int(n_iters)):
+            model, llk = model._em_step(dataset, prior)
+            llks.append(llk)
+        if not llks:
+            return model, torch.zeros((0,), dtype=self.transform.dtype, device=self.device)
+        return model, torch.stack(llks)
+
+    # ------------------------------------------------------------------ #
+
+    def to_canonical(self) -> "PPCAModel":
+        """Canonical rotation of the latent space; does not alter the
+        log-probability function (`ppca_model.rs:395-425`): SVD with V := I,
+        columns sign-fixed by the sign of their sum."""
+        if self.state_size == 0:
+            return self
+        if self.state_size > self.output_size:
+            raise ValueError(
+                "to_canonical requires state_size <= output_size "
+                f"(got {self.state_size} > {self.output_size})"
+            )
+        U, svals, _ = torch.linalg.svd(self.transform, full_matrices=False)
+        new_C = U * svals[None, :]
+        signs = torch.where(new_C.sum(0) >= 0, 1.0, -1.0).to(new_C.dtype)
+        return PPCAModel._from_params(new_C * signs[None, :], self.mean, self.isotropic_noise)
+
+
+class InferredMasked:
+    """Batch of per-sample posterior distributions in state space
+    (`src/python_bindings.rs:203-345` over `ppca_model.rs:428-593`)."""
+
+    def __init__(self, model: PPCAModel, states: torch.Tensor, covariances: torch.Tensor):
+        self._model = model
+        self._states = states            # (N, k)
+        self._covariances = covariances  # (N, k, k)
+
+    def __len__(self) -> int:
+        return int(self._states.shape[0])
+
+    def states(self) -> torch.Tensor:
+        return self._states
+
+    def covariances(self) -> List[torch.Tensor]:
+        """List of per-sample (k, k) posterior covariances."""
+        return list(self._covariances)
+
+    def covariances_array(self) -> torch.Tensor:
+        """(N, k, k) stacked covariances."""
+        return self._covariances
+
+    def second_moments(self) -> List[torch.Tensor]:
+        """Per-sample posterior second moments ``s s^T + Sigma``
+        (`ppca_model.rs:437-439`)."""
+        return list(self.second_moments_array())
+
+    def second_moments_array(self) -> torch.Tensor:
+        s = self._states
+        return self._covariances + s[:, :, None] * s[:, None, :]
+
+    def smoothed(self, model: PPCAModel) -> Dataset:
+        """C s + mu per sample (`ppca_model.rs:454-457`)."""
+        return Dataset.unmasked(self._states @ model.transform.T + model.mean)
+
+    def extrapolated(self, model: PPCAModel, dataset: Dataset) -> Dataset:
+        """Observed values kept, missing filled from the posterior
+        (`ppca_model.rs:460-463`)."""
+        smoothed = self._states @ model.transform.T + model.mean
+        return Dataset.unmasked(torch.where(dataset.mask, dataset.data, smoothed))
+
+    def _cov_diag(self, model: PPCAModel) -> torch.Tensor:
+        # diag(C Sigma C^T)[d] = sum_{kl} C[d,k] Sigma[k,l] C[d,l]
+        #                      = (Sigma_flat @ CC_flat^T)[n, d]: one matmul.
+        n, k, _ = self._covariances.shape
+        CC = ml.outer_flat(model.transform)
+        sigma = model.isotropic_noise
+        return self._covariances.reshape(n, k * k) @ CC.T + sigma * sigma
+
+    def _cov_full(self, model: PPCAModel) -> torch.Tensor:
+        C, sigma = model.transform, model.isotropic_noise
+        full = torch.einsum("dk,nkl,el->nde", C, self._covariances, C)
+        return full + (sigma * sigma) * torch.eye(C.shape[0], dtype=C.dtype, device=C.device)
+
+    def smoothed_covariances(self, model: PPCAModel) -> List[torch.Tensor]:
+        """Full (D, D) smoothed output covariances (`ppca_model.rs:471-477`)."""
+        return list(self._cov_full(model))
+
+    def smoothed_covariances_diagonal(self, model: PPCAModel) -> Dataset:
+        """Diagonal smoothed output covariances (`ppca_model.rs:485-508`)."""
+        return Dataset.unmasked(self._cov_diag(model))
+
+    def extrapolated_covariances(self, model: PPCAModel, dataset: Dataset) -> List[torch.Tensor]:
+        """Full (D, D) extrapolation covariances, zero at observed dims
+        (`ppca_model.rs:517-534`)."""
+        neg = (~dataset.mask).to(model.transform.dtype)
+        return list(self._cov_full(model) * neg[:, :, None] * neg[:, None, :])
+
+    def extrapolated_covariances_diagonal(self, model: PPCAModel, dataset: Dataset) -> Dataset:
+        """Diagonal extrapolation variances, zero at observed dims
+        (`ppca_model.rs:542-577`)."""
+        diag = self._cov_diag(model)
+        return Dataset.unmasked(torch.where(dataset.mask, torch.zeros_like(diag), diag))

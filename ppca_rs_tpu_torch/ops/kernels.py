@@ -1,0 +1,201 @@
+"""The batched SPD E-step: a hand-written CUDA kernel and its plain version.
+
+For every sample of a batch, with ``M = sigma^2 I + G`` (G the masked Gram
+``C^T diag(m) C``, b = ``C^T (m * (y - mu))``, rnorm = ``|m * (y - mu)|^2``,
+d_obs = ``|m|``), :func:`spd_estep` returns by ``want``:
+
+* ``"llk"``    -> ``(llk,)``
+* ``"states"`` -> ``(s, llk)`` with ``s = M^{-1} b``
+* ``"infer"``  -> ``(s, Sigma, llk, sq)`` with ``Sigma = sigma^2 M^{-1}``
+* ``"fullt"``  -> ``(s, SM, llk, sq)`` with ``SM = s s^T + Sigma``
+
+where ``llk`` is the per-sample log-likelihood and ``sq = tr(G Sigma) =
+sigma^2 (k - sigma^2 tr M^{-1})``, the noise-update term.  SM and Sigma are
+full symmetric matrices.
+
+Layout is batch-major: ``G (B, k, k)``, ``b (B, k)``, ``rnorm, d_obs (B,)``,
+``sigma`` a scalar (a Python float or a one-element tensor).
+
+On a CUDA tensor the wrapper launches the kernel in ``csrc/spd_estep.cu``
+(the port of ``ppca_rs_tpu/ops/kernels.py:_make_kernel`` / ``spd_estep``) or
+raises; on a CPU tensor it runs :func:`spd_estep_reference`.  There is no
+other route.  An all-masked sample (``G = 0``, ``b = 0``, ``rnorm = d_obs =
+0``) is neutral: ``s = 0``, ``Sigma = I``, ``llk = 0``.  A sample whose M is
+not positive definite yields non-finite values for that sample only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+LN_2PI = 1.8378770664093453
+
+WANTS = ("fullt", "states", "llk", "infer")
+_WANT_CODE = {"fullt": 0, "states": 1, "llk": 2, "infer": 3}
+
+#: Shared memory one thread block may use on Hopper (sm_90).
+SMEM_LIMIT_BYTES = 232448
+
+#: Kernel launches per variant, counted where the kernel is launched.
+LAUNCHES: Dict[str, int] = {w: 0 for w in WANTS}
+
+
+def reset_launch_counts() -> None:
+    for w in WANTS:
+        LAUNCHES[w] = 0
+
+
+def smem_bytes(want: str, k: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: M, plus W = L^{-1} for the
+    variants that form the inverse, plus three k-vectors and 32 slots."""
+    n_buf = 2 if want in ("fullt", "infer") else 1
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (n_buf * k * k + 3 * k + 32) * itemsize
+
+
+def max_k(want: str, dtype: torch.dtype) -> int:
+    """Largest state size the kernel takes for this variant and dtype."""
+    k = 1
+    while smem_bytes(want, k + 1, dtype) <= SMEM_LIMIT_BYTES:
+        k += 1
+    return k
+
+
+def spd_estep_reference(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel, on any device.
+
+    Built on ``torch.linalg.cholesky_ex``: a sample whose M does not factor
+    gets a NaN factor (as ``jnp.linalg.cholesky`` gives), so its outputs are
+    non-finite and no exception is raised."""
+    _check_want(want)
+    B, k, _ = G.shape
+    dtype, device = G.dtype, G.device
+    sigma = torch.as_tensor(sigma, dtype=dtype, device=device).reshape(())
+    s2 = sigma * sigma
+    eye = torch.eye(k, dtype=dtype, device=device)
+    L, info = torch.linalg.cholesky_ex(G + s2 * eye)
+    L = torch.where((info == 0)[:, None, None], L, torch.full_like(L, math.nan))
+    y = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False).squeeze(-1)
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    quad = (rnorm - (y * y).sum(-1)) / s2
+    llk = -0.5 * (quad + logdet + torch.log(s2) * (d_obs - k) + LN_2PI * d_obs)
+    if want == "llk":
+        return (llk,)
+    s = torch.linalg.solve_triangular(L.mT, y.unsqueeze(-1), upper=True).squeeze(-1)
+    if want == "states":
+        return s, llk
+    W = torch.linalg.solve_triangular(L, eye.expand(B, k, k), upper=False)
+    minv = W.mT @ W
+    sq = s2 * (k - s2 * torch.diagonal(minv, dim1=-2, dim2=-1).sum(-1))
+    cov = s2 * minv
+    if want == "infer":
+        return s, cov, llk, sq
+    return s, s[:, :, None] * s[:, None, :] + cov, llk, sq
+
+
+def spd_estep(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Tensor, ...]:
+    """The batched SPD E-step (see the module docstring for the outputs).
+
+    CPU tensors take :func:`spd_estep_reference`; CUDA tensors launch the
+    kernel, which raises on anything it does not take."""
+    _check_want(want)
+    _check_shapes(G, b, rnorm, d_obs)
+    if G.device.type == "cpu":
+        return spd_estep_reference(sigma, G, b, rnorm, d_obs, want)
+    B, k, _ = G.shape
+    outs = empty_outputs(want, B, k, G)
+    launch(want, sigma, G, b, rnorm, d_obs, outs)
+    return outs
+
+
+def output_shapes(want: str, B: int, k: int):
+    if want == "llk":
+        return [(B,)]
+    if want == "states":
+        return [(B, k), (B,)]
+    return [(B, k), (B, k, k), (B,), (B,)]
+
+
+def empty_outputs(want: str, B: int, k: int, like: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Uninitialised output tensors for ``want`` (the kernel writes every
+    element)."""
+    return tuple(torch.empty(sh, dtype=like.dtype, device=like.device)
+                 for sh in output_shapes(want, B, k))
+
+
+def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
+    """Launch the CUDA kernel into caller-provided outputs ``outs`` (as
+    returned by :func:`empty_outputs`) on the current stream.  Raises on
+    any input the kernel does not take and on a failed launch."""
+    from . import _build
+
+    _check_want(want)
+    _check_shapes(G, b, rnorm, d_obs)
+    B, k, _ = G.shape
+    dtype, device = G.dtype, G.device
+    if device.type != "cuda":
+        raise ValueError(f"the spd_estep kernel needs CUDA tensors, got {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the spd_estep kernel takes float32 or float64, got {dtype}")
+    if k < 1 or k > max_k(want, dtype):
+        raise ValueError(
+            f"state size k={k} is outside the spd_estep kernel's range for "
+            f"want={want!r} and {dtype}: 1 <= k <= {max_k(want, dtype)} "
+            f"({SMEM_LIMIT_BYTES} bytes of shared memory per block)"
+        )
+    sigma = torch.as_tensor(sigma, dtype=dtype, device=device).reshape(1)
+    shapes = output_shapes(want, B, k)
+    if len(outs) != len(shapes) or any(
+        tuple(o.shape) != sh or o.dtype != dtype or o.device != device
+        for o, sh in zip(outs, shapes)
+    ):
+        raise ValueError(f"outputs for want={want!r} must have shapes {shapes}")
+    tensors = (sigma, G, b, rnorm, d_obs, *outs)
+    for t in tensors:
+        if t.dtype != dtype or t.device != device:
+            raise ValueError("spd_estep tensors must share one dtype and device")
+        if not t.is_contiguous():
+            raise ValueError("the spd_estep kernel takes contiguous tensors only")
+    s = m = sq = None
+    if want == "llk":
+        (llk,) = outs
+    elif want == "states":
+        s, llk = outs
+    else:
+        s, m, llk, sq = outs
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.load()
+    fn = lib.spd_estep_f32 if dtype == torch.float32 else lib.spd_estep_f64
+    stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    err = fn(_WANT_CODE[want], index, ptr(sigma), ptr(G), ptr(b), ptr(rnorm), ptr(d_obs),
+             ptr(s), ptr(m), ptr(llk), ptr(sq), B, k, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"spd_estep kernel launch failed (want={want!r}, B={B}, k={k}): "
+            f"{lib.spd_estep_error_string(err).decode()}"
+        )
+    LAUNCHES[want] += 1
+
+
+def _check_want(want: str) -> None:
+    if want not in WANTS:
+        raise ValueError(f"want must be one of {WANTS}, got {want!r}")
+
+
+def _check_shapes(G, b, rnorm, d_obs) -> None:
+    if G.ndim != 3 or G.shape[1] != G.shape[2]:
+        raise ValueError(f"G must be (B, k, k), got {tuple(G.shape)}")
+    B, k, _ = G.shape
+    if tuple(b.shape) != (B, k):
+        raise ValueError(f"b must be ({B}, {k}), got {tuple(b.shape)}")
+    if tuple(rnorm.shape) != (B,) or tuple(d_obs.shape) != (B,):
+        raise ValueError(f"rnorm and d_obs must be ({B},)")
+    if not (b.device == rnorm.device == d_obs.device == G.device):
+        raise ValueError("spd_estep tensors must share one device")

@@ -1,0 +1,228 @@
+"""Mask-weighted dense linear algebra for masked PPCA, on torch tensors.
+
+Port of ``ppca_rs_tpu/ops/masked_linalg.py`` (the general masked path).
+Every sample runs the same fixed-shape algebra instead of gathering its
+observed rows of ``C``:
+
+* the masked Gram ``G_n = C^T diag(m_n) C`` is linear in the 0/1 mask, so
+  with the flattened per-row outer products ``CC in R^{D x k^2}`` the Grams
+  of a whole block are ONE matmul ``mask @ CC``;
+* the per-sample factorization of ``M_n = sigma^2 I + G_n`` and everything
+  derived from it (posterior state, covariance or second moment,
+  log-likelihood, noise-update trace) is :func:`ops.kernels.spd_estep`: the
+  CUDA kernel on the card, its plain version on the CPU;
+* the M-step statistic ``S[d] = sum_n w_n m_nd (s_n s_n^T + Sigma_n)`` is
+  the transposed matmul ``(w*m)^T @ SM``, and the M-step's row solves
+  ``(S[d] + lambda I) c_d = cross[d]`` are the same kernel with
+  ``sigma = sqrt(lambda)``.
+
+Everything is blocked over N by a plain loop over row slices (the last block
+is simply shorter), so peak memory is O(block * (D + k^2)).  An all-masked,
+zero-weight row is neutral in every reduction.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import kernels
+
+
+def outer_flat(C: torch.Tensor) -> torch.Tensor:
+    """Per-row flattened outer products: ``CC[d] = vec(c_d c_d^T)``, (D, k*k)."""
+    D, k = C.shape
+    return (C[:, :, None] * C[:, None, :]).reshape(D, k * k)
+
+
+class BlockPosterior(NamedTuple):
+    """E-step quantities of one block of samples."""
+
+    R: torch.Tensor        # (B, D) masked centered data
+    b: torch.Tensor        # (B, k) = R @ C
+    rnorm: torch.Tensor    # (B,) |R|^2
+    d_obs: torch.Tensor    # (B,) observed-entry counts
+    out: tuple             # spd_estep outputs for the requested want
+
+
+def block_posterior(C, CC, mean, sigma, data, mask_f, want: str) -> BlockPosterior:
+    """The E-step of one block (`ppca_model.rs:195-208`, batched): the
+    matmul prep, then the SPD kernel's ``want`` variant."""
+    k = C.shape[1]
+    n = data.shape[0]
+    R = mask_f * (data - mean)
+    b = R @ C
+    G = (mask_f @ CC).reshape(n, k, k)
+    rnorm = (R * R).sum(-1)
+    d_obs = mask_f.sum(-1)
+    out = kernels.spd_estep(sigma, G, b, rnorm, d_obs, want=want)
+    return BlockPosterior(R, b, rnorm, d_obs, out)
+
+
+def _blocks(n: int, block_size: int):
+    for start in range(0, n, block_size):
+        yield start, min(start + block_size, n)
+
+
+def _compute_dtype(data: torch.Tensor, C: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(torch.promote_types(data.dtype, torch.float32), C.dtype)
+
+
+def llks(C, mean, sigma, data, mask, *, block_size: int) -> torch.Tensor:
+    """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
+    dtype = _compute_dtype(data, C)
+    CC = outer_flat(C)
+    out = []
+    for lo, hi in _blocks(data.shape[0], block_size):
+        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
+                               mask[lo:hi].to(dtype), "llk")
+        out.append(post.out[0])
+    return _cat(out, data, dtype)
+
+
+def infer(C, mean, sigma, data, mask, *, block_size: int):
+    """Posterior states and covariances ``(states (N,k), covs (N,k,k))``
+    (`ppca_model.rs:221-227`)."""
+    dtype = _compute_dtype(data, C)
+    CC = outer_flat(C)
+    states_, covs = [], []
+    for lo, hi in _blocks(data.shape[0], block_size):
+        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
+                               mask[lo:hi].to(dtype), "infer")
+        states_.append(post.out[0])
+        covs.append(post.out[1])
+    return _cat(states_, data, dtype), _cat(covs, data, dtype)
+
+
+def states(C, mean, sigma, data, mask, *, block_size: int) -> torch.Tensor:
+    """Posterior state means only, (N, k) — the path behind smooth and
+    extrapolate (`ppca_model.rs:231-261`)."""
+    dtype = _compute_dtype(data, C)
+    CC = outer_flat(C)
+    out = []
+    for lo, hi in _blocks(data.shape[0], block_size):
+        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
+                               mask[lo:hi].to(dtype), "states")
+        out.append(post.out[0])
+    return _cat(out, data, dtype)
+
+
+def _cat(parts, data, dtype):
+    if parts:
+        return torch.cat(parts, dim=0)
+    return torch.empty((0,), dtype=dtype, device=data.device)
+
+
+class EMStats(NamedTuple):
+    """Sufficient statistics of one EM iteration."""
+
+    cross: torch.Tensor         # (D, k)   sum w r s^T        (ppca_model.rs:281-293)
+    S: torch.Tensor             # (D, k*k) sum w m_d (ss^T+Sigma) (ppca_model.rs:297-308)
+    square_error: torch.Tensor  # scalar   sum w tr(G Sigma)  (ppca_model.rs:345)
+    dev_sq: torch.Tensor        # scalar   sum w |dev|^2      (ppca_model.rs:346)
+    total_dev: torch.Tensor     # (D,)     sum w dev          (ppca_model.rs:347)
+    totals: torch.Tensor        # (D,)     sum w m            (ppca_model.rs:348)
+    llk: torch.Tensor           # scalar   weighted llk of the *current* model
+
+
+def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int) -> EMStats:
+    """One pass over the data: E-step posteriors and every M-step sufficient
+    statistic (`ppca_model.rs:277-358`), plus the weighted log-likelihood of
+    the current model.  Nothing is copied to the host."""
+    D, k = C.shape
+    dtype = _compute_dtype(data, C)
+    CC = outer_flat(C)
+    sigma2 = sigma * sigma
+    cross = torch.zeros((D, k), dtype=dtype, device=data.device)
+    S = torch.zeros((D, k * k), dtype=dtype, device=data.device)
+    total_dev = torch.zeros(D, dtype=dtype, device=data.device)
+    totals = torch.zeros(D, dtype=dtype, device=data.device)
+    # scalar statistics are kept per block and summed at the end
+    sq_parts, dev_parts, llk_parts = [], [], []
+    for lo, hi in _blocks(data.shape[0], block_size):
+        mask_f = mask[lo:hi].to(dtype)
+        w = weights[lo:hi].to(dtype)
+        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype), mask_f, "fullt")
+        s, SM, llk_b, sq_b = post.out
+        sw = s * w[:, None]
+        cross += post.R.T @ sw
+        mw = mask_f * w[:, None]
+        S += mw.T @ SM.reshape(-1, k * k)
+        sq_parts.append((w * sq_b).sum())
+        # No residual materialization: with M s = b and G = M - sigma^2 I,
+        # s^T G s = b.s - sigma^2 |s|^2, so the masked residual norm is
+        # rnorm - b.s - sigma^2 |s|^2 (clamped: it can round below zero
+        # when the residual is ~0), and w @ dev is w @ R minus a (D, k)
+        # contraction.
+        bs = (post.b * s).sum(-1)
+        s2 = (s * s).sum(-1)
+        dev_parts.append((w * torch.clamp(post.rnorm - bs - sigma2 * s2, min=0.0)).sum())
+        msw = mask_f.T @ sw
+        total_dev += w @ post.R - (C * msw).sum(-1)
+        totals += w @ mask_f
+        llk_parts.append((w * llk_b).sum())
+
+    def total(parts):
+        if not parts:
+            return torch.zeros((), dtype=dtype, device=data.device)
+        return torch.stack(parts).sum()
+
+    return EMStats(cross, S, total(sq_parts), total(dev_parts), total_dev, totals,
+                   total(llk_parts))
+
+
+def rows_solve(S_sq, cross, lam) -> torch.Tensor:
+    """Batched SPD row solve ``(S[d] + lam I) c_d = cross[d]`` through the
+    SPD kernel's ``states`` variant with ``sigma = sqrt(lam)``.  A singular
+    row (an empty dimension with ``lam = 0``) comes back non-finite; the
+    other rows are unaffected."""
+    D, k, _ = S_sq.shape
+    lam = torch.as_tensor(lam, dtype=S_sq.dtype, device=S_sq.device)
+    zeros = torch.zeros(D, dtype=S_sq.dtype, device=S_sq.device)
+    sol, _ = kernels.spd_estep(torch.sqrt(lam), S_sq.contiguous(), cross.contiguous(),
+                               zeros, zeros, want="states")
+    return sol
+
+
+def em_finalize(C, mean, sigma, stats: EMStats, *, transformation_precision,
+                noise_prior: Optional[tuple] = None, mean_prior: Optional[tuple] = None):
+    """M-step parameter updates from the sufficient statistics
+    (`ppca_model.rs:294-393`).  Returns ``(new_C, new_mean, new_sigma)``."""
+    D, k = C.shape
+
+    # --- transform rows, keeping the old row where the solve is non-finite
+    # (the QR-failure fallback at ppca_model.rs:313-321).  S is symmetric
+    # by construction; rebuilding it from its lower triangle keeps the
+    # solve exact for any consumer that fills only that triangle.
+    S_sq = stats.S.reshape(D, k, k)
+    S_sq = torch.tril(S_sq) + torch.tril(S_sq, -1).mT
+    sol = rows_solve(S_sq, stats.cross, transformation_precision)
+    ok = torch.isfinite(sol).all(dim=-1, keepdim=True)
+    new_C = torch.where(ok, sol, C)
+
+    # --- isotropic noise (ppca_model.rs:360-371)
+    sq = stats.square_error + stats.dev_sq
+    n_obs = stats.totals.sum()
+    if noise_prior is not None:
+        alpha, beta = noise_prior
+        # inverse-gamma MAP mode: (sq/2 + beta) / (n/2 + alpha + 1)
+        sigma2_new = (sq / 2.0 + beta) / (n_obs / 2.0 + alpha + 1.0)
+    else:
+        sigma2_new = sq / n_obs
+
+    # --- mean (ppca_model.rs:373-384)
+    seen = stats.totals > 0
+    new_mean = torch.where(
+        seen, stats.total_dev / torch.where(seen, stats.totals, torch.ones_like(stats.totals)),
+        torch.zeros_like(stats.totals),
+    ) + mean
+    if mean_prior is not None:
+        prior_mean, prior_precision = mean_prior
+        # precision-weighted combine solved directly (prior.rs:97-110)
+        data_precision_diag = stats.totals / sigma2_new
+        total_precision = prior_precision + torch.diag(data_precision_diag)
+        numerator = prior_precision @ prior_mean + data_precision_diag * new_mean
+        new_mean = torch.linalg.solve(total_precision, numerator)
+
+    return new_C, new_mean, torch.sqrt(sigma2_new)
