@@ -5,21 +5,33 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and runs four
+It builds the CUDA kernels from the sources in the checkout and runs six
 phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
-2. every spd_estep kernel variant against its plain PyTorch version at
-   B=8192, k in {2, 13, 64, 128}, in float64 and float32, on inputs with
-   all-masked samples and NaN-prefilled outputs; the M-step row solve at
-   lambda=0 with a singular row; requests above the shared-memory ceiling
-   must raise; kernel and plain times side by side;
-3. the main path at full width: masked PPCA EM at D=1024, k=64, 50% missing,
-   N=1,048,576 float32 rows made on the card from a seed, five trainer
-   iterations, then the llk, infer, covariance-diagonal, smooth and
-   extrapolate readouts, with the kernel launch counts of that run;
+2. every spd_estep kernel variant and spd_chol against its plain PyTorch
+   version at B=8192, k in {2, 13, 64, 128}, in float64 and float32, on
+   inputs with all-masked (spd_estep) or non-SPD and identity (spd_chol)
+   samples and NaN-prefilled outputs; the M-step row solve at lambda=0 with
+   a singular row; requests above the shared-memory ceiling must raise;
+   kernel and plain times side by side;
+3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
+   missing at random, N=1,048,576 float32 rows made on the card from a
+   seed (pattern detection must demote them), five trainer iterations,
+   then the llk, infer, covariance-diagonal, smooth and extrapolate
+   readouts, with the kernel launch counts of that run;
 4. one EM step and the per-sample llks of a 16,384-row slice on the card in
-   float32 against the port's plain path on the CPU in float64.
+   float32 against the port's plain path on the CPU in float64;
+5. the pattern path at full width: N=1,000,000, D=1024, k=64, rows drawn
+   from P=32 Bernoulli(0.5) mask patterns (bench_suite.py's structured
+   missingness), detection, five trainer iterations through the pattern
+   tables (the ``full`` kernel, no per-sample factorization), the
+   readouts, the posterior sampler (``spd_chol``) with a check of its
+   draws' moments, two iterations on the pattern and on the general path
+   from one start, and the phase-4 check on 16,384 structured rows;
+6. the dense path: N=1,048,576 fully observed rows, five trainer
+   iterations with no per-sample kernel, and one EM step of the dense path
+   against the masked path on a 16,384-row slice.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -39,8 +51,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-SOURCE = "ppca_rs_tpu_torch/csrc/spd_estep.cu"
-REPLACES = "ppca_rs_tpu/ops/kernels.py:501"  # spd_estep -> pl.pallas_call, body _make_kernel :176
+ESTEP_SOURCE = "ppca_rs_tpu_torch/csrc/spd_estep.cu"
+ESTEP_REPLACES = "ppca_rs_tpu/ops/kernels.py:501"  # spd_estep -> pl.pallas_call, body _make_kernel :176
+CHOL_SOURCE = "ppca_rs_tpu_torch/csrc/spd_chol.cu"
+CHOL_REPLACES = "ppca_rs_tpu/ops/kernels.py:663"   # spd_chol -> pl.pallas_call :727
 
 BATCH = 8192
 KS = (2, 13, 64, 128)
@@ -59,12 +73,26 @@ TOL_CARD_VS_CPU = 1e-3
 #: much relative to its magnitude.
 LLK_SLACK = 1e-5
 
+#: Pattern path and general path trained from one start agree on the final
+#: llk to this relative bound (examples/structured_missingness.py).
+TOL_PATH_LLK = 1e-4
+#: Posterior draws: their mean lies within this many standard errors of
+#: the smoothed values on every entry, and their mean variance within this
+#: relative distance of the mean smoothed covariance diagonal.
+SAMPLER_SE = 6.0
+SAMPLER_VAR = 0.1
+
 N_MAIN = 1 << 20
 D_MAIN = 1024
 K_MAIN = 64
 N_ITERS = 5
 N_READOUT = 65536
 N_CPU = 16384
+N_PATTERN = 1_000_000
+P_PATTERN = 32
+N_COMPARE_ITERS = 2
+N_SAMPLER_ROWS = 1024
+N_DRAWS = 64
 SEED = 20261016
 
 
@@ -233,7 +261,68 @@ def phase_kernels():
     print("[kernels] every variant refuses k above its shared-memory ceiling "
           + ", ".join(f"{w}: f32 {kernels.max_k(w, torch.float32)}, f64 {kernels.max_k(w, torch.float64)}"
                       for w in kernels.WANTS))
+    check_chol(gen, summary)
     return summary
+
+
+#: spd_chol inputs: this sample is made negative definite, this one the identity.
+NOT_SPD, IDENTITY = 5, 9
+
+
+def check_chol(gen, summary) -> None:
+    """spd_chol against its plain version: a non-SPD sample goes non-finite
+    alone, the identity factors to itself, and every element above the
+    diagonal is written as 0."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    for k in KS:
+        f64 = dict(dtype=torch.float64, device="cuda")
+        V = torch.randn(BATCH, k, 2 * k, generator=gen, **f64)
+        eye = torch.eye(k, **f64)
+        M64 = V @ V.mT / (2 * k) + 0.1 * eye
+        del V
+        M64[NOT_SPD] = -M64[NOT_SPD]
+        M64[IDENTITY] = eye
+        good = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+        good[NOT_SPD] = False
+        for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
+            tag = f"chol k={k} {str(dtype).replace('torch.', '')}"
+            M = M64.to(dtype).contiguous()
+            L = torch.full_like(M, math.nan)
+            kernels.launch_chol(M, L)
+            torch.cuda.synchronize()
+            ref = kernels.spd_chol_reference(M.double())
+            check(bool(torch.isfinite(L[good]).all()), f"{tag}: an SPD sample's factor is non-finite")
+            check(not bool(torch.isfinite(L[NOT_SPD]).all()), f"{tag}: the non-SPD sample factored")
+            check(bool((torch.triu(L, 1) == 0).all()), f"{tag}: an element above the diagonal is not 0")
+            check(float((L[IDENTITY].double() - eye).abs().max()) <= 1e-6,
+                  f"{tag}: the identity does not factor to itself")
+            err = rel_err(L[good], ref[good])
+            abs_err = float((L[good].double() - ref[good]).abs().max())
+            check(err <= tol, f"{tag}: relative error {err:.3e} above {tol}")
+            line = (f"[kernels] {tag}: max rel err {err:.3e} (tol {tol:g}), max abs err {abs_err:.3e}; "
+                    "non-SPD sample non-finite alone, identity exact, zeros above the diagonal")
+            if dtype == torch.float32:
+                M[NOT_SPD] = eye.to(dtype)
+                plain = lambda: kernels.spd_chol_reference(M)  # noqa: E731
+                kern = lambda: kernels.spd_chol(M)  # noqa: E731
+                p1, k1, k2, p2 = cuda_ms(plain, 5), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 5)
+                line += f"; kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms (B={BATCH})"
+                if k == TIMED_K:
+                    summary["chol"] = dict(max_abs_err=abs_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+            print(line)
+            del M, L, ref
+        del M64
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.float64):
+        k = kernels.max_k("chol", dtype) + 1
+        try:
+            kernels.spd_chol(torch.eye(k, dtype=dtype, device="cuda").expand(1, k, k).contiguous())
+        except ValueError:
+            continue
+        raise RuntimeError(f"chol {dtype}: k={k} above the ceiling was not refused")
+    print(f"[kernels] chol refuses k above its shared-memory ceiling: "
+          f"f32 {kernels.max_k('chol', torch.float32)}, f64 {kernels.max_k('chol', torch.float64)}")
 
 
 # --------------------------------------------------------------------- #
@@ -261,23 +350,18 @@ def make_main_dataset():
     return Dataset.from_parts(data, mask)
 
 
-def phase_main(smi: str):
+def train(tag: str, dataset, seed: int, smi: str):
+    """Five trainer iterations from a seeded init, timed per iteration;
+    the llk must never decrease.  Returns (model, launches during it)."""
     from ppca_rs_tpu_torch import PPCATrainer
     from ppca_rs_tpu_torch.ops import kernels
-
-    t0 = time.perf_counter()
-    dataset = make_main_dataset()
-    torch.cuda.synchronize()
-    print(f"[main] dataset N={len(dataset)} D={dataset.output_size()} k={K_MAIN} "
-          f"{dataset.dtype}, observed share {float(dataset.mask.float().mean()):.4f}, "
-          f"made in {time.perf_counter() - t0:.2f} s")
 
     llks, stamps = [], []
 
     def callback(it, metrics):
         stamps.append(time.perf_counter())
         llks.append(metrics.llk)
-        print(f"[main] iteration {it}: llk/sample {metrics.llk:.6f}, "
+        print(f"[{tag}] iteration {it}: llk/sample {metrics.llk:.6f}, "
               f"{stamps[-1] - stamps[-2]:.3f} s")
 
     torch.cuda.reset_peak_memory_stats()
@@ -286,34 +370,35 @@ def phase_main(smi: str):
     stamps.append(time.perf_counter())
     model = PPCATrainer(dataset).train(
         state_size=K_MAIN, n_iters=N_ITERS, quiet=True, callback=callback,
-        generator=torch.Generator(device="cuda").manual_seed(SEED + 2),
+        generator=torch.Generator(device="cuda").manual_seed(seed),
     )
     torch.cuda.synchronize()
-    train_launches = dict(kernels.LAUNCHES)
+    launches = dict(kernels.LAUNCHES)
     per_iter = [b - a for a, b in zip(stamps, stamps[1:])]
-    check(all(math.isfinite(v) for v in llks), f"non-finite llk in {llks}")
+    check(all(math.isfinite(v) for v in llks), f"{tag}: non-finite llk in {llks}")
     for a, b in zip(llks, llks[1:]):
-        check(b >= a - LLK_SLACK * abs(a), f"llk decreased: {a} -> {b}")
-    n_blocks = -(-N_MAIN // 8192)
-    check(train_launches["fullt"] >= N_ITERS * n_blocks,
-          f"fullt launches {train_launches['fullt']} < {N_ITERS * n_blocks}")
-    check(train_launches["states"] >= N_ITERS,
-          f"states launches {train_launches['states']} < {N_ITERS}")
-    print(f"[main] launches during training: {train_launches}")
-    print(f"[main] seconds per EM iteration at N={N_MAIN}: "
-          + ", ".join(f"{s:.3f}" for s in per_iter)
-          + f"; mean of iterations 2-{N_ITERS}: {sum(per_iter[1:]) / (N_ITERS - 1):.3f} s "
+        check(b >= a - LLK_SLACK * abs(a), f"{tag}: llk decreased: {a} -> {b}")
+    print(f"[{tag}] launches during training: {launches}")
+    print(f"[{tag}] seconds per EM iteration at N={len(dataset)}: "
+          + ", ".join(f"{s:.4f}" for s in per_iter)
+          + f"; mean of iterations 2-{N_ITERS}: {sum(per_iter[1:]) / (N_ITERS - 1):.4f} s "
           f"({smi}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     t0 = time.perf_counter()
     total = model.llk(dataset)
-    print(f"[main] model.llk: {total:.6e} ({total / N_MAIN:.6f} per sample), "
+    print(f"[{tag}] model.llk: {total:.6e} ({total / len(dataset):.6f} per sample), "
           f"{time.perf_counter() - t0:.3f} s")
-    check(math.isfinite(total), "final llk is not finite")
-    check(total / N_MAIN >= llks[-1] - LLK_SLACK * abs(llks[-1]),
-          f"final llk/sample {total / N_MAIN} below the last iteration's {llks[-1]}")
+    check(math.isfinite(total), f"{tag}: final llk is not finite")
+    check(total / len(dataset) >= llks[-1] - LLK_SLACK * abs(llks[-1]),
+          f"{tag}: final llk/sample {total / len(dataset)} below the last iteration's {llks[-1]}")
+    return model, launches
 
-    sub = dataset.slice(0, N_READOUT)
+
+def check_readouts(tag: str, model, sub):
+    """infer, the covariance diagonals, smooth and extrapolate on ``sub``:
+    shapes, finiteness, and observed entries left alone.  Returns the
+    InferredMasked."""
+    n = len(sub)
     inferred = model.infer(sub)
     states, covs = inferred.states(), inferred.covariances_array()
     sd = inferred.smoothed_covariances_diagonal(model).data
@@ -321,41 +406,76 @@ def phase_main(smi: str):
     smoothed = model.smooth(sub).data
     extrapolated = model.extrapolate(sub).data
     torch.cuda.synchronize()
-    shapes = {"states": (states, (N_READOUT, K_MAIN)), "covariances": (covs, (N_READOUT, K_MAIN, K_MAIN)),
-              "smoothed_cov_diag": (sd, (N_READOUT, D_MAIN)), "extrapolated_cov_diag": (ed, (N_READOUT, D_MAIN)),
-              "smooth": (smoothed, (N_READOUT, D_MAIN)), "extrapolate": (extrapolated, (N_READOUT, D_MAIN))}
+    shapes = {"states": (states, (n, K_MAIN)), "covariances": (covs, (n, K_MAIN, K_MAIN)),
+              "smoothed_cov_diag": (sd, (n, D_MAIN)), "extrapolated_cov_diag": (ed, (n, D_MAIN)),
+              "smooth": (smoothed, (n, D_MAIN)), "extrapolate": (extrapolated, (n, D_MAIN))}
     for name, (t, shape) in shapes.items():
-        check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
-        check(bool(torch.isfinite(t).all()), f"{name} has non-finite values")
-    check(bool((ed[sub.mask] == 0).all()), "extrapolation variance is nonzero at observed entries")
-    check(bool((ed[~sub.mask] > 0).all()), "extrapolation variance is not positive at missing entries")
-    check(bool((sd > 0).all()), "smoothed variance is not positive")
+        check(tuple(t.shape) == shape, f"{tag}: {name} shape {tuple(t.shape)} != {shape}")
+        check(bool(torch.isfinite(t).all()), f"{tag}: {name} has non-finite values")
+    check(bool((ed[sub.mask] == 0).all()), f"{tag}: extrapolation variance is nonzero at observed entries")
+    check(bool((ed[~sub.mask] > 0).all()), f"{tag}: extrapolation variance is not positive at missing entries")
+    check(bool((sd > 0).all()), f"{tag}: smoothed variance is not positive")
     check(bool((extrapolated[sub.mask] == sub.data[sub.mask]).all()),
-          "extrapolate changed observed entries")
-    print(f"[main] readouts on {N_READOUT} rows: shapes and finiteness ok, extrapolation "
+          f"{tag}: extrapolate changed observed entries")
+    print(f"[{tag}] readouts on {n} rows: shapes and finiteness ok, extrapolation "
           f"variance 0 at observed entries; mean smoothed sd {float(sd.sqrt().mean()):.4f}")
-    return model, dataset, dict(kernels.LAUNCHES)
+    return inferred
+
+
+def phase_main(smi: str):
+    from ppca_rs_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    dataset = make_main_dataset()
+    torch.cuda.synchronize()
+    print(f"[main] dataset N={len(dataset)} D={dataset.output_size()} k={K_MAIN} "
+          f"{dataset.dtype}, observed share {float(dataset.mask.float().mean()):.4f}, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    check(dataset.pattern_info() is None, "random masks were taken for structured missingness")
+    print(f"[main] pattern detection demoted the random masks in {time.perf_counter() - t0:.3f} s")
+
+    model, train_launches = train("main", dataset, SEED + 2, smi)
+    n_blocks = -(-N_MAIN // 8192)
+    check(train_launches["fullt"] >= N_ITERS * n_blocks,
+          f"fullt launches {train_launches['fullt']} < {N_ITERS * n_blocks}")
+    check(train_launches["states"] >= N_ITERS,
+          f"states launches {train_launches['states']} < {N_ITERS}")
+
+    check_readouts("main", model, dataset.slice(0, N_READOUT))
+    launches = dict(kernels.LAUNCHES)
+    n_sub = -(-N_READOUT // 8192)
+    want = {"fullt": N_ITERS * n_blocks, "states": N_ITERS + 2 * n_sub, "llk": n_blocks,
+            "infer": n_sub, "full": 0, "chol": 0}
+    check(launches == want, f"masked path launches {launches} != {want}")
+    return model, dataset, launches
 
 
 # --------------------------------------------------------------------- #
 # phase 4
 
 
-def phase_card_vs_cpu(model, dataset):
+def card_vs_cpu(tag: str, model, sub, used, unused=()):
+    """One EM step and the per-sample llks of ``sub`` on the card in float32
+    against the port on the CPU in float64, which takes the same route.
+    The card run must launch the kernels in ``used`` and none in ``unused``."""
     from ppca_rs_tpu_torch import Dataset, PPCAModel
     from ppca_rs_tpu_torch.ops import kernels
 
-    sub = dataset.slice(0, N_CPU)
     before = dict(kernels.LAUNCHES)
     card = model.iterate(sub)
     card_llks = model.llks(sub)
     torch.cuda.synchronize()
-    check(kernels.LAUNCHES["fullt"] > before["fullt"] and kernels.LAUNCHES["llk"] > before["llk"],
-          "the card run did not go through the kernels")
+    for name in used:
+        check(kernels.LAUNCHES[name] > before[name], f"{tag}: the card run did not launch {name}")
+    for name in unused:
+        check(kernels.LAUNCHES[name] == before[name], f"{tag}: the card run launched {name}")
 
     host = PPCAModel._from_params(model.transform.cpu().double(), model.mean.cpu().double(),
                                   model.isotropic_noise.cpu().double())
     sub_cpu = Dataset.from_parts(sub.data.cpu().double(), sub.mask.cpu(), sub.weights_dev.cpu().double())
+    check((sub_cpu.pattern_info() is None) == (sub.pattern_info() is None),
+          f"{tag}: the CPU copy takes another route")
     t0 = time.perf_counter()
     cpu = host.iterate(sub_cpu)
     cpu_llks = host.llks(sub_cpu)
@@ -366,12 +486,204 @@ def phase_card_vs_cpu(model, dataset):
         "isotropic_noise": rel_err(card.isotropic_noise.cpu().reshape(1), cpu.isotropic_noise.reshape(1)),
         "llks": rel_err(card_llks.cpu(), cpu_llks),
     }
-    print(f"[card-vs-cpu] {N_CPU} rows, one EM step + llks, card float32 vs CPU float64 "
-          f"plain path ({secs:.1f} s on the CPU): "
+    print(f"[{tag}] {len(sub)} rows, one EM step + llks, card float32 vs CPU float64 "
+          f"({secs:.1f} s on the CPU): "
           + ", ".join(f"{n} {v:.3e}" for n, v in diffs.items())
           + f" (max rel diff, tol {TOL_CARD_VS_CPU:g})")
     for name, v in diffs.items():
-        check(v <= TOL_CARD_VS_CPU, f"card vs CPU {name}: {v:.3e} above {TOL_CARD_VS_CPU}")
+        check(v <= TOL_CARD_VS_CPU, f"{tag} {name}: {v:.3e} above {TOL_CARD_VS_CPU}")
+
+
+# --------------------------------------------------------------------- #
+# phase 5
+
+
+def make_pattern_dataset():
+    """N_PATTERN x D_MAIN float32 rows of a rank-K_MAIN model plus noise,
+    each row's mask one of P_PATTERN Bernoulli(0.5) patterns, rows assigned
+    uniformly (bench_suite.py's structured-missingness configuration),
+    generated on the card.  Returns (dataset, the patterns drawn)."""
+    from ppca_rs_tpu_torch import Dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    opts = dict(generator=gen, device="cuda", dtype=torch.float32)
+    patterns = torch.rand(P_PATTERN, D_MAIN, generator=gen, device="cuda") < 0.5
+    mask = patterns[torch.randint(0, P_PATTERN, (N_PATTERN,), generator=gen, device="cuda")]
+    C = torch.randn(D_MAIN, K_MAIN, **opts)
+    data = torch.empty(N_PATTERN, D_MAIN, device="cuda", dtype=torch.float32)
+    step = 1 << 16
+    for lo in range(0, N_PATTERN, step):
+        hi = min(lo + step, N_PATTERN)
+        y = torch.randn(hi - lo, K_MAIN, **opts) @ C.T + 0.4 * torch.randn(hi - lo, D_MAIN, **opts)
+        data[lo:hi] = torch.where(mask[lo:hi], y, torch.zeros_like(y))
+    return Dataset.from_parts(data, mask), patterns
+
+
+def check_sampler_moments(model, rows):
+    """N_DRAWS posterior draws of ``rows``: their mean within SAMPLER_SE
+    standard errors of ``smooth`` on every entry, their mean variance within
+    SAMPLER_VAR of the mean smoothed covariance diagonal."""
+    inferred = model.infer(rows)
+    sampler = inferred.posterior_sampler()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    total = torch.zeros(len(rows), D_MAIN, dtype=torch.float64, device="cuda")
+    total_sq = torch.zeros_like(total)
+    for _ in range(N_DRAWS):
+        y = sampler.sample(generator=gen).data.double()
+        total += y
+        total_sq += y * y
+    mean = total / N_DRAWS
+    var = (total_sq - N_DRAWS * mean * mean) / (N_DRAWS - 1)
+    smooth = model.smooth(rows).data.double()
+    sdiag = inferred.smoothed_covariances_diagonal(model).data.double()
+    z = float(((mean - smooth).abs() / (sdiag / N_DRAWS).sqrt()).max())
+    ratio = float(var.mean() / sdiag.mean())
+    print(f"[pattern] sampler: {N_DRAWS} draws of {len(rows)} rows: max |mean - smooth| "
+          f"{z:.2f} standard errors (bound {SAMPLER_SE:g}); mean variance / mean smoothed "
+          f"covariance diagonal {ratio:.4f} (bound 1 +- {SAMPLER_VAR:g})")
+    check(z <= SAMPLER_SE, f"sampler mean {z:.2f} standard errors from smooth")
+    check(abs(ratio - 1.0) <= SAMPLER_VAR, f"sampler variance ratio {ratio:.4f}")
+
+
+def phase_pattern(smi: str):
+    from ppca_rs_tpu_torch import PPCAModel, config
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+
+    t0 = time.perf_counter()
+    dataset, drawn = make_pattern_dataset()
+    torch.cuda.synchronize()
+    print(f"[pattern] dataset N={len(dataset)} D={D_MAIN} k={K_MAIN} {dataset.dtype}, "
+          f"{P_PATTERN} mask patterns, observed share {float(dataset.mask.float().mean()):.4f}, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    info = dataset.pattern_info()
+    torch.cuda.synchronize()
+    t_detect = time.perf_counter() - t0
+    check(info is not None and info[1].shape[0] == P_PATTERN, "the mask patterns were not detected")
+    pidx, patterns = info
+    check(bool((patterns[pidx] == dataset.mask).all()), "the detected patterns do not rebuild the mask")
+    check(bool((patterns[:, None, :] == drawn[None]).all(-1).any(0).all()),
+          "a drawn pattern is missing from the detected ones")
+    t0 = time.perf_counter()
+    order = dataset.pattern_order()
+    torch.cuda.synchronize()
+    check(order is not None, "the rows sorted by pattern were not built")
+    print(f"[pattern] detection {t_detect:.3f} s ({P_PATTERN} patterns, they rebuild the mask), "
+          f"sorted copy {time.perf_counter() - t0:.3f} s, segments of "
+          f"{min(order[2])}-{max(order[2])} rows")
+
+    model, train_launches = train("pattern", dataset, SEED + 4, smi)
+    check(train_launches["fullt"] == 0, f"the pattern path factored per sample: {train_launches}")
+    check(train_launches["full"] >= N_ITERS, f"full launches {train_launches['full']} < {N_ITERS}")
+
+    sub = dataset.slice(0, N_READOUT)
+    check(sub.pattern_info() is not None, "the readout rows were not taken as structured")
+    inferred = check_readouts("pattern", model, sub)
+    draw = inferred.posterior_sampler().sample(
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 5)).data
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["chol"] >= 1, "the posterior sampler did not launch spd_chol")
+    check(tuple(draw.shape) == (N_READOUT, D_MAIN) and bool(torch.isfinite(draw).all()),
+          "posterior draws are not finite or have the wrong shape")
+    check_sampler_moments(model, sub.slice(0, N_SAMPLER_ROWS))
+    launches = dict(kernels.LAUNCHES)
+    for name in ("fullt", "llk", "infer"):
+        check(launches[name] == 0, f"the pattern path launched {name}: {launches}")
+    print(f"[pattern] launches of the pattern path (training, readouts, sampler): {launches}")
+
+    # both kernels again at the shapes this path gave them, against their
+    # plain versions (these launches are not counted above)
+    C, mean, sigma = model.transform, model.mean, model.isotropic_noise
+    G = (patterns.float() @ ml.outer_flat(C)).reshape(P_PATTERN, K_MAIN, K_MAIN)
+    zb, zr = torch.zeros(P_PATTERN, K_MAIN, device="cuda"), torch.zeros(P_PATTERN, device="cuda")
+    d_obs = patterns.float().sum(-1)
+    got = kernels.spd_estep(sigma, G, zb, zr, d_obs, want="full")
+    ref = kernels.spd_estep_reference(sigma.double(), G.double(), zb.double(), zr.double(),
+                                      d_obs.double(), "full")
+    err_full = max(rel_err(g, r) for g, r in zip(got[1:], ref[1:]))
+    covs = inferred.covariances_array().contiguous()
+    err_chol = rel_err(kernels.spd_chol(covs), kernels.spd_chol_reference(covs.double()))
+    print(f"[pattern] at this path's shapes: full (B={P_PATTERN}) max rel err {err_full:.3e}, "
+          f"chol (B={N_READOUT}) max rel err {err_chol:.3e} (tol {TOL_F32:g})")
+    check(err_full <= TOL_F32 and err_chol <= TOL_F32, "a kernel disagrees at the path's shapes")
+    del inferred, covs, draw
+
+    start = PPCAModel.init(K_MAIN, dataset, generator=torch.Generator(device="cuda").manual_seed(SEED + 7))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pat_model, pat_llks = start.iterate_n(dataset, N_COMPARE_ITERS)
+    torch.cuda.synchronize()
+    t_pat = (time.perf_counter() - t0) / N_COMPARE_ITERS
+    config.use_pattern_dedup = False
+    try:
+        check(dataset.pattern_info() is None, "use_pattern_dedup=False was not honoured")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        gen_model, gen_llks = start.iterate_n(dataset, N_COMPARE_ITERS)
+        torch.cuda.synchronize()
+        t_gen = (time.perf_counter() - t0) / N_COMPARE_ITERS
+        check(kernels.LAUNCHES["fullt"] > 0, "the general path did not run")
+    finally:
+        config.use_pattern_dedup = True
+    llk_pat, llk_gen = pat_model.llk(dataset), gen_model.llk(dataset)
+    rel = abs(llk_pat - llk_gen) / abs(llk_gen)
+    print(f"[pattern] {N_COMPARE_ITERS} iterations from one start: pattern path {t_pat:.4f} s per "
+          f"iteration, general path {t_gen:.4f} s per iteration ({smi}); final llk "
+          f"{llk_pat:.9e} vs {llk_gen:.9e}, relative difference {rel:.2e} (tol {TOL_PATH_LLK:g}); "
+          f"llks before each iteration {pat_llks.tolist()} vs {gen_llks.tolist()}")
+    check(rel <= TOL_PATH_LLK, f"pattern and general paths disagree: {rel:.2e}")
+
+    card_vs_cpu("pattern", model, dataset.slice(0, N_CPU), used=("full",), unused=("fullt",))
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# phase 6
+
+
+def phase_dense(smi: str):
+    from ppca_rs_tpu_torch import Dataset, Prior, config
+    from ppca_rs_tpu_torch.ops import dense_fast as df
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    opts = dict(generator=gen, device="cuda", dtype=torch.float32)
+    C = torch.randn(D_MAIN, K_MAIN, **opts) * (2.0 / math.sqrt(K_MAIN))
+    mean = torch.randn(D_MAIN, **opts)
+    data = torch.empty(N_MAIN, D_MAIN, device="cuda", dtype=torch.float32)
+    step = 1 << 16
+    for lo in range(0, N_MAIN, step):
+        data[lo:lo + step] = (torch.randn(step, K_MAIN, **opts) @ C.T + mean
+                              + 0.5 * torch.randn(step, D_MAIN, **opts))
+    dataset = Dataset.unmasked(data)
+    t0 = time.perf_counter()
+    check(dataset.all_observed() and dataset.pattern_info() is None,
+          "fully observed data did not take the dense route")
+    print(f"[dense] dataset N={len(dataset)} D={D_MAIN} k={K_MAIN} fully observed, routed in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    model, train_launches = train("dense", dataset, SEED + 9, smi)
+    check(all(v == 0 for v in train_launches.values()),
+          f"the dense path launched a per-sample kernel: {train_launches}")
+
+    sub = dataset.slice(0, N_CPU)
+    Cm, mu, sigma = model.transform, model.mean, model.isotropic_noise
+    tprec, _, _ = Prior().device_pieces(Cm.dtype, Cm.device)
+    stats_d = df.em_stats(Cm, mu, sigma, sub.data, sub.weights_dev, block_size=config.block_size)
+    dense = df.em_finalize(Cm, mu, sigma, stats_d, transformation_precision=tprec)
+    stats_m = ml.em_stats(Cm, mu, sigma, sub.data, sub.mask, sub.weights_dev,
+                          block_size=config.block_size)
+    masked = ml.em_finalize(Cm, mu, sigma, stats_m, transformation_precision=tprec)
+    diffs = {name: rel_err(a.reshape(-1), b.reshape(-1)) for name, a, b in
+             zip(("transform", "mean", "isotropic_noise"), dense, masked)}
+    diffs["llk"] = rel_err(stats_d.llk.reshape(1), stats_m.llk.reshape(1))
+    print(f"[dense] {N_CPU} rows, one EM step, dense path vs masked path on the card: "
+          + ", ".join(f"{n} {v:.3e}" for n, v in diffs.items())
+          + f" (max rel diff, tol {TOL_CARD_VS_CPU:g})")
+    for name, v in diffs.items():
+        check(v <= TOL_CARD_VS_CPU, f"dense vs masked {name}: {v:.3e} above {TOL_CARD_VS_CPU}")
 
 
 def main() -> int:
@@ -389,14 +701,23 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_card()
     summary = phase_kernels()
-    model, dataset, launches = phase_main(smi)
-    phase_card_vs_cpu(model, dataset)
+    model, dataset, masked_launches = phase_main(smi)
+    card_vs_cpu("card-vs-cpu", model, dataset.slice(0, N_CPU), used=("fullt", "llk"))
+    del model, dataset
+    torch.cuda.empty_cache()
+    pattern_launches = phase_pattern(smi)
+    torch.cuda.empty_cache()
+    phase_dense(smi)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
+    entries = [(f"spd_estep_{want}", ESTEP_SOURCE, ESTEP_REPLACES, want, masked_launches)
+               for want in ("fullt", "states", "llk", "infer")]
+    entries += [("spd_estep_full", ESTEP_SOURCE, ESTEP_REPLACES, "full", pattern_launches),
+                ("spd_chol", CHOL_SOURCE, CHOL_REPLACES, "chol", pattern_launches)]
     kernels_line = {"kernels": [
-        {"name": f"spd_estep_{want}", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": launches[want], **summary[want]}
-        for want in ("fullt", "states", "llk", "infer")
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[key], **summary[key]}
+        for name, source, replaces, key, launches in entries
     ]}
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched by the main path")

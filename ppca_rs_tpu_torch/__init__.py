@@ -1,16 +1,17 @@
 """ppca_rs_tpu_torch — masked Probabilistic PCA on PyTorch and CUDA.
 
 The PyTorch port of ``ppca_rs_tpu``: the same public API and array layouts,
-on torch tensors.  The per-sample SPD factorization of the E-step and of the
-M-step row solves is a CUDA kernel written for Hopper
-(``csrc/spd_estep.cu``), built with ``nvcc`` at first use; on CPU tensors
-its plain PyTorch version runs instead.  This package imports neither JAX
+on torch tensors.  The per-sample SPD factorization of the E-step, of the
+pattern tables and of the M-step row solves (``csrc/spd_estep.cu``) and the
+posterior sampler's batched Cholesky factor (``csrc/spd_chol.cu``) are CUDA
+kernels written for Hopper, built with ``nvcc`` at first use; on CPU tensors
+their plain PyTorch versions run instead.  This package imports neither JAX
 nor ``ppca_rs_tpu``.
 """
 
 from .config import config
 from .dataset import Dataset
-from .models.ppca import InferredMasked, PPCAModel
+from .models.ppca import InferredMasked, PosteriorSampler, PPCAModel
 from .prior import Prior
 from .trainer import PPCATrainer, TrainMetrics
 from .utils.rng import seed
@@ -22,6 +23,7 @@ __all__ = [
     "Prior",
     "PPCAModel",
     "InferredMasked",
+    "PosteriorSampler",
     "PPCATrainer",
     "TrainMetrics",
     "config",

@@ -1,18 +1,23 @@
 // Batched SPD E-step for masked PPCA on Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `ppca_rs_tpu/ops/kernels.py:_make_kernel`
-// as launched by `spd_estep` for want in {fullt, states, llk, infer}.  For
-// every sample n it factors M = sigma^2 I + G[n] (k x k, SPD) and returns,
-// by variant:
+// as launched by `spd_estep` for want in {fullt, states, llk, infer, full}.
+// For every sample n it factors M = sigma^2 I + G[n] (k x k, SPD) and
+// returns, by variant:
 //
 //   llk    : llk = -1/2 [(rnorm - |L^{-1} b|^2)/sigma^2 + log det M
 //                        + log(sigma^2) (d_obs - k) + d_obs log 2 pi]
 //   states : s = M^{-1} b, llk
 //   infer  : s, Sigma = sigma^2 M^{-1}, llk, sq = sigma^2 (k - sigma^2 tr M^{-1})
 //   fullt  : s, SM = s s^T + sigma^2 M^{-1}, llk, sq
+//   full   : the same as fullt
 //
 // SM and Sigma are written as the full symmetric matrix (a superset of the
-// TPU "fullt" contract, whose upper wedge was garbage).
+// TPU "fullt" contract, whose upper wedge was garbage).  On the TPU, full
+// and fullt differ only in that fullt skips the upper wedge of SM; written
+// whole, the two are one body, kept under two codes so that each caller's
+// launches are counted apart (full: the pattern tables, with b = 0, rnorm = 0,
+// so SM = Sigma and llk is the pattern's mask term).
 //
 // Layout is batch-major: G (B,k,k), b and s (B,k), SM (B,k,k), rnorm, d_obs,
 // llk, sq (B,), all contiguous; sigma is one device scalar, so the caller
@@ -39,31 +44,27 @@
 //   one block per sample cannot poison its neighbours, so k is never padded.
 //
 // Shared memory is (n_buf k^2 + 3k + 32) elements, n_buf = 2 for
-// fullt/infer and 1 for states/llk; the wrapper refuses k above what fits in
+// fullt/full/infer and 1 for states/llk; the wrapper refuses k above what fits in
 // the 227 KB a block may use.  The C entry points return cudaGetLastError()
 // and allocate nothing; they launch on the stream they are given.
 
 #include <cuda_runtime.h>
 
+#include "spd_common.cuh"
+
 namespace {
+
+using namespace ppca;
 
 constexpr int kFullT = 0;
 constexpr int kStates = 1;
 constexpr int kLlk = 2;
 constexpr int kInfer = 3;
+constexpr int kFull = 4;
 
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kWarps = kThreads / 32;
 constexpr int kReduceSlots = 32;
 
 constexpr double kLn2Pi = 1.8378770664093453;
-
-__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-__device__ __forceinline__ float log_t(float x) { return logf(x); }
-__device__ __forceinline__ double log_t(double x) { return log(x); }
 
 // Sum of one value per thread over the block; every thread gets the total.
 template <typename T>
@@ -84,7 +85,10 @@ __device__ T block_sum(T v, T* red, int tid) {
   return total;
 }
 
-__host__ __device__ constexpr bool wants_inverse(int want) { return want == kFullT || want == kInfer; }
+__host__ __device__ constexpr bool wants_second_moment(int want) { return want == kFullT || want == kFull; }
+__host__ __device__ constexpr bool wants_inverse(int want) {
+  return wants_second_moment(want) || want == kInfer;
+}
 
 template <typename T, int WANT>
 __global__ void __launch_bounds__(kThreads)
@@ -189,7 +193,7 @@ spd_estep_kernel(const T* __restrict__ sigma, const T* __restrict__ G,
       T acc = T(0);
       for (int j = a > c ? a : c; j < k; ++j) acc += W[j * k + a] * W[j * k + c];
       if (a == c) tr += acc;
-      Mn[a * k + c] = (WANT == kFullT) ? s[a] * s[c] + s2 * acc : s2 * acc;
+      Mn[a * k + c] = wants_second_moment(WANT) ? s[a] * s[c] + s2 * acc : s2 * acc;
     }
   }
   tr = block_sum(tr, red, tid);
@@ -231,6 +235,7 @@ int dispatch(int want, int device, const void* sigma, const void* G,
     case kStates: return launch<T, kStates>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
     case kLlk: return launch<T, kLlk>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
     case kInfer: return launch<T, kInfer>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
+    case kFull: return launch<T, kFull>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -239,7 +244,7 @@ int dispatch(int want, int device, const void* sigma, const void* G,
 
 extern "C" {
 
-// want: 0 fullt, 1 states, 2 llk, 3 infer.  Unused outputs may be null.
+// want: 0 fullt, 1 states, 2 llk, 3 infer, 4 full.  Unused outputs may be null.
 // Returns a cudaError_t (0 on success).
 int spd_estep_f32(int want, int device, const void* sigma, const void* G,
                   const void* b, const void* rnorm, const void* d_obs, void* s,

@@ -7,11 +7,13 @@ Port of the core of ``ppca_rs_tpu/dataset.py``: one dense zero-filled
 ``Dataset(ndarray, weights=None)`` masks non-finite entries, ``numpy()``
 round-trips with NaN fill, ``dump``/``load``/pickle use the container the
 JAX package uses, so a dataset dumped by either package loads in the other.
+``pattern_info``/``pattern_order`` detect structured missingness for the
+pattern path (``ops/pattern_dedup.py``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +36,57 @@ def _as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+#: Rows packed per step of pattern detection: bounds the (rows, D) int64
+#: temporary of the packing to 256 MiB at D=1024.
+_PACK_ROWS = 1 << 15
+
+#: Datasets longer than this first count the distinct masks of a prefix of
+#: half this many rows, so unstructured masks demote without a full pass.
+_PREFIX_CHECK_ROWS = 131072
+
+
+def _pack_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(N, D) bool -> (N, ceil(D/64)) int64: bit b of word w of a row is
+    column 64 w + b (D padded with False).  Exact, so rows are equal iff
+    their words are."""
+    n, d = mask.shape
+    words = -(-d // 64)
+    shifts = torch.arange(64, dtype=torch.int64, device=mask.device)
+    out = torch.empty((n, words), dtype=torch.int64, device=mask.device)
+    for lo in range(0, n, _PACK_ROWS):
+        part = mask[lo:lo + _PACK_ROWS]
+        if words * 64 != d:
+            part = torch.nn.functional.pad(part, (0, words * 64 - d))
+        bits = part.reshape(-1, words, 64).to(torch.int64) << shifts
+        # the bits are disjoint, so the sum is their OR (bit 63 wraps to
+        # the sign, which is still exact)
+        out[lo:lo + _PACK_ROWS] = bits.sum(-1)
+    return out
+
+
+def _unpack_mask(words: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_mask`: (P, W) int64 -> (P, d) bool."""
+    shifts = torch.arange(64, dtype=torch.int64, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :d].bool()
+
+
+def _detect_patterns(mask: torch.Tensor, p_cap: int) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """``(pidx (N,) int64, patterns (P, D) bool)`` with ``patterns[pidx] ==
+    mask``, or None when there are more than ``p_cap`` distinct rows.  Runs
+    on the mask's device; ``torch.unique`` over the packed rows is exact,
+    so no grouping needs verifying."""
+    n, d = mask.shape
+    if n > _PREFIX_CHECK_ROWS:
+        head = torch.unique(_pack_mask(mask[:_PREFIX_CHECK_ROWS // 2]), dim=0)
+        if head.shape[0] > p_cap:
+            return None
+    uniq, pidx = torch.unique(_pack_mask(mask), dim=0, return_inverse=True)
+    if uniq.shape[0] > p_cap:
+        return None
+    return pidx, _unpack_mask(uniq, d)
+
+
 class Dataset:
     """A dense masked dataset: values (zero-filled where masked), an
     observed-mask and per-sample weights, all tensors on one device.
@@ -41,7 +94,8 @@ class Dataset:
     ``weights`` is a callable numpy copy; the tensor the computations use is
     ``weights_dev``."""
 
-    __slots__ = ("data", "mask", "weights_dev", "_all_observed")
+    __slots__ = ("data", "mask", "weights_dev", "_all_observed", "_patterns",
+                 "_pattern_order")
 
     def __init__(self, ndarray=None, weights=None, *, device=None, dtype=None):
         if ndarray is None:
@@ -63,7 +117,26 @@ class Dataset:
             self.weights_dev = torch.as_tensor(w, dtype=dtype, device=device)
         else:
             self.weights_dev = torch.ones(arr.shape[0], dtype=dtype, device=device)
+        self._clear_caches()
+
+    def _clear_caches(self) -> None:
+        # None: not computed yet; False: checked, the path does not apply.
         self._all_observed = None
+        self._patterns = None
+        self._pattern_order = None
+
+    def _share_caches(self, new: "Dataset", device=None) -> "Dataset":
+        """Give ``new``, which has this dataset's mask, the caches that
+        depend on the mask alone, moved to ``device`` if given."""
+        def move(cached):
+            if not cached or device is None:
+                return cached
+            return tuple(x.to(device) if isinstance(x, torch.Tensor) else x for x in cached)
+
+        new._all_observed = self._all_observed
+        new._patterns = move(self._patterns)
+        new._pattern_order = move(self._pattern_order)
+        return new
 
     # ------------------------------------------------------------------ #
     # constructors
@@ -85,7 +158,7 @@ class Dataset:
                 raise ValueError("weights length must match number of samples")
         obj = object.__new__(cls)
         obj.data, obj.mask, obj.weights_dev = data, mask, weights
-        obj._all_observed = None
+        obj._clear_caches()
         return obj
 
     @classmethod
@@ -99,17 +172,14 @@ class Dataset:
 
     def with_weights(self, weights) -> "Dataset":
         """Same data, new weights (`dataset.rs:169-176`; the data and mask
-        tensors are shared, not copied)."""
-        new = Dataset.from_parts(self.data, self.mask, weights)
-        new._all_observed = self._all_observed
-        return new
+        tensors and the pattern caches are shared, not copied)."""
+        return self._share_caches(Dataset.from_parts(self.data, self.mask, weights))
 
     def to(self, device) -> "Dataset":
-        """This dataset on ``device``."""
+        """This dataset on ``device``, with its pattern caches."""
         new = Dataset.from_parts(self.data.to(device), self.mask.to(device),
                                  self.weights_dev.to(device))
-        new._all_observed = self._all_observed
-        return new
+        return self._share_caches(new, device)
 
     # ------------------------------------------------------------------ #
     # basic accessors
@@ -148,6 +218,60 @@ class Dataset:
         if self._all_observed is None:
             self._all_observed = bool(self.mask.all())
         return self._all_observed
+
+    def pattern_info(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """Distinct-mask-pattern table for the pattern path
+        (ops/pattern_dedup.py), or ``None`` when it would not pay off.
+
+        Returns ``(pidx (N,) int64, patterns (P, D) bool)`` on the dataset's
+        device with ``patterns[pidx] == mask``; patterns come in the order
+        of their packed words, not of first appearance.  None when the
+        dataset is empty or shorter than ``2 * config.pattern_min_ratio``,
+        when it is fully observed (the dense path owns that case), or when
+        P exceeds ``min(config.pattern_max, N // config.pattern_min_ratio)``.
+        Datasets of more than 131,072 rows first count the patterns of a
+        65,536-row prefix, so unstructured masks demote cheaply.  Cached;
+        ``with_weights`` and ``to`` share the cache.  ``config.use_pattern_dedup``
+        is read on every call, so turning it off takes effect at once."""
+        if not config.use_pattern_dedup:
+            return None
+        if self._patterns is not None:
+            return self._patterns or None
+        n = len(self)
+        if self.is_empty() or n < 2 * config.pattern_min_ratio:
+            self._patterns = False
+            return None
+        if self.all_observed():
+            return None
+        p_cap = min(config.pattern_max, n // config.pattern_min_ratio)
+        self._patterns = _detect_patterns(self.mask, p_cap) or False
+        return self._patterns or None
+
+    def pattern_order(self) -> Optional[Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]]:
+        """Rows sorted by pattern, for the per-segment EM
+        (ops/pattern_dedup.em_stats_sorted), or ``None`` when it does not
+        apply.  Returns ``(data_sorted, perm, counts)``: ``data_sorted =
+        data[perm]`` with each pattern's rows contiguous (a cached copy,
+        which doubles the data's device memory while it lives, hence the
+        ``config.pat_sorted_max_bytes`` gate), the (N,) int64 stable
+        permutation, and the per-pattern row counts as a tuple of ints
+        (segment p is rows ``[sum(counts[:p]), sum(counts[:p + 1]))``).
+        None also when the segments are shorter than
+        ``config.pat_sorted_min_rows`` on average."""
+        if not config.use_pattern_dedup:
+            return None
+        if self._pattern_order is not None:
+            return self._pattern_order or None
+        info = self.pattern_info()
+        if (info is None or self.data.nbytes > config.pat_sorted_max_bytes
+                or len(self) < info[1].shape[0] * config.pat_sorted_min_rows):
+            self._pattern_order = False
+            return None
+        pidx, patterns = info
+        perm = torch.argsort(pidx, stable=True)
+        counts = tuple(int(c) for c in torch.bincount(pidx, minlength=patterns.shape[0]).tolist())
+        self._pattern_order = (self.data.index_select(0, perm), perm, counts)
+        return self._pattern_order
 
     def empty_dimensions(self) -> List[int]:
         """Dimensions masked in *every* sample (`dataset.rs:193-222`)."""

@@ -1,21 +1,22 @@
 """Probabilistic PCA with missing data — single model, on torch tensors.
 
 Port of ``ppca_rs_tpu/models/ppca.py`` (itself a rebuild of
-`ppca/src/ppca_model.rs`) on the blocked masked algebra of
-:mod:`ppca_rs_tpu_torch.ops.masked_linalg`.  The statistical model
-(`ppca_model.rs:24-40`):
+`ppca/src/ppca_model.rs`).  The statistical model (`ppca_model.rs:24-40`):
 
     x ~ N(0, I_k)            # latent state
     y = C x + mu + eps       # observed, D dims
     eps ~ N(0, sigma^2 I_D)  # isotropic noise
 
-Every masked dataset takes the general masked path.  Computations run on the
-device of the model's parameters, which must match the dataset's.
+Each dataset takes one of three routes (:func:`_route`): fully observed data
+the dense path (``ops/dense_fast``), structured missingness the pattern path
+(``ops/pattern_dedup``), everything else the general masked path
+(``ops/masked_linalg``).  Computations run on the device of the model's
+parameters, which must match the dataset's.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +24,10 @@ from torch import nn
 
 from ..config import config
 from ..dataset import Dataset
+from ..ops import dense_fast as df
+from ..ops import kernels
 from ..ops import masked_linalg as ml
+from ..ops import pattern_dedup as pd
 from ..prior import Prior
 from ..utils.rng import ensure_generator
 from ..utils.serialization import dump_bytes, load_bytes
@@ -41,6 +45,29 @@ def _as_vector(arr, name: str) -> np.ndarray:
     elif a.ndim != 1:
         raise ValueError(f"{name} must be a vector; got shape {a.shape}")
     return a
+
+
+class _Route(NamedTuple):
+    """How a dataset's computations run: ``kind`` is "dense", "pattern" or
+    "masked"; a pattern route carries ``(pidx, patterns)`` and, when the
+    sorted copy is available, ``(data_sorted, perm, counts)``."""
+
+    kind: str
+    pattern: Optional[tuple] = None
+    order: Optional[tuple] = None
+
+
+def _route(dataset: Dataset) -> _Route:
+    """Dense if every entry is observed; the pattern path if the masks
+    repeat (``Dataset.pattern_info``), with the per-segment EM when
+    ``Dataset.pattern_order`` is available; the masked path otherwise
+    (`ppca_rs_tpu/models/ppca.py:_impl_and_block`, single device)."""
+    if dataset.all_observed():
+        return _Route("dense")
+    pattern = dataset.pattern_info()
+    if pattern is not None:
+        return _Route("pattern", pattern, dataset.pattern_order())
+    return _Route("masked")
 
 
 class PPCAModel(nn.Module):
@@ -177,8 +204,17 @@ class PPCAModel(nn.Module):
 
     def llks(self, dataset: Dataset) -> torch.Tensor:
         """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
-        return ml.llks(*self._params(), dataset.data, dataset.mask,
-                       block_size=config.block_size)
+        return self._readout("llks", dataset)
+
+    def _readout(self, verb: str, dataset: Dataset):
+        """``verb`` ("llks", "states" or "infer") of the dataset's route."""
+        route, bs = _route(dataset), config.block_size
+        args = (*self._params(), dataset.data)
+        if route.kind == "dense":
+            return getattr(df, verb)(*args, block_size=bs)
+        if route.kind == "pattern":
+            return getattr(pd, verb)(*args, dataset.mask, *route.pattern, block_size=bs)
+        return getattr(ml, verb)(*args, dataset.mask, block_size=bs)
 
     # ------------------------------------------------------------------ #
     # sampling (ppca_model.rs:164-191)
@@ -201,16 +237,28 @@ class PPCAModel(nn.Module):
     # ------------------------------------------------------------------ #
     # inference (ppca_model.rs:195-261)
 
+    def uninferred(self, n: int = 1) -> "InferredMasked":
+        """Posterior batch of ``n`` samples at the prior N(0, I), the
+        posterior of an all-masked sample (`ppca_model.rs:98-104`)."""
+        k, opts = self.state_size, dict(dtype=self.transform.dtype, device=self.device)
+        return InferredMasked(self, torch.zeros((n, k), **opts),
+                              torch.eye(k, **opts).expand(n, k, k))
+
+    def inferred_one(self, state, covariance) -> "InferredMasked":
+        """Posterior batch from raw values (`ppca_model.rs:211-217`): a
+        single (k,)/(k, k) pair or stacked (n, k)/(n, k, k) arrays."""
+        opts = dict(dtype=self.transform.dtype, device=self.device)
+        state = torch.atleast_2d(torch.as_tensor(state, **opts))
+        covariance = torch.as_tensor(covariance, **opts)
+        if covariance.ndim == 2:
+            covariance = covariance[None]
+        return InferredMasked(self, state, covariance)
+
     def infer(self, dataset: Dataset) -> "InferredMasked":
-        states, covs = ml.infer(*self._params(), dataset.data, dataset.mask,
-                                block_size=config.block_size)
-        return InferredMasked(self, states, covs)
+        return InferredMasked(self, *self._readout("infer", dataset))
 
     def _smoothed(self, dataset: Dataset) -> torch.Tensor:
-        C, mean, sigma = self._params()
-        states = ml.states(C, mean, sigma, dataset.data, dataset.mask,
-                           block_size=config.block_size)
-        return states @ C.T + mean
+        return self._readout("states", dataset) @ self.transform.T + self.mean
 
     def smooth(self, dataset: Dataset) -> Dataset:
         """De-noise observed values and fill missing ones
@@ -245,13 +293,26 @@ class PPCAModel(nn.Module):
             raise ValueError("cannot iterate on an empty dataset")
         C, mean, sigma = self._params()
         tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(C.dtype, C.device)
-        stats = ml.em_stats(C, mean, sigma, dataset.data, dataset.mask, dataset.weights_dev,
-                            block_size=config.block_size)
-        new_C, new_mean, new_sigma = ml.em_finalize(
-            C, mean, sigma, stats, transformation_precision=tprec,
-            noise_prior=noise_prior, mean_prior=mean_prior,
-        )
-        return PPCAModel._from_params(new_C, new_mean, new_sigma), stats.llk
+        priors = dict(transformation_precision=tprec, noise_prior=noise_prior,
+                      mean_prior=mean_prior)
+        route, bs = _route(dataset), config.block_size
+        weights = dataset.weights_dev
+        if route.kind == "dense":
+            stats = df.em_stats(C, mean, sigma, dataset.data, weights, block_size=bs)
+            new = df.em_finalize(C, mean, sigma, stats, **priors)
+        else:
+            if route.kind == "masked":
+                stats = ml.em_stats(C, mean, sigma, dataset.data, dataset.mask, weights,
+                                    block_size=bs)
+            elif route.order is not None:
+                data_sorted, perm, counts = route.order
+                stats = pd.em_stats_sorted(C, mean, sigma, data_sorted, weights[perm],
+                                           route.pattern[1], counts, block_size=bs)
+            else:
+                stats = pd.em_stats(C, mean, sigma, dataset.data, dataset.mask,
+                                    *route.pattern, weights, block_size=bs)
+            new = ml.em_finalize(C, mean, sigma, stats, **priors)
+        return PPCAModel._from_params(*new), stats.llk
 
     def _iterate_with_llk(self, dataset: Dataset, prior: Optional[Prior]) -> Tuple["PPCAModel", float]:
         """EM step: (new model, llk of *this* model on the dataset)."""
@@ -366,3 +427,36 @@ class InferredMasked:
         (`ppca_model.rs:542-577`)."""
         diag = self._cov_diag(model)
         return Dataset.unmasked(torch.where(dataset.mask, torch.zeros_like(diag), diag))
+
+    def posterior_sampler(self) -> "PosteriorSampler":
+        """Cholesky-factor the posterior covariances for repeated sampling
+        (`ppca_model.rs:581-592`), through :func:`ops.kernels.spd_chol`: the
+        CUDA kernel on the card, its plain version on the CPU."""
+        chol = kernels.spd_chol(self._covariances.contiguous())
+        if not bool(torch.isfinite(chol).all()):
+            raise ValueError("Cholesky decomposition failed: posterior covariance not PD")
+        return PosteriorSampler(self._model, self._states, chol)
+
+
+class PosteriorSampler:
+    """Batch sampler from per-sample posteriors (`ppca_model.rs:595-626`).
+
+    Each :meth:`sample` call returns a Dataset with one fresh draw per
+    sample, ``y = sigma z2 + mu + C (s + L z1)`` with z1 (n, k) and then
+    z2 (n, D) standard normal from one generator: the output noise term is
+    included, as the reference code does (its doc comment says otherwise)."""
+
+    def __init__(self, model: PPCAModel, states: torch.Tensor, chol: torch.Tensor):
+        self._model = model
+        self._states = states  # (N, k)
+        self._chol = chol      # (N, k, k) lower factors of the covariances
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> Dataset:
+        C, mean, sigma = self._model._params()
+        n, k = self._states.shape
+        gen = ensure_generator(generator, C.device)
+        opts = dict(generator=gen, dtype=C.dtype, device=gen.device)
+        z1 = torch.randn((n, k), **opts).to(C.device)
+        z2 = torch.randn((n, C.shape[0]), **opts).to(C.device)
+        s = self._states + (self._chol @ z1.unsqueeze(-1)).squeeze(-1)
+        return Dataset.unmasked(sigma * z2 + mean + s @ C.T)

@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``ppca_rs_tpu_torch/csrc`` expose a plain C interface, so
-they are compiled by ``nvcc`` alone into a shared library and loaded with
-``ctypes``: no PyTorch headers, which keeps a cold build to seconds.  The
-library is built at first use into ``ppca_rs_tpu_torch/_build/`` and its name
-carries a hash of the sources and flags, so an edited source rebuilds and a
-stale library is never loaded.  Nothing is built when the module is imported.
+they are compiled by ``nvcc`` alone and loaded with ``ctypes``: no PyTorch
+headers, which keeps a cold build to seconds.  Each ``.cu`` file compiles to
+an object in its own ``nvcc`` process, all started together, and the objects
+link into one shared library.  The library is built at first use into
+``ppca_rs_tpu_torch/_build/`` and its name carries a hash of the sources and
+flags, so an edited source rebuilds and a stale library is never loaded.
+Nothing is built when the module is imported.
 """
 
 from __future__ import annotations
@@ -24,10 +26,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -39,7 +40,7 @@ def sources() -> List[Path]:
 
 def source_key() -> str:
     """Hash of every source's name and bytes plus the compiler flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -63,31 +64,50 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def nvcc_command(output: Path) -> List[str]:
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    return [nvcc_path(), *NVCC_FLAGS, f"-I{SOURCE_DIR}", "-o", str(output), *cu]
+def compile_command(source: Path, obj: Path) -> List[str]:
+    return [nvcc_path(), *COMPILE_FLAGS, f"-I{SOURCE_DIR}", "-c", "-o", str(obj), str(source)]
+
+
+def link_command(objects: List[Path], output: Path) -> List[str]:
+    return [nvcc_path(), *LINK_FLAGS, "-o", str(output), *map(str, objects)]
+
+
+def _run_all(commands: List[List[str]]) -> None:
+    """Run the commands as processes started together; raise with the
+    compiler's messages if any fails.  No process outlives the call."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    failed = []
+    try:
+        for cmd, proc in zip(commands, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\nexit code {proc.returncode}:\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def build() -> Path:
     """Compile the sources unless a library with the same key exists.  The
-    output is written to a temporary name and renamed into place, so
-    processes that build at once never load a half-written file."""
+    objects and the library are written in a temporary directory and the
+    library is renamed into place, so processes that build at once never
+    load a half-written file."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(Path(tmp)), capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [p for p in sources() if p.suffix == ".cu"]
+        objects = [Path(tmp) / f"{p.stem}.o" for p in cu]
+        _run_all([compile_command(src, obj) for src, obj in zip(cu, objects)])
+        lib = Path(tmp) / target.name
+        _run_all([link_command(objects, lib)])
+        os.replace(lib, target)
     return target
 
 
@@ -103,6 +123,10 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, p,
                                p, ctypes.c_longlong, ctypes.c_int, p]
+                fn.restype = ctypes.c_int
+            for name in ("spd_chol_f32", "spd_chol_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_int, p, p, ctypes.c_longlong, ctypes.c_int, p]
                 fn.restype = ctypes.c_int
             lib.spd_estep_error_string.argtypes = [ctypes.c_int]
             lib.spd_estep_error_string.restype = ctypes.c_char_p

@@ -1,4 +1,4 @@
-"""The batched SPD E-step: a hand-written CUDA kernel and its plain version.
+"""The batched SPD kernels: hand-written CUDA kernels and their plain versions.
 
 For every sample of a batch, with ``M = sigma^2 I + G`` (G the masked Gram
 ``C^T diag(m) C``, b = ``C^T (m * (y - mu))``, rnorm = ``|m * (y - mu)|^2``,
@@ -8,6 +8,8 @@ d_obs = ``|m|``), :func:`spd_estep` returns by ``want``:
 * ``"states"`` -> ``(s, llk)`` with ``s = M^{-1} b``
 * ``"infer"``  -> ``(s, Sigma, llk, sq)`` with ``Sigma = sigma^2 M^{-1}``
 * ``"fullt"``  -> ``(s, SM, llk, sq)`` with ``SM = s s^T + Sigma``
+* ``"full"``   -> the same as ``"fullt"``: one kernel body under its own
+  code, so that the pattern tables' launches are counted apart
 
 where ``llk`` is the per-sample log-likelihood and ``sq = tr(G Sigma) =
 sigma^2 (k - sigma^2 tr M^{-1})``, the noise-update term.  SM and Sigma are
@@ -22,6 +24,11 @@ raises; on a CPU tensor it runs :func:`spd_estep_reference`.  There is no
 other route.  An all-masked sample (``G = 0``, ``b = 0``, ``rnorm = d_obs =
 0``) is neutral: ``s = 0``, ``Sigma = I``, ``llk = 0``.  A sample whose M is
 not positive definite yields non-finite values for that sample only.
+
+:func:`spd_chol` is the batched lower Cholesky factor ``L (B, k, k)`` of SPD
+matrices ``M (B, k, k)`` behind the posterior sampler: the kernel in
+``csrc/spd_chol.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:spd_chol``)
+on CUDA tensors, :func:`spd_chol_reference` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -33,31 +40,38 @@ import torch
 
 LN_2PI = 1.8378770664093453
 
-WANTS = ("fullt", "states", "llk", "infer")
-_WANT_CODE = {"fullt": 0, "states": 1, "llk": 2, "infer": 3}
+WANTS = ("fullt", "states", "llk", "infer", "full")
+_WANT_CODE = {"fullt": 0, "states": 1, "llk": 2, "infer": 3, "full": 4}
+
+#: Every kernel: the spd_estep variants and the Cholesky factor.
+KERNELS = WANTS + ("chol",)
 
 #: Shared memory one thread block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232448
 
-#: Kernel launches per variant, counted where the kernel is launched.
-LAUNCHES: Dict[str, int] = {w: 0 for w in WANTS}
+#: Kernel launches per kernel, counted where the kernel is launched.
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for w in WANTS:
-        LAUNCHES[w] = 0
+    for name in KERNELS:
+        LAUNCHES[name] = 0
 
 
 def smem_bytes(want: str, k: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block: M, plus W = L^{-1} for the
-    variants that form the inverse, plus three k-vectors and 32 slots."""
-    n_buf = 2 if want in ("fullt", "infer") else 1
+    """Dynamic shared memory of one block.  spd_estep: M, plus W = L^{-1}
+    for the variants that form the inverse, plus three k-vectors and 32
+    slots.  chol: M with an odd row stride ``k | 1``, plus one k-vector."""
     itemsize = torch.empty((), dtype=dtype).element_size()
+    if want == "chol":
+        return (k * (k | 1) + k) * itemsize
+    n_buf = 2 if want in ("fullt", "full", "infer") else 1
     return (n_buf * k * k + 3 * k + 32) * itemsize
 
 
 def max_k(want: str, dtype: torch.dtype) -> int:
-    """Largest state size the kernel takes for this variant and dtype."""
+    """Largest state size the kernel takes for this variant (or "chol")
+    and dtype."""
     k = 1
     while smem_bytes(want, k + 1, dtype) <= SMEM_LIMIT_BYTES:
         k += 1
@@ -96,6 +110,28 @@ def spd_estep_reference(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple
     return s, s[:, :, None] * s[:, None, :] + cov, llk, sq
 
 
+def spd_chol_reference(M: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the Cholesky kernel, on any device: the
+    lower factor of each ``M (B, k, k)``, NaN for a sample that does not
+    factor (its ``info != 0``), as :func:`spd_estep_reference` does."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info == 0)[:, None, None], L, torch.full_like(L, math.nan))
+
+
+def spd_chol(M: torch.Tensor) -> torch.Tensor:
+    """Batched lower Cholesky factor ``L (B, k, k)`` of ``M (B, k, k)``,
+    lower triangle of ``M`` read, zeros above the diagonal of ``L``.
+
+    CPU tensors take :func:`spd_chol_reference`; CUDA tensors launch the
+    kernel, which raises on anything it does not take."""
+    _check_chol_shape(M)
+    if M.device.type == "cpu":
+        return spd_chol_reference(M)
+    L = torch.empty_like(M, memory_format=torch.contiguous_format)
+    launch_chol(M, L)
+    return L
+
+
 def spd_estep(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Tensor, ...]:
     """The batched SPD E-step (see the module docstring for the outputs).
 
@@ -116,7 +152,7 @@ def output_shapes(want: str, B: int, k: int):
         return [(B,)]
     if want == "states":
         return [(B, k), (B,)]
-    return [(B, k), (B, k, k), (B,), (B,)]
+    return [(B, k), (B, k, k), (B,), (B,)]   # fullt, full, infer
 
 
 def empty_outputs(want: str, B: int, k: int, like: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -182,6 +218,47 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
             f"{lib.spd_estep_error_string(err).decode()}"
         )
     LAUNCHES[want] += 1
+
+
+def launch_chol(M: torch.Tensor, L: torch.Tensor) -> None:
+    """Launch the Cholesky kernel into a caller-provided ``L`` (same shape,
+    dtype and device as ``M``) on the current stream.  Raises on any input
+    the kernel does not take and on a failed launch."""
+    from . import _build
+
+    _check_chol_shape(M)
+    B, k, _ = M.shape
+    dtype, device = M.dtype, M.device
+    if device.type != "cuda":
+        raise ValueError(f"the spd_chol kernel needs CUDA tensors, got {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the spd_chol kernel takes float32 or float64, got {dtype}")
+    if k < 1 or k > max_k("chol", dtype):
+        raise ValueError(
+            f"state size k={k} is outside the spd_chol kernel's range for {dtype}: "
+            f"1 <= k <= {max_k('chol', dtype)} ({SMEM_LIMIT_BYTES} bytes of shared "
+            "memory per block)"
+        )
+    if L.shape != M.shape or L.dtype != dtype or L.device != device:
+        raise ValueError(f"L must be a {dtype} tensor of shape {tuple(M.shape)} on {device}")
+    if not (M.is_contiguous() and L.is_contiguous()):
+        raise ValueError("the spd_chol kernel takes contiguous tensors only")
+    lib = _build.load()
+    fn = lib.spd_chol_f32 if dtype == torch.float32 else lib.spd_chol_f64
+    stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    err = fn(index, M.data_ptr(), L.data_ptr(), B, k, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"spd_chol kernel launch failed (B={B}, k={k}): "
+            f"{lib.spd_estep_error_string(err).decode()}"
+        )
+    LAUNCHES["chol"] += 1
+
+
+def _check_chol_shape(M: torch.Tensor) -> None:
+    if M.ndim != 3 or M.shape[1] != M.shape[2]:
+        raise ValueError(f"M must be (B, k, k), got {tuple(M.shape)}")
 
 
 def _check_want(want: str) -> None:

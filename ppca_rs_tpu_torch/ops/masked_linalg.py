@@ -92,7 +92,8 @@ def infer(C, mean, sigma, data, mask, *, block_size: int):
                                mask[lo:hi].to(dtype), "infer")
         states_.append(post.out[0])
         covs.append(post.out[1])
-    return _cat(states_, data, dtype), _cat(covs, data, dtype)
+    k = C.shape[1]
+    return _cat(states_, data, dtype, k), _cat(covs, data, dtype, k, k)
 
 
 def states(C, mean, sigma, data, mask, *, block_size: int) -> torch.Tensor:
@@ -105,13 +106,14 @@ def states(C, mean, sigma, data, mask, *, block_size: int) -> torch.Tensor:
         post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
                                mask[lo:hi].to(dtype), "states")
         out.append(post.out[0])
-    return _cat(out, data, dtype)
+    return _cat(out, data, dtype, C.shape[1])
 
 
-def _cat(parts, data, dtype):
+def _cat(parts, data, dtype, *tail):
+    """The per-block outputs as one (N, *tail) tensor (also for N = 0)."""
     if parts:
         return torch.cat(parts, dim=0)
-    return torch.empty((0,), dtype=dtype, device=data.device)
+    return torch.empty((0, *tail), dtype=dtype, device=data.device)
 
 
 class EMStats(NamedTuple):

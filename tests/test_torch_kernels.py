@@ -1,4 +1,4 @@
-"""The port's SPD E-step (ppca_rs_tpu_torch.ops.kernels) against the JAX
+"""The port's SPD kernels (ppca_rs_tpu_torch.ops.kernels) against the JAX
 package's Pallas kernel, run here in interpret mode.
 
 On the CPU the port's wrapper runs its plain version, spd_estep_reference;
@@ -64,10 +64,11 @@ TOLS = {
     "fullt": [(3e-4, 3e-5), (3e-4, 3e-5), (3e-4, 3e-3), (3e-3, 3e-3)],
     "infer": [(3e-4, 3e-5), (3e-4, 3e-6), (3e-4, 3e-3), (3e-3, 3e-3)],
 }
+TOLS["full"] = TOLS["fullt"]
 
 
 @pytest.mark.parametrize("k", [2, 13, 32])
-@pytest.mark.parametrize("want", ["fullt", "states", "llk", "infer"])
+@pytest.mark.parametrize("want", ["fullt", "states", "llk", "infer", "full"])
 def test_reference_matches_pallas(rng, want, k):
     G, b, rnorm, d_obs = estep_inputs(rng, B=128, D=24, k=k)
     got = torch_estep(0.7, G, b, rnorm, d_obs, want)
@@ -140,18 +141,24 @@ def test_reference_variants_agree(rng):
     torch.testing.assert_close(cov + s[:, :, None] * s[:, None, :], SM, rtol=1e-12, atol=1e-12)
 
 
-def test_cpu_wrapper_never_launches(rng):
+def test_cpu_wrapper_never_launches(rng, monkeypatch):
+    def no_launch(*args):
+        raise AssertionError("a CPU tensor reached a kernel launch")
+
+    monkeypatch.setattr(tk, "launch", no_launch)
+    monkeypatch.setattr(tk, "launch_chol", no_launch)
     tk.reset_launch_counts()
     G, b, rnorm, d_obs = (torch.from_numpy(a) for a in estep_inputs(rng, B=8, D=10, k=3))
     for want in tk.WANTS:
         tk.spd_estep(0.5, G, b, rnorm, d_obs, want=want)
-    assert tk.LAUNCHES == {w: 0 for w in tk.WANTS}
+    tk.spd_chol(G + torch.eye(3))
+    assert tk.LAUNCHES == {name: 0 for name in tk.KERNELS}
 
 
 def test_wrapper_rejects_bad_inputs(rng):
     G, b, rnorm, d_obs = (torch.from_numpy(a) for a in estep_inputs(rng, B=8, D=10, k=3))
     with pytest.raises(ValueError, match="want"):
-        tk.spd_estep(0.5, G, b, rnorm, d_obs, want="full")
+        tk.spd_estep(0.5, G, b, rnorm, d_obs, want="chol")
     with pytest.raises(ValueError, match="b must be"):
         tk.spd_estep(0.5, G, b[:, :2], rnorm, d_obs)
     with pytest.raises(ValueError, match="G must be"):
@@ -161,15 +168,23 @@ def test_wrapper_rejects_bad_inputs(rng):
     # the kernel launcher takes CUDA tensors only, and never falls back
     with pytest.raises(ValueError, match="CUDA"):
         tk.launch("llk", 0.5, G, b, rnorm, d_obs, tk.empty_outputs("llk", 8, 3, G))
+    with pytest.raises(ValueError, match="M must be"):
+        tk.spd_chol(G[:, :2])
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_chol(G, torch.empty_like(G))
 
 
 def test_shared_memory_ceiling():
     """k ceilings follow from 227 KB of shared memory per block: two k x k
-    buffers for fullt/infer, one for states/llk."""
+    buffers for fullt/full/infer, one for states/llk, one with an odd row
+    stride for chol."""
     assert tk.max_k("fullt", torch.float32) == tk.max_k("infer", torch.float32) == 169
-    assert tk.max_k("fullt", torch.float64) == 119
+    assert tk.max_k("full", torch.float32) == 169
+    assert tk.max_k("fullt", torch.float64) == tk.max_k("full", torch.float64) == 119
     assert tk.max_k("states", torch.float32) == tk.max_k("llk", torch.float32) == 239
-    for want in tk.WANTS:
+    assert tk.max_k("chol", torch.float32) == 240
+    assert tk.max_k("chol", torch.float64) == 169
+    for want in tk.KERNELS:
         for dtype in (torch.float32, torch.float64):
             k = tk.max_k(want, dtype)
             assert tk.smem_bytes(want, k, dtype) <= tk.SMEM_LIMIT_BYTES
@@ -177,12 +192,19 @@ def test_shared_memory_ceiling():
 
 
 def test_build_command_and_source_key(tmp_path, monkeypatch):
-    """The build compiles the package's sources for sm_90a into a library
-    whose name carries a hash of the sources (nvcc itself runs on the card)."""
+    """The build compiles each of the package's sources for sm_90a, then
+    links them into a library whose name carries a hash of the sources
+    (nvcc itself runs on the card)."""
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
-    cmd = _build.nvcc_command(tmp_path / "lib.so")
-    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    assert "-shared" in cmd and str(_build.SOURCE_DIR / "spd_estep.cu") in cmd
+    cu = [p.name for p in _build.sources() if p.suffix == ".cu"]
+    assert cu == ["spd_chol.cu", "spd_estep.cu"]
+    for name in cu:
+        cmd = _build.compile_command(_build.SOURCE_DIR / name, tmp_path / "a.o")
+        assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+        assert "-c" in cmd and cmd[-1] == str(_build.SOURCE_DIR / name)
+    link = _build.link_command([tmp_path / "a.o", tmp_path / "b.o"], tmp_path / "lib.so")
+    assert link[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    assert "-shared" in link and link[-2:] == [str(tmp_path / "a.o"), str(tmp_path / "b.o")]
     key = _build.source_key()
     assert _build.library_path().name == f"ppca_kernels-{key}.so"
     assert _build.library_path().parent == _build.BUILD_DIR
