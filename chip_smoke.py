@@ -10,16 +10,25 @@ phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
 2. every spd_estep kernel variant and spd_chol against its plain PyTorch
-   version at B=8192, k in {2, 13, 64, 128}, in float64 and float32, on
-   inputs with all-masked (spd_estep) or non-SPD and identity (spd_chol)
-   samples and NaN-prefilled outputs; the M-step row solve at lambda=0 with
-   a singular row; requests above the shared-memory ceiling must raise;
-   kernel and plain times side by side;
+   version at B=8192, k in {2, 13, 24, 50, 64, 128} (the register-tile
+   design of spd_estep up to k=64, the one-block-per-sample design above;
+   each k prints which), in float64 and float32, on inputs with all-masked
+   (spd_estep) or non-SPD and identity (spd_chol) samples and NaN-prefilled
+   outputs; a negative-definite sample that goes non-finite alone; a sigma
+   per sample against scalar-sigma launches; the M-step row solve at
+   lambda=0 with a singular row; requests above the shared-memory ceiling
+   must raise.  Each float32 kernel is timed by launches into preallocated
+   outputs (CUDA events around 30 back-to-back launches, in turns with the
+   plain version) and by its device time read by name from a torch.profiler
+   window, beside its bound; spd_chol also beside torch.linalg.cholesky_ex,
+   which the port never calls; ``full`` also at B=32 and ``states`` at
+   B=1024, the pattern tables' and the row solve's shapes;
 3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
    missing at random, N=1,048,576 float32 rows made on the card from a
    seed (pattern detection must demote them), five trainer iterations,
    then the llk, infer, covariance-diagonal, smooth and extrapolate
-   readouts, with the kernel launch counts of that run;
+   readouts, with the kernel launch counts of that run, and a profile of
+   one more EM iteration (spd_estep, matmuls, the rest, device idle share);
 4. one EM step and the per-sample llks of a 16,384-row slice on the card in
    float32 against the port's plain path on the CPU in float64;
 5. the pattern path at full width: N=1,000,000, D=1024, k=64, rows drawn
@@ -40,8 +49,10 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -51,14 +62,31 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-ESTEP_SOURCE = "ppca_rs_tpu_torch/csrc/spd_estep.cu"
+#: spd_estep's sources by design (``kernels.design``): the register tile and
+#: the one-block-per-sample body with the C entry points.
+ESTEP_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_estep_tile.cuh",
+                "block": "ppca_rs_tpu_torch/csrc/spd_estep.cu"}
 ESTEP_REPLACES = "ppca_rs_tpu/ops/kernels.py:501"  # spd_estep -> pl.pallas_call, body _make_kernel :176
 CHOL_SOURCE = "ppca_rs_tpu_torch/csrc/spd_chol.cu"
 CHOL_REPLACES = "ppca_rs_tpu/ops/kernels.py:663"   # spd_chol -> pl.pallas_call :727
 
 BATCH = 8192
-KS = (2, 13, 64, 128)
+#: State sizes of the kernel checks: every register tile (8, 16, 32, 64),
+#: k a multiple of 4 (16-byte accesses) and not, and the block design.
+KS = (2, 13, 24, 50, 64, 128)
 TIMED_K = 64
+SIGMA = 0.7
+#: Noise levels cycled over the batch in the per-sample sigma check.
+SIGMA_LEVELS = (0.4, 0.7, 1.0, 1.3)
+#: The sample made negative definite in the spd_estep not-PD check.
+NOT_PD = 5
+#: Kernel launches per CUDA-event window; the slower plain versions take fewer.
+KERNEL_REPS = 30
+PLAIN_REPS = 5
+#: Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
+#: memory bytes/s, and float32 FLOP/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 #: float64 kernel vs plain float64: only rounding-order differences.
 TOL_F64 = 1e-10
 #: float32 kernel vs plain float64 on the same inputs, relative to each
@@ -109,6 +137,8 @@ def rel_err(got, want) -> float:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean time of ``reps`` back-to-back calls between two CUDA events,
+    after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -161,13 +191,167 @@ def kernel_inputs(B: int, k: int, gen):
     return dict(G=G, b=R @ C, rnorm=(R * R).sum(-1), d_obs=mask.sum(-1)), empty
 
 
+#: torch.profiler kernel names -> the kernel they time: an spd_estep
+#: variant by its ``want`` template argument (the last one), or spd_chol.
+_KERNEL_NAME = re.compile(r"spd_(?:estep(?:_tile)?_kernel<float, (?:\d+, )*(\d)>|chol_kernel<float>)")
+
+
+def profiled_ms(launchers: dict, reps: int) -> dict:
+    """Device time per launch of each kernel, read by name from one
+    torch.profiler window in which each launcher runs ``reps`` times; None
+    for a kernel that the profiler shows no device time for."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppca_rs_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in launchers.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    found = {}
+    for evt in prof.key_averages():
+        m = _KERNEL_NAME.search(evt.key)
+        total_us = getattr(evt, "device_time_total", 0)
+        if m and total_us > 0 and evt.count > 0:
+            name = "chol" if m.group(1) is None else kernels.WANTS[int(m.group(1))]
+            found[name] = total_us / evt.count / 1e3
+    return {name: found.get(name) for name in launchers}
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for this work at its published peaks."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def estep_work(want: str, B: int, k: int, itemsize: int):
+    """(bytes, FLOPs) of one spd_estep launch.  Bytes: each input (G, b,
+    rnorm, d_obs, sigma) read once and each output written once, where of
+    the symmetric G only the lower triangle need be read, k(k+1)/2 elements
+    a sample, and of fullt's SM only the lower triangle need be written,
+    since its one consumer (masked_linalg.em_stats) rebuilds SM from it.
+    FLOPs: the Cholesky factor k^3/3, M^{-1} from it 2k^3/3 more, k^2 for
+    each triangular solve and for s s^T."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    tri = k * (k + 1) // 2
+    elems = B * tri + B * k + 2 * B + 1
+    for sh in kernels.output_shapes(want, B, k):
+        elems += B * tri if want == "fullt" and len(sh) == 3 else math.prod(sh)
+    if want == "llk":
+        flops = k ** 3 / 3 + k * k
+    elif want == "states":
+        flops = k ** 3 / 3 + 2 * k * k
+    else:
+        flops = k ** 3 + 3 * k * k
+    return elems * itemsize, B * flops
+
+
+def time_estep(k: int, x, wants) -> dict:
+    """float32 times of the spd_estep variants ``wants`` on the inputs
+    ``x``: kernel launches into preallocated outputs with sigma already on
+    the card, KERNEL_REPS back to back between CUDA events, in turns with
+    the plain version (plain, kernel, kernel, plain); then each kernel's
+    device time by name from one profiler window; beside them the bound."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    G, b, rn, do = x["G"], x["b"], x["rnorm"], x["d_obs"]
+    B = G.shape[0]
+    sig = torch.full((1,), SIGMA, dtype=torch.float32, device="cuda")
+    rows, launchers = {}, {}
+    for want in wants:
+        if k > kernels.max_k(want, torch.float32):
+            continue
+        outs = kernels.empty_outputs(want, B, k, G)
+        kern = functools.partial(kernels.launch, want, sig, G, b, rn, do, outs)
+        plain = functools.partial(kernels.spd_estep_reference, sig, G, b, rn, do, want)
+        p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, KERNEL_REPS),
+                          cuda_ms(kern, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS))
+        launchers[want] = kern
+        rows[want] = dict(events=(k1, k2), plains=(p1, p2))
+    device = profiled_ms(launchers, KERNEL_REPS)
+    out = {}
+    for want, r in rows.items():
+        (k1, k2), (p1, p2) = r["events"], r["plains"]
+        b_ms, by = bound(*estep_work(want, B, k, 4))
+        dev = device[want]
+        print(f"[time] {want} k={k} B={B} float32, {kernels.design(k)} design: kernel "
+              f"{k1:.4f}/{k2:.4f} ms (events, {KERNEL_REPS} launches), "
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
+              f"plain {p1:.4f}/{p2:.4f} ms; bound {b_ms * 1e3:.2f} us ({by})")
+        out[want] = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
+                         bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by, library_ms=None,
+                         design=kernels.design(k), B=B, k=k)
+    return out
+
+
+def check_not_pd(k: int, dtype, tol: float, gen) -> None:
+    """A sample whose M is negative definite goes non-finite in every
+    output element; the samples beside it (in its block, warp or tile)
+    stay finite and agree with the plain version."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    B = 256
+    inputs64, _ = kernel_inputs(B, k, gen)
+    inputs64["G"][NOT_PD] = -(2.0 + SIGMA ** 2) * torch.eye(k, dtype=torch.float64, device="cuda")
+    x = {n: t.to(dtype).contiguous() for n, t in inputs64.items()}
+    x64 = {n: t.double() for n, t in x.items()}
+    good = torch.ones(B, dtype=torch.bool, device="cuda")
+    good[NOT_PD] = False
+    for want in kernels.WANTS:
+        if k > kernels.max_k(want, dtype):
+            continue
+        outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
+                     for sh in kernels.output_shapes(want, B, k))
+        kernels.launch(want, SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], outs)
+        torch.cuda.synchronize()
+        ref = kernels.spd_estep_reference(SIGMA, x64["G"], x64["b"], x64["rnorm"], x64["d_obs"], want)
+        for o, r in zip(outs, ref):
+            check(not bool(torch.isfinite(o[NOT_PD]).any()),
+                  f"not-PD {want} k={k} {dtype}: the sample has a finite output element")
+            check(bool(torch.isfinite(o[good]).all()),
+                  f"not-PD {want} k={k} {dtype}: a neighbouring sample is non-finite")
+            err = rel_err(o[good], r[good])
+            check(err <= tol, f"not-PD {want} k={k} {dtype}: neighbours' relative error {err:.3e}")
+    print(f"[kernels] k={k} {str(dtype).replace('torch.', '')}: a negative-definite sample goes "
+          f"non-finite in every output element, its {B - 1} neighbours agree with the plain version")
+
+
+def check_per_sample_sigma(k: int, dtype, x) -> None:
+    """One launch with a sigma per sample gives every sample exactly what
+    a launch with that sample's sigma for the whole batch gives."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    G, b, rn, do = x["G"], x["b"], x["rnorm"], x["d_obs"]
+    B = G.shape[0]
+    levels = torch.tensor(SIGMA_LEVELS, dtype=dtype, device="cuda")
+    which = torch.arange(B, device="cuda") % len(SIGMA_LEVELS)
+    per_sample = levels[which].contiguous()
+    for want in kernels.WANTS:
+        if k > kernels.max_k(want, dtype):
+            continue
+        got = kernels.spd_estep(per_sample, G, b, rn, do, want=want)
+        for i in range(len(SIGMA_LEVELS)):
+            scalar = kernels.spd_estep(levels[i:i + 1], G, b, rn, do, want=want)
+            rows = which == i
+            for g, s in zip(got, scalar):
+                check(torch.equal(g[rows], s[rows]),
+                      f"per-sample sigma {want} k={k} {dtype}: differs from the scalar launch")
+    print(f"[kernels] k={k} {str(dtype).replace('torch.', '')}: per-sample sigma "
+          f"({len(SIGMA_LEVELS)} levels over B={B}) equals the scalar-sigma launches bit for bit")
+
+
 def phase_kernels():
     from ppca_rs_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    sigma = 0.7
-    summary = {}
+    summary, errors = {}, {}
     for k in KS:
+        print(f"[kernels] k={k}: spd_estep served by the {kernels.design(k)} design")
         inputs64, empty = kernel_inputs(BATCH, k, gen)
         for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
             x = {n: t.to(dtype).contiguous() for n, t in inputs64.items()}
@@ -177,7 +361,7 @@ def phase_kernels():
                 tag = f"{want} k={k} {str(dtype).replace('torch.', '')}"
                 if k > kernels.max_k(want, dtype):
                     try:
-                        kernels.spd_estep(sigma, x["G"], x["b"], x["rnorm"], x["d_obs"], want=want)
+                        kernels.spd_estep(SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], want=want)
                     except ValueError as e:
                         print(f"[kernels] {tag}: refused above the ceiling "
                               f"(max k {kernels.max_k(want, dtype)}): {e}")
@@ -185,9 +369,9 @@ def phase_kernels():
                     raise RuntimeError(f"{tag}: launched above the shared-memory ceiling")
                 outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
                              for sh in kernels.output_shapes(want, BATCH, k))
-                kernels.launch(want, sigma, x["G"], x["b"], x["rnorm"], x["d_obs"], outs)
+                kernels.launch(want, SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], outs)
                 torch.cuda.synchronize()
-                ref = kernels.spd_estep_reference(sigma, x64["G"], x64["b"], x64["rnorm"],
+                ref = kernels.spd_estep_reference(SIGMA, x64["G"], x64["b"], x64["rnorm"],
                                                   x64["d_obs"], want)
                 errs = [rel_err(o, r) for o, r in zip(outs, ref)]
                 abs_err = max(float((o.double() - r).abs().max()) for o, r in zip(outs, ref))
@@ -204,19 +388,24 @@ def phase_kernels():
                     eye = torch.eye(k, dtype=dtype, device="cuda")
                     check(float((outs[1][empty] - eye).abs().max()) <= 1e-5,
                           f"{tag}: all-masked covariance != I")
-                line = f"[kernels] {tag}: max rel err {max(errs):.3e} (tol {tol:g}), max abs err {abs_err:.3e}"
-                if dtype == torch.float32:
-                    G, b, rn, do = x["G"], x["b"], x["rnorm"], x["d_obs"]
-                    plain = lambda: kernels.spd_estep_reference(sigma, G, b, rn, do, want)  # noqa: E731
-                    kern = lambda: kernels.spd_estep(sigma, G, b, rn, do, want=want)  # noqa: E731
-                    p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(kern, 20),
-                                      cuda_ms(kern, 20), cuda_ms(plain, 5))
-                    line += (f"; kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms "
-                             f"(B={BATCH})")
-                    if k == TIMED_K:
-                        summary[want] = dict(max_abs_err=abs_err, ms=(k1 + k2) / 2,
-                                             plain_ms=(p1 + p2) / 2)
-                print(line)
+                print(f"[kernels] {tag}: max rel err {max(errs):.3e} (tol {tol:g}), "
+                      f"max abs err {abs_err:.3e}")
+                if dtype == torch.float32 and k == TIMED_K:
+                    errors[want] = abs_err
+            check_not_pd(k, dtype, tol, gen)
+            check_per_sample_sigma(k, dtype, x)
+            if dtype == torch.float32:
+                timed = time_estep(k, x, kernels.WANTS)
+                if k == TIMED_K:
+                    summary.update(timed)
+                    # the shapes the main path also gives: the pattern
+                    # tables (full, B=P=32) and the M-step row solve
+                    # (states, B=D=1024)
+                    for want, n in (("full", P_PATTERN), ("states", D_MAIN)):
+                        sub = {name: t[:n].contiguous() for name, t in x.items()}
+                        timed = time_estep(k, sub, (want,))
+                        if want == "full":
+                            summary["full"] = timed["full"]
             del x, x64
         del inputs64
         torch.cuda.empty_cache()
@@ -262,6 +451,8 @@ def phase_kernels():
           + ", ".join(f"{w}: f32 {kernels.max_k(w, torch.float32)}, f64 {kernels.max_k(w, torch.float64)}"
                       for w in kernels.WANTS))
     check_chol(gen, summary)
+    for want in kernels.WANTS:
+        summary[want]["max_abs_err"] = errors[want]
     return summary
 
 
@@ -272,7 +463,8 @@ NOT_SPD, IDENTITY = 5, 9
 def check_chol(gen, summary) -> None:
     """spd_chol against its plain version: a non-SPD sample goes non-finite
     alone, the identity factors to itself, and every element above the
-    diagonal is written as 0."""
+    diagonal is written as 0.  Timed beside its plain version and beside
+    torch.linalg.cholesky_ex alone, which the port never calls."""
     from ppca_rs_tpu_torch.ops import kernels
 
     for k in KS:
@@ -300,17 +492,29 @@ def check_chol(gen, summary) -> None:
             err = rel_err(L[good], ref[good])
             abs_err = float((L[good].double() - ref[good]).abs().max())
             check(err <= tol, f"{tag}: relative error {err:.3e} above {tol}")
-            line = (f"[kernels] {tag}: max rel err {err:.3e} (tol {tol:g}), max abs err {abs_err:.3e}; "
-                    "non-SPD sample non-finite alone, identity exact, zeros above the diagonal")
+            print(f"[kernels] {tag}: max rel err {err:.3e} (tol {tol:g}), max abs err {abs_err:.3e}; "
+                  "non-SPD sample non-finite alone, identity exact, zeros above the diagonal")
             if dtype == torch.float32:
                 M[NOT_SPD] = eye.to(dtype)
-                plain = lambda: kernels.spd_chol_reference(M)  # noqa: E731
-                kern = lambda: kernels.spd_chol(M)  # noqa: E731
-                p1, k1, k2, p2 = cuda_ms(plain, 5), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 5)
-                line += f"; kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms (B={BATCH})"
+                kern = functools.partial(kernels.launch_chol, M, L)
+                plain = functools.partial(kernels.spd_chol_reference, M)
+                library = functools.partial(torch.linalg.cholesky_ex, M)
+                p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, KERNEL_REPS),
+                                  cuda_ms(kern, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS))
+                l1, l2 = cuda_ms(library, PLAIN_REPS), cuda_ms(library, PLAIN_REPS)
+                dev = profiled_ms({"chol": kern}, KERNEL_REPS)["chol"]
+                # M's lower triangle read, L written whole
+                b_ms, by = bound(BATCH * (k * (k + 1) // 2 + k * k) * 4, BATCH * k ** 3 / 3)
+                print(f"[time] chol k={k} B={BATCH} float32: kernel {k1:.4f}/{k2:.4f} ms (events, "
+                      f"{KERNEL_REPS} launches), "
+                      f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
+                      f"plain {p1:.4f}/{p2:.4f} ms; torch.linalg.cholesky_ex {l1:.4f}/{l2:.4f} ms; "
+                      f"bound {b_ms * 1e3:.2f} us ({by})")
                 if k == TIMED_K:
-                    summary["chol"] = dict(max_abs_err=abs_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-            print(line)
+                    summary["chol"] = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
+                                           bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by,
+                                           library_ms=(l1 + l2) / 2, design="block", B=BATCH, k=k,
+                                           max_abs_err=abs_err)
             del M, L, ref
         del M64
         torch.cuda.empty_cache()
@@ -422,6 +626,37 @@ def check_readouts(tag: str, model, sub):
     return inferred
 
 
+def profile_iteration(tag: str, model, dataset) -> None:
+    """One EM step over ``dataset`` under torch.profiler: device time of the
+    spd_estep kernels, of the matmuls and of everything else, and the
+    device's idle share of the window (one stream, so kernels do not
+    overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.iterate(dataset)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = {"spd_estep": 0.0, "matmul": 0.0, "other": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.key.lower()
+        group = ("spd_estep" if "spd_estep" in name else
+                 "matmul" if any(w in name for w in ("gemm", "xmma", "cutlass")) else "other")
+        groups[group] += evt.self_device_time_total / 1e6
+    busy = sum(groups.values())
+    if busy == 0:
+        print(f"[{tag}] profile of one EM iteration: the profiler shows no device time "
+              f"({wall:.4f} s of wall time)")
+        return
+    print(f"[{tag}] profile of one EM iteration ({wall:.4f} s of wall time under the profiler): "
+          + ", ".join(f"{g} {t:.4f} s ({t / wall:.1%})" for g, t in groups.items())
+          + f"; device idle {max(0.0, 1 - busy / wall):.1%}")
+
+
 def phase_main(smi: str):
     from ppca_rs_tpu_torch.ops import kernels
 
@@ -448,6 +683,7 @@ def phase_main(smi: str):
     want = {"fullt": N_ITERS * n_blocks, "states": N_ITERS + 2 * n_sub, "llk": n_blocks,
             "infer": n_sub, "full": 0, "chol": 0}
     check(launches == want, f"masked path launches {launches} != {want}")
+    profile_iteration("main", model, dataset)
     return model, dataset, launches
 
 
@@ -710,13 +946,16 @@ def main() -> int:
     phase_dense(smi)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    entries = [(f"spd_estep_{want}", ESTEP_SOURCE, ESTEP_REPLACES, want, masked_launches)
-               for want in ("fullt", "states", "llk", "infer")]
-    entries += [("spd_estep_full", ESTEP_SOURCE, ESTEP_REPLACES, "full", pattern_launches),
+    entries = [(f"spd_estep_{want}", ESTEP_SOURCE[summary[want]["design"]], ESTEP_REPLACES, want,
+                masked_launches) for want in ("fullt", "states", "llk", "infer")]
+    entries += [("spd_estep_full", ESTEP_SOURCE[summary["full"]["design"]], ESTEP_REPLACES, "full",
+                 pattern_launches),
                 ("spd_chol", CHOL_SOURCE, CHOL_REPLACES, "chol", pattern_launches)]
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_us",
+              "device_ms", "design", "B", "k")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[key], **summary[key]}
+         "launches": launches[key], **{f: summary[key][f] for f in fields}}
         for name, source, replaces, key, launches in entries
     ]}
     for entry in kernels_line["kernels"]:

@@ -1,10 +1,10 @@
 """Global defaults for ppca_rs_tpu_torch.
 
-Configured are the device and dtype that constructors use when they are
-handed host arrays, the number of samples processed per block by the
-blocked E-step loops, and the gates of the mask-pattern path
-(``ops/pattern_dedup.py``).  Tensors handed in keep their own device; every
-computation runs where its dataset lives.
+Configured are the device (the card by default) and dtype that
+constructors use when they are handed host arrays, the number of samples
+processed per block by the blocked E-step loops, and the gates of the
+mask-pattern path (``ops/pattern_dedup.py``).  Tensors handed in keep their
+own device; every computation runs where its dataset lives.
 
 Float32 matrix products run in full float32: TF32 keeps about three decimal
 digits, and the log-likelihood's quadratic form cancels near convergence.
@@ -19,8 +19,10 @@ import torch
 
 @dataclasses.dataclass
 class Config:
-    #: Device for datasets and models built from host arrays.
-    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
+    #: Device for datasets and models built from host arrays: the card.
+    #: Without one, building from host arrays raises unless the caller asks
+    #: for the CPU (``device="cpu"``, or ``config.device = torch.device("cpu")``).
+    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cuda"))
 
     #: Floating dtype for datasets and models built from host arrays.
     dtype: torch.dtype = torch.float32
@@ -57,6 +59,18 @@ class Config:
     #: segment), 104-132 vs 27 ms at N=262,144, P=256 (1,024 rows), and
     #: 763-833 vs 29-34 ms at P=2,048 (128 rows); the two cross near 8,192.
     pat_sorted_min_rows: int = 8192
+
+    def resolve_device(self, device=None) -> torch.device:
+        """The device for tensors built from host arrays: ``device`` if
+        given, else :attr:`device`.  A CUDA device with no card raises:
+        nothing falls back to the CPU unless the caller asks for it."""
+        dev = torch.device(device) if device is not None else self.device
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"no CUDA device for {dev}: pass device='cpu' or set "
+                "ppca_rs_tpu_torch.config.device = torch.device('cpu') to run on the CPU"
+            )
+        return dev
 
 
 config = Config()

@@ -9,8 +9,9 @@
 //
 // Layout is batch-major: M and L (B, k, k), contiguous.
 //
-// What bounds it on this card: per sample ~k^3/6 FMAs against 8 k^2 bytes
-// of device traffic (M in, L out) -- at k=64 about 44 KFLOP per 32 KB, far
+// What bounds it on this card: per sample ~k^3/6 FMAs against ~6 k^2 bytes
+// of device traffic in float32 (M's lower triangle in, L out whole) -- at
+// k=64 about 44 KFLOP per 25 KB, far
 // below the card's compute-to-bandwidth balance -- but the factorization is
 // a chain of k dependent column steps, each ending in a barrier, so the
 // kernel is bound by the latency of that chain, as spd_estep.cu is.
@@ -89,17 +90,17 @@ spd_chol_kernel(const T* __restrict__ M, T* __restrict__ L, int k) {
 
 template <typename T>
 int dispatch(int device, const void* M, void* L, long long B, int k, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0) return 0;
   if (k < 1 || B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (static_cast<size_t>(k) * (k | 1) + k) * sizeof(T);
-  auto kern = spd_chol_kernel<T>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  if (smem > static_cast<size_t>(kSmemLimitBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  err = allow_smem<&spd_chol_kernel<T>>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<static_cast<unsigned>(B), dim3(kThreadsX, kThreadsY), smem,
-         static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(M), static_cast<T*>(L), k);
+  spd_chol_kernel<T><<<static_cast<unsigned>(B), dim3(kThreadsX, kThreadsY), smem,
+                       static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(M),
+                                                            static_cast<T*>(L), k);
   return static_cast<int>(cudaGetLastError());
 }
 

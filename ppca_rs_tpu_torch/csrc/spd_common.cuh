@@ -1,8 +1,10 @@
 // Pieces shared by the package's per-sample SPD kernels (spd_estep.cu,
-// spd_chol.cu): the thread-block shape and the type-generic math helpers.
+// spd_estep_tile.cuh, spd_chol.cu): the one-block-per-sample thread-block
+// shape, the device limits and the type-generic math helpers.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace ppca {
 
@@ -13,9 +15,46 @@ constexpr int kThreadsY = 8;
 constexpr int kThreads = kThreadsX * kThreadsY;
 constexpr int kWarps = kThreads / 32;
 
+// Shared memory one block may use on Hopper (227 KB), and the devices a
+// process may drive, for the once-per-device kernel attributes.
+constexpr int kSmemLimitBytes = 232448;
+constexpr int kMaxDevices = 64;
+
+// spd_estep serves k <= kTileMaxK with the register-tile design
+// (spd_estep_tile.cuh) and larger k with one block per sample (spd_estep.cu);
+// the entry point spd_estep_tile_max_k reports it to the wrapper.
+constexpr int kTileMaxK = 64;
+
+// Makes `device` current for the launch that follows, switching only when
+// another device is current.
+inline cudaError_t ensure_device(int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
+}
+
+// Raises the dynamic shared-memory allowance of the kernel Kern to the whole
+// 227 KB, once per kernel and device rather than on every launch.  `device`
+// has passed ensure_device.
+template <auto Kern>
+cudaError_t allow_smem(int device) {
+  static bool allowed[kMaxDevices] = {};
+  if (allowed[device]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimitBytes);
+  if (err == cudaSuccess) allowed[device] = true;
+  return err;
+}
+
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 __device__ __forceinline__ float log_t(float x) { return logf(x); }
 __device__ __forceinline__ double log_t(double x) { return log(x); }
+__device__ __forceinline__ float nan_like(float) { return CUDART_NAN_F; }
+__device__ __forceinline__ double nan_like(double) { return CUDART_NAN; }
 
 }  // namespace ppca

@@ -20,37 +20,58 @@
 // so SM = Sigma and llk is the pattern's mask term).
 //
 // Layout is batch-major: G (B,k,k), b and s (B,k), SM (B,k,k), rnorm, d_obs,
-// llk, sq (B,), all contiguous; sigma is one device scalar, so the caller
-// never synchronises to read it.
+// llk, sq (B,), all contiguous; sigma is one device scalar (stride 0) or one
+// per sample (stride 1), on the device, so the caller never synchronises to
+// read it.
 //
-// What bounds it on this card: each sample is a serial chain of k dependent
-// column steps (~k^3/3 FMAs for the factor and the inverse, ~k^3/3 for
-// W^T W), against ~8 k^2 bytes of device traffic (G in, SM out).  At k=64
-// that is ~0.35 MFLOP per 32 KB, so the kernel is bound by the latency of
-// the column chain and its barriers, not by HBM bandwidth.
+// What bounds it on this card: one fullt launch must read G's lower
+// triangle and write SM's, all that its consumer reads (~4 k(k+1) bytes per
+// sample in float32: 141 MB at B=8192, k=64, 42 us at 3.35 TB/s; both
+// designs write SM whole), and do ~k^3 floating-point operations (34 us at
+// 67 TFLOP/s in float32), so device memory sets the floor.  What held the
+// first design (one 256-thread block per sample, M and W = L^{-1} in shared
+// memory) at ~47x that floor was the column
+// chain: one __syncthreads per column with little work between two
+// barriers, and two or three shared-memory accesses per FMA.
 //
-// Design for this first version, kept simple and exact:
-// * one thread block per sample, 256 threads as a 32 x 8 tile; the whole
-//   working set (M, and W = L^{-1} for fullt/infer) lives in shared memory,
-//   so the G read and the SM write are the only device-memory traffic;
-// * a right-looking Cholesky on the upper triangle (row j of U = L^T is
-//   contiguous, so a warp's reads of the pivot row do not conflict), with
-//   the columns left unscaled: step j subtracts A[j][i] A[j][l] / d_j.  The
-//   forward substitution of b and the rows of W = L^{-1} ride in the same
-//   step, which reads only row j and writes only rows > j, so the whole
-//   factorization needs ONE __syncthreads per column;
-// * a singular or indefinite sample (e.g. an empty dimension at lambda = 0
-//   in the M-step row solve) yields non-finite values for that sample only:
-//   one block per sample cannot poison its neighbours, so k is never padded.
+// Two designs, chosen by k in the entry points below:
+// * k <= kTileMaxK (64): the register-tile design, spd_estep_tile.cuh
+//   (built in spd_estep_tile_f32.cu and spd_estep_tile_f64.cu).  A sample
+//   belongs to 4 to 64 lanes, several samples to a block; the k x k matrix
+//   is held in registers and inverted in place by k symmetric sweeps
+//   (Gauss-Jordan: factor, inverse and L^T L in one pass over one buffer);
+//   each pivot column is broadcast through shared memory with one warp-level
+//   sync (a named barrier for a two-warp sample) per step; G, SM and Sigma
+//   move in 16-byte accesses.  Its header states the design in full.
+// * k > kTileMaxK, up to the shared-memory ceiling: the first design, this
+//   file's body.  One block per sample, 256 threads as a 32 x 8 tile, M and
+//   W in shared memory; a right-looking Cholesky on the upper triangle with
+//   the columns left unscaled (step j subtracts A[j][i] A[j][l] / d_j), the
+//   forward substitution of b and the rows of W riding in the same step,
+//   which reads only row j and writes only rows > j: one __syncthreads per
+//   column.  Shared memory is (n_buf k^2 + 3k + 32) elements, n_buf = 2 for
+//   fullt/full/infer and 1 for states/llk; the wrapper refuses k above what
+//   fits in the 227 KB a block may use.
 //
-// Shared memory is (n_buf k^2 + 3k + 32) elements, n_buf = 2 for
-// fullt/full/infer and 1 for states/llk; the wrapper refuses k above what fits in
-// the 227 KB a block may use.  The C entry points return cudaGetLastError()
-// and allocate nothing; they launch on the stream they are given.
+// In both, a singular or indefinite sample (e.g. an empty dimension at
+// lambda = 0 in the M-step row solve) yields non-finite values for that
+// sample only: nothing reduces across samples.  The C entry points return
+// cudaGetLastError() and allocate nothing; they launch on the stream they
+// are given.
 
 #include <cuda_runtime.h>
 
 #include "spd_common.cuh"
+
+extern "C" {
+// spd_estep_tile_f32.cu, spd_estep_tile_f64.cu: the register-tile design.
+int ppca_spd_estep_tile_f32(int want, const void* sigma, long long sigma_stride, const void* G,
+                            const void* b, const void* rnorm, const void* d_obs, void* s,
+                            void* m, void* llk, void* sq, long long B, int k, void* stream);
+int ppca_spd_estep_tile_f64(int want, const void* sigma, long long sigma_stride, const void* G,
+                            const void* b, const void* rnorm, const void* d_obs, void* s,
+                            void* m, void* llk, void* sq, long long B, int k, void* stream);
+}
 
 namespace {
 
@@ -92,7 +113,7 @@ __host__ __device__ constexpr bool wants_inverse(int want) {
 
 template <typename T, int WANT>
 __global__ void __launch_bounds__(kThreads)
-spd_estep_kernel(const T* __restrict__ sigma, const T* __restrict__ G,
+spd_estep_kernel(const T* __restrict__ sigma, long long sigma_stride, const T* __restrict__ G,
                  const T* __restrict__ b, const T* __restrict__ rnorm,
                  const T* __restrict__ d_obs, T* __restrict__ s_out,
                  T* __restrict__ m_out, T* __restrict__ llk_out,
@@ -111,7 +132,7 @@ spd_estep_kernel(const T* __restrict__ sigma, const T* __restrict__ G,
   const int tid = ty * kThreadsX + tx;
   const size_t n = blockIdx.x;
   const int kk = k * k;
-  const T sig = sigma[0];
+  const T sig = sigma[n * sigma_stride];
   const T s2 = sig * sig;
 
   const T* Gn = G + n * static_cast<size_t>(kk);
@@ -204,17 +225,16 @@ template <int WANT>
 constexpr int n_buffers() { return wants_inverse(WANT) ? 2 : 1; }
 
 template <typename T, int WANT>
-int launch(const void* sigma, const void* G, const void* b, const void* rnorm,
-           const void* d_obs, void* s, void* m, void* llk, void* sq,
-           long long B, int k, cudaStream_t stream) {
+int launch(int device, const void* sigma, long long sigma_stride, const void* G,
+           const void* b, const void* rnorm, const void* d_obs, void* s, void* m,
+           void* llk, void* sq, long long B, int k, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(n_buffers<WANT>()) * k * k + 3 * k + kReduceSlots) * sizeof(T);
-  auto kern = spd_estep_kernel<T, WANT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (smem > static_cast<size_t>(kSmemLimitBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem<&spd_estep_kernel<T, WANT>>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<static_cast<unsigned>(B), dim3(kThreadsX, kThreadsY), smem, stream>>>(
-      static_cast<const T*>(sigma), static_cast<const T*>(G),
+  spd_estep_kernel<T, WANT><<<static_cast<unsigned>(B), dim3(kThreadsX, kThreadsY), smem, stream>>>(
+      static_cast<const T*>(sigma), sigma_stride, static_cast<const T*>(G),
       static_cast<const T*>(b), static_cast<const T*>(rnorm),
       static_cast<const T*>(d_obs), static_cast<T*>(s), static_cast<T*>(m),
       static_cast<T*>(llk), static_cast<T*>(sq), k);
@@ -222,20 +242,27 @@ int launch(const void* sigma, const void* G, const void* b, const void* rnorm,
 }
 
 template <typename T>
-int dispatch(int want, int device, const void* sigma, const void* G,
+int dispatch(int want, int device, const void* sigma, long long sigma_stride, const void* G,
              const void* b, const void* rnorm, const void* d_obs, void* s,
              void* m, void* llk, void* sq, long long B, int k, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0) return 0;
-  if (k < 1 || B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || B > 0x7fffffffLL || (sigma_stride != 0 && sigma_stride != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= kTileMaxK) {
+    return sizeof(T) == 4 ? ppca_spd_estep_tile_f32(want, sigma, sigma_stride, G, b, rnorm, d_obs,
+                                                    s, m, llk, sq, B, k, stream)
+                          : ppca_spd_estep_tile_f64(want, sigma, sigma_stride, G, b, rnorm, d_obs,
+                                                    s, m, llk, sq, B, k, stream);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (want) {
-    case kFullT: return launch<T, kFullT>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
-    case kStates: return launch<T, kStates>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
-    case kLlk: return launch<T, kLlk>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
-    case kInfer: return launch<T, kInfer>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
-    case kFull: return launch<T, kFull>(sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
+    case kFullT: return launch<T, kFullT>(device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
+    case kStates: return launch<T, kStates>(device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
+    case kLlk: return launch<T, kLlk>(device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
+    case kInfer: return launch<T, kInfer>(device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
+    case kFull: return launch<T, kFull>(device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -245,18 +272,25 @@ int dispatch(int want, int device, const void* sigma, const void* G,
 extern "C" {
 
 // want: 0 fullt, 1 states, 2 llk, 3 infer, 4 full.  Unused outputs may be null.
+// sigma_stride: 0 for one sigma for the batch, 1 for one per sample.
 // Returns a cudaError_t (0 on success).
-int spd_estep_f32(int want, int device, const void* sigma, const void* G,
-                  const void* b, const void* rnorm, const void* d_obs, void* s,
-                  void* m, void* llk, void* sq, long long B, int k, void* stream) {
-  return dispatch<float>(want, device, sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, stream);
+int spd_estep_f32(int want, int device, const void* sigma, long long sigma_stride,
+                  const void* G, const void* b, const void* rnorm, const void* d_obs,
+                  void* s, void* m, void* llk, void* sq, long long B, int k, void* stream) {
+  return dispatch<float>(want, device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq,
+                         B, k, stream);
 }
 
-int spd_estep_f64(int want, int device, const void* sigma, const void* G,
-                  const void* b, const void* rnorm, const void* d_obs, void* s,
-                  void* m, void* llk, void* sq, long long B, int k, void* stream) {
-  return dispatch<double>(want, device, sigma, G, b, rnorm, d_obs, s, m, llk, sq, B, k, stream);
+int spd_estep_f64(int want, int device, const void* sigma, long long sigma_stride,
+                  const void* G, const void* b, const void* rnorm, const void* d_obs,
+                  void* s, void* m, void* llk, void* sq, long long B, int k, void* stream) {
+  return dispatch<double>(want, device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq,
+                          B, k, stream);
 }
+
+// Largest k that the register-tile design serves; larger k take one block
+// per sample.
+int spd_estep_tile_max_k() { return kTileMaxK; }
 
 const char* spd_estep_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,0 +1,12 @@
+// The register-tile E-step (spd_estep_tile.cuh) in double, in a source of its
+// own so that nvcc builds it beside the other sources.
+#include "spd_estep_tile.cuh"
+
+extern "C" int ppca_spd_estep_tile_f64(int want, const void* sigma, long long sigma_stride,
+                                        const void* G, const void* b, const void* rnorm,
+                                        const void* d_obs, void* s, void* m, void* llk, void* sq,
+                                        long long B, int k, void* stream) {
+  return static_cast<int>(ppca::tile::spd_estep_tile<double>(
+      want, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k,
+      static_cast<cudaStream_t>(stream)));
+}

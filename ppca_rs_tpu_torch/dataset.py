@@ -31,9 +31,11 @@ class _WeightsView(np.ndarray):
 
 
 def _as_tensor(x, dtype=None, device=None) -> torch.Tensor:
+    """A tensor keeps its device unless ``device`` is given; a host array
+    goes to ``device``, else to ``config.device``."""
     if isinstance(x, torch.Tensor):
         return x.to(dtype=dtype or x.dtype, device=device or x.device)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=config.resolve_device(device))
 
 
 #: Rows packed per step of pattern detection: bounds the (rows, D) int64
@@ -103,7 +105,7 @@ class Dataset:
         arr = np.asarray(ndarray, dtype=np.float64)
         if arr.ndim != 2:
             raise ValueError(f"expected a 2D (N, D) array, got shape {arr.shape}")
-        device = torch.device(device) if device is not None else config.device
+        device = config.resolve_device(device)
         dtype = dtype or config.dtype
         # Non-finite entries (NaN/inf) are masked out, mirroring
         # MaskedSample::mask_non_finite (ppca/src/dataset.rs:19-22).
@@ -144,7 +146,9 @@ class Dataset:
     @classmethod
     def from_parts(cls, data, mask, weights=None) -> "Dataset":
         """Build from prepared arrays or tensors (data zero-filled at masked
-        entries).  Everything is placed on the data's device."""
+        entries).  Data given as a tensor keeps its device, data given as a
+        host array goes to ``config.device``; the mask and weights follow
+        the data."""
         data = _as_tensor(data)
         mask = _as_tensor(mask, dtype=torch.bool, device=data.device)
         if tuple(mask.shape) != tuple(data.shape):
@@ -305,7 +309,7 @@ class Dataset:
     @staticmethod
     def load(data: bytes, *, device=None, dtype=None) -> "Dataset":
         arrays, _ = load_bytes(data, "dataset")
-        device = torch.device(device) if device is not None else config.device
+        device = config.resolve_device(device)
         dtype = dtype or config.dtype
         return Dataset.from_parts(
             torch.as_tensor(arrays["data"], dtype=dtype, device=device),

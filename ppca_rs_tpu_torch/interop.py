@@ -34,7 +34,7 @@ def dataset_from_arrays(data, mask, weights=None, *, device=None, dtype=None) ->
     """A port ``Dataset`` from (N, D) values (zero-filled where masked),
     the (N, D) bool mask (True = observed) and optional (N,) weights, in
     ``dtype`` (default: the data's own)."""
-    device = torch.device(device) if device is not None else config.device
+    device = config.resolve_device(device)
     data = np.asarray(data)
     data = torch.as_tensor(data, dtype=_torch_dtype(data, dtype), device=device)
     return Dataset.from_parts(data, np.asarray(mask, dtype=bool),

@@ -93,7 +93,7 @@ class PPCAModel(nn.Module):
             raise ValueError(
                 f"mean length {m.shape[0]} does not match transform rows {t.shape[0]}"
             )
-        device = torch.device(device) if device is not None else config.device
+        device = config.resolve_device(device)
         dtype = dtype or config.dtype
         self.register_buffer("transform", torch.as_tensor(t, dtype=dtype, device=device))
         self.register_buffer("mean", torch.as_tensor(m, dtype=dtype, device=device))

@@ -121,13 +121,17 @@ def load() -> ctypes.CDLL:
             p = ctypes.c_void_p
             for name in ("spd_estep_f32", "spd_estep_f64"):
                 fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, p,
-                               p, ctypes.c_longlong, ctypes.c_int, p]
+                # want, device, sigma, sigma's stride, G, b, rnorm, d_obs,
+                # s, m, llk, sq, B, k, stream
+                fn.argtypes = [ctypes.c_int, ctypes.c_int, p, ctypes.c_longlong, p, p, p, p,
+                               p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
                 fn.restype = ctypes.c_int
             for name in ("spd_chol_f32", "spd_chol_f64"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_int, p, p, ctypes.c_longlong, ctypes.c_int, p]
                 fn.restype = ctypes.c_int
+            lib.spd_estep_tile_max_k.argtypes = []
+            lib.spd_estep_tile_max_k.restype = ctypes.c_int
             lib.spd_estep_error_string.argtypes = [ctypes.c_int]
             lib.spd_estep_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -15,13 +15,18 @@ where ``llk`` is the per-sample log-likelihood and ``sq = tr(G Sigma) =
 sigma^2 (k - sigma^2 tr M^{-1})``, the noise-update term.  SM and Sigma are
 full symmetric matrices.
 
-Layout is batch-major: ``G (B, k, k)``, ``b (B, k)``, ``rnorm, d_obs (B,)``,
-``sigma`` a scalar (a Python float or a one-element tensor).
+Layout is batch-major: ``G (B, k, k)``, ``b (B, k)``, ``rnorm, d_obs (B,)``;
+``sigma`` is one noise level for the batch (a Python float or a one-element
+tensor) or one per sample (a tensor of B elements, as the mixtures stack
+their components on the batch axis).
 
 On a CUDA tensor the wrapper launches the kernel in ``csrc/spd_estep.cu``
 (the port of ``ppca_rs_tpu/ops/kernels.py:_make_kernel`` / ``spd_estep``) or
-raises; on a CPU tensor it runs :func:`spd_estep_reference`.  There is no
-other route.  An all-masked sample (``G = 0``, ``b = 0``, ``rnorm = d_obs =
+raises: up to the tile limit the library reports (:func:`design`) the
+register-tile design of ``csrc/spd_estep_tile.cuh``, above it the
+one-block-per-sample design.  On
+a CPU tensor it runs :func:`spd_estep_reference`.  There is no other
+route.  An all-masked sample (``G = 0``, ``b = 0``, ``rnorm = d_obs =
 0``) is neutral: ``s = 0``, ``Sigma = I``, ``llk = 0``.  A sample whose M is
 not positive definite yields non-finite values for that sample only.
 
@@ -33,6 +38,7 @@ on CUDA tensors, :func:`spd_chol_reference` on CPU tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -62,20 +68,55 @@ def smem_bytes(want: str, k: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block.  spd_estep: M, plus W = L^{-1}
     for the variants that form the inverse, plus three k-vectors and 32
     slots.  chol: M with an odd row stride ``k | 1``, plus one k-vector."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     if want == "chol":
         return (k * (k | 1) + k) * itemsize
     n_buf = 2 if want in ("fullt", "full", "infer") else 1
     return (n_buf * k * k + 3 * k + 32) * itemsize
 
 
+@functools.lru_cache(maxsize=None)
 def max_k(want: str, dtype: torch.dtype) -> int:
     """Largest state size the kernel takes for this variant (or "chol")
-    and dtype."""
+    and dtype: the largest k whose one-block-per-sample shared memory fits.
+    Cached: the wrapper asks on every launch."""
     k = 1
     while smem_bytes(want, k + 1, dtype) <= SMEM_LIMIT_BYTES:
         k += 1
     return k
+
+
+def design(k: int) -> str:
+    """Which spd_estep design serves state size k on the card: "tile"
+    (registers, several samples per block) or "block" (one block per
+    sample, shared memory), by the tile limit the kernel library reports."""
+    from . import _build
+
+    return "tile" if k <= _build.load().spd_estep_tile_max_k() else "block"
+
+
+def sigma_arg(sigma, B: int, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, int]:
+    """sigma as the kernel takes it: a contiguous (1,) or (B,) tensor of
+    the kernel's dtype on its device, and its element stride (0 or 1).
+
+    A tensor that already is so is used as it is (a view, no copy); one of
+    another dtype or device is converted, without a stream synchronisation
+    when it goes to the card; a Python number is written on the device by a
+    fill kernel, so no host-to-device copy waits on the stream."""
+    to_card = device.type == "cuda"
+    if isinstance(sigma, torch.Tensor):
+        t = sigma.reshape(-1)
+        if t.dtype != dtype or t.device != device:
+            t = t.to(device=device, dtype=dtype, non_blocking=to_card)
+    else:
+        host = torch.as_tensor(sigma, dtype=dtype).reshape(-1)
+        if host.numel() == 1:
+            t = torch.full((1,), float(host[0]), dtype=dtype, device=device)
+        else:
+            t = host.to(device=device, non_blocking=to_card)
+    if t.numel() not in (1, B):
+        raise ValueError(f"sigma must be a scalar or have B={B} elements, got {t.numel()}")
+    return t.contiguous(), (0 if t.numel() == 1 else 1)
 
 
 def spd_estep_reference(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Tensor, ...]:
@@ -87,10 +128,10 @@ def spd_estep_reference(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple
     _check_want(want)
     B, k, _ = G.shape
     dtype, device = G.dtype, G.device
-    sigma = torch.as_tensor(sigma, dtype=dtype, device=device).reshape(())
-    s2 = sigma * sigma
+    sigma, _ = sigma_arg(sigma, B, dtype, device)
+    s2 = sigma * sigma                      # (1,) or (B,)
     eye = torch.eye(k, dtype=dtype, device=device)
-    L, info = torch.linalg.cholesky_ex(G + s2 * eye)
+    L, info = torch.linalg.cholesky_ex(G + s2[:, None, None] * eye)
     L = torch.where((info == 0)[:, None, None], L, torch.full_like(L, math.nan))
     y = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False).squeeze(-1)
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
@@ -104,7 +145,7 @@ def spd_estep_reference(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple
     W = torch.linalg.solve_triangular(L, eye.expand(B, k, k), upper=False)
     minv = W.mT @ W
     sq = s2 * (k - s2 * torch.diagonal(minv, dim1=-2, dim2=-1).sum(-1))
-    cov = s2 * minv
+    cov = s2[:, None, None] * minv
     if want == "infer":
         return s, cov, llk, sq
     return s, s[:, :, None] * s[:, None, :] + cov, llk, sq
@@ -182,7 +223,7 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
             f"want={want!r} and {dtype}: 1 <= k <= {max_k(want, dtype)} "
             f"({SMEM_LIMIT_BYTES} bytes of shared memory per block)"
         )
-    sigma = torch.as_tensor(sigma, dtype=dtype, device=device).reshape(1)
+    sigma, sigma_stride = sigma_arg(sigma, B, dtype, device)
     shapes = output_shapes(want, B, k)
     if len(outs) != len(shapes) or any(
         tuple(o.shape) != sh or o.dtype != dtype or o.device != device
@@ -210,8 +251,8 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
     fn = lib.spd_estep_f32 if dtype == torch.float32 else lib.spd_estep_f64
     stream = torch.cuda.current_stream(device).cuda_stream
     index = device.index if device.index is not None else torch.cuda.current_device()
-    err = fn(_WANT_CODE[want], index, ptr(sigma), ptr(G), ptr(b), ptr(rnorm), ptr(d_obs),
-             ptr(s), ptr(m), ptr(llk), ptr(sq), B, k, stream)
+    err = fn(_WANT_CODE[want], index, ptr(sigma), sigma_stride, ptr(G), ptr(b), ptr(rnorm),
+             ptr(d_obs), ptr(s), ptr(m), ptr(llk), ptr(sq), B, k, stream)
     if err != 0:
         raise RuntimeError(
             f"spd_estep kernel launch failed (want={want!r}, B={B}, k={k}): "

@@ -9,6 +9,7 @@ packages in float32, at the tolerances of tests/test_kernels.py.
 
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -21,8 +22,15 @@ from ppca_rs_tpu.ops import masked_linalg as jml
 from ppca_rs_tpu_torch.ops import _build
 from ppca_rs_tpu_torch.ops import kernels as tk
 from ppca_rs_tpu_torch.ops import masked_linalg as tml
+from ppca_rs_tpu_torch.config import config as tconfig
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port builds on the card by default; these tests ask for the CPU."""
+    monkeypatch.setattr(tconfig, "device", torch.device("cpu"))
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -40,8 +48,11 @@ def estep_inputs(rng, B, D, k, empty_rows=(3,)):
 
 
 def jax_estep(sigma, G, b, rnorm, d_obs, want):
-    """The Pallas kernel in interpret mode, in the port's batch-major layout."""
-    out = jk.spd_estep(jnp.float32(sigma), jnp.asarray(np.transpose(G, (1, 2, 0))),
+    """The Pallas kernel in interpret mode, in the port's batch-major layout;
+    a per-sample sigma goes in as the (1, B) lane vector."""
+    sigma = np.asarray(sigma, np.float32)
+    sigma = jnp.asarray(sigma if sigma.ndim == 0 else sigma.reshape(1, -1))
+    out = jk.spd_estep(sigma, jnp.asarray(np.transpose(G, (1, 2, 0))),
                        jnp.asarray(b.T), jnp.asarray(rnorm[None, :]),
                        jnp.asarray(d_obs[None, :]), want=want, interpret=True)
     out = [np.asarray(o) for o in out]
@@ -53,6 +64,8 @@ def jax_estep(sigma, G, b, rnorm, d_obs, want):
 
 
 def torch_estep(sigma, G, b, rnorm, d_obs, want):
+    if isinstance(sigma, np.ndarray):
+        sigma = torch.from_numpy(sigma)
     out = tk.spd_estep(sigma, *(torch.from_numpy(a) for a in (G, b, rnorm, d_obs)), want=want)
     return [o.numpy() for o in out]
 
@@ -82,6 +95,40 @@ def test_reference_matches_pallas(rng, want, k):
             tril = np.tril(np.ones((k, k)))
             g, r = g * tril, r * tril
         np.testing.assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"output {i}")
+
+
+@pytest.mark.parametrize("want", ["fullt", "states", "llk", "infer", "full"])
+def test_reference_per_sample_sigma_matches_pallas(rng, want):
+    """A sigma per sample (the mixtures' stacked components) against the
+    Pallas kernel's (1, B) lane vector, as tests/test_kernels.py holds it."""
+    k = 5
+    G, b, rnorm, d_obs = estep_inputs(rng, B=128, D=16, k=k)
+    sigmas = np.where(np.arange(128) < 64, 0.4, 1.3).astype(np.float32)
+    got = torch_estep(sigmas, G, b, rnorm, d_obs, want)
+    ref = jax_estep(sigmas, G, b, rnorm, d_obs, want)
+    for i, (g, r, (rtol, atol)) in enumerate(zip(got, ref, TOLS[want])):
+        if want == "fullt" and i == 1:
+            tril = np.tril(np.ones((k, k)))
+            g, r = g * tril, r * tril
+        np.testing.assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"output {i}")
+
+
+@pytest.mark.parametrize("want", ["fullt", "states", "llk", "infer"])
+def test_reference_per_sample_sigma_matches_scalar_calls(rng, want):
+    """Each sample of a per-sample-sigma call equals the call with that
+    sample's sigma for the whole batch."""
+    G, b, rnorm, d_obs = (torch.from_numpy(a.astype(np.float64)) for a in
+                          estep_inputs(rng, B=24, D=14, k=4))
+    levels = (0.5, 0.9, 1.7)
+    which = torch.arange(24) % len(levels)
+    sigma = torch.tensor(levels, dtype=torch.float64)[which]
+    got = tk.spd_estep(sigma, G, b, rnorm, d_obs, want=want)
+    for i, level in enumerate(levels):
+        rows = which == i
+        for g, r in zip(got, tk.spd_estep(level, G, b, rnorm, d_obs, want=want)):
+            torch.testing.assert_close(g[rows], r[rows], rtol=1e-13, atol=1e-13)
+    with pytest.raises(ValueError, match="sigma"):
+        tk.spd_estep(sigma[:5], G, b, rnorm, d_obs, want=want)
 
 
 def test_rows_solve_matches_pallas(rng):
@@ -191,13 +238,54 @@ def test_shared_memory_ceiling():
             assert tk.smem_bytes(want, k + 1, dtype) > tk.SMEM_LIMIT_BYTES
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("want", list(tk.KERNELS))
+def test_max_k_is_the_largest_k_that_fits(want, dtype):
+    """The cached ceiling is the one a scan of k gives, and asking again
+    returns the cached value."""
+    k = 1
+    while tk.smem_bytes(want, k + 1, dtype) <= tk.SMEM_LIMIT_BYTES:
+        k += 1
+    assert tk.max_k(want, dtype) == k
+    assert tk.max_k(want, dtype) == k and tk.max_k.cache_info().hits >= 1
+
+
+def test_sigma_given_on_the_device_is_used_as_it_is():
+    """A sigma tensor of the kernel's dtype and device goes to the kernel
+    without a copy (stride 0 for one value, 1 for one per sample); a Python
+    number is filled on the device; a wrong length raises."""
+    one = torch.tensor(0.7, dtype=torch.float64)
+    arg, stride = tk.sigma_arg(one, 6, torch.float64, one.device)
+    assert arg.data_ptr() == one.data_ptr() and stride == 0 and arg.shape == (1,)
+    per = torch.linspace(0.5, 1.0, 6, dtype=torch.float64)
+    arg, stride = tk.sigma_arg(per, 6, torch.float64, per.device)
+    assert arg.data_ptr() == per.data_ptr() and stride == 1
+    arg, stride = tk.sigma_arg(0.25, 6, torch.float32, torch.device("cpu"))
+    assert arg.dtype == torch.float32 and stride == 0 and float(arg) == 0.25
+    arg, stride = tk.sigma_arg(per, 6, torch.float32, per.device)
+    assert arg.dtype == torch.float32 and stride == 1
+    torch.testing.assert_close(arg, per.float())
+    with pytest.raises(ValueError, match="sigma"):
+        tk.sigma_arg(per[:4], 6, torch.float64, per.device)
+
+
+def test_design_follows_the_tile_limit(monkeypatch):
+    """k up to the tile limit that the kernel library reports takes the
+    register tile, larger k the block design (a stand-in library here: the
+    real one is built on the card)."""
+    lib = types.SimpleNamespace(spd_estep_tile_max_k=lambda: 48)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    assert tk.design(1) == tk.design(48) == "tile"
+    assert tk.design(49) == tk.design(128) == "block"
+
+
 def test_build_command_and_source_key(tmp_path, monkeypatch):
     """The build compiles each of the package's sources for sm_90a, then
     links them into a library whose name carries a hash of the sources
     (nvcc itself runs on the card)."""
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cu = [p.name for p in _build.sources() if p.suffix == ".cu"]
-    assert cu == ["spd_chol.cu", "spd_estep.cu"]
+    assert cu == ["spd_chol.cu", "spd_estep.cu", "spd_estep_tile_f32.cu", "spd_estep_tile_f64.cu"]
     for name in cu:
         cmd = _build.compile_command(_build.SOURCE_DIR / name, tmp_path / "a.o")
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]

@@ -13,8 +13,15 @@ import torch
 
 from ppca_rs_tpu.ops import masked_linalg as jml
 from ppca_rs_tpu_torch.ops import masked_linalg as tml
+from ppca_rs_tpu_torch.config import config as tconfig
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port builds on the card by default; these tests ask for the CPU."""
+    monkeypatch.setattr(tconfig, "device", torch.device("cpu"))
 
 RTOL = 1e-9
 N, D, K, BLOCK = 150, 12, 3, 64  # 150 = 2 full blocks of 64 + a ragged 22

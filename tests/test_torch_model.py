@@ -19,10 +19,18 @@ import ppca_rs_tpu as jp
 import ppca_rs_tpu_torch as tp
 from ppca_rs_tpu_torch import interop
 from ppca_rs_tpu_torch.ops import kernels as tk
+from ppca_rs_tpu_torch.config import Config
+from ppca_rs_tpu_torch.config import config as tconfig
 
 import reference_impl as ref  # tests/ is on sys.path under pytest
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port builds on the card by default; these tests ask for the CPU."""
+    monkeypatch.setattr(tconfig, "device", torch.device("cpu"))
 
 F64 = torch.float64
 
@@ -301,3 +309,46 @@ def test_model_constructor_and_module():
                                np.broadcast_to(np.eye(2), (3, 2, 2)), atol=1e-6)
     assert len(inferred) == 3 and len(inferred.covariances()) == 3
     assert len(inferred.second_moments()) == 3
+
+
+def test_config_defaults_to_the_card():
+    assert Config().device.type == "cuda"
+
+
+@pytest.mark.parametrize("build", [
+    "Dataset", "from_parts", "unmasked", "Dataset.load", "PPCAModel", "PPCAModel.load",
+    "model_from_arrays", "dataset_from_arrays",
+])
+def test_host_arrays_without_a_card_raise(monkeypatch, build):
+    """With the default device and no card, building from host arrays
+    raises: nothing falls back to the CPU unless the caller asks for it."""
+    arr = np.ones((4, 3))
+    C, mean = np.ones((3, 2)), np.zeros(3)
+    dumped = {"Dataset.load": tp.Dataset(arr, device="cpu").dump(),
+              "PPCAModel.load": tp.PPCAModel(1.0, C, mean, device="cpu").dump()}
+    calls = {
+        "Dataset": lambda: tp.Dataset(arr),
+        "from_parts": lambda: tp.Dataset.from_parts(arr, arr > 0),
+        "unmasked": lambda: tp.Dataset.unmasked(arr),
+        "Dataset.load": lambda: tp.Dataset.load(dumped["Dataset.load"]),
+        "PPCAModel": lambda: tp.PPCAModel(1.0, C, mean),
+        "PPCAModel.load": lambda: tp.PPCAModel.load(dumped["PPCAModel.load"]),
+        "model_from_arrays": lambda: interop.model_from_arrays(C, mean, 1.0),
+        "dataset_from_arrays": lambda: interop.dataset_from_arrays(arr, arr > 0),
+    }
+    monkeypatch.setattr(tconfig, "device", Config().device)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[build]()
+
+
+def test_from_parts_honours_config_device(monkeypatch):
+    """Host arrays go to config.device; tensors keep their own device."""
+    arr = np.arange(6.0).reshape(3, 2)
+    monkeypatch.setattr(tconfig, "device", torch.device("meta"))
+    ds = tp.Dataset.from_parts(arr, arr > 1, np.ones(3))
+    assert ds.device.type == "meta" and ds.mask.device.type == "meta"
+    assert ds.weights_dev.device.type == "meta"
+    assert tp.Dataset.unmasked(arr).device.type == "meta"
+    kept = tp.Dataset.from_parts(torch.from_numpy(arr), torch.from_numpy(arr > 1))
+    assert kept.device.type == "cpu" and kept.mask.device.type == "cpu"

@@ -27,6 +27,12 @@ from ppca_rs_tpu_torch.ops import pattern_dedup as tpd
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port builds on the card by default; these tests ask for the CPU."""
+    monkeypatch.setattr(tconfig, "device", torch.device("cpu"))
+
 RTOL = 1e-9
 BLOCK = 32
 

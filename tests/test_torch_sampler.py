@@ -21,8 +21,15 @@ import ppca_rs_tpu_torch as tp
 from ppca_rs_tpu.ops import kernels as jk
 from ppca_rs_tpu_torch import interop
 from ppca_rs_tpu_torch.ops import kernels as tk
+from ppca_rs_tpu_torch.config import config as tconfig
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu(monkeypatch):
+    """The port builds on the card by default; these tests ask for the CPU."""
+    monkeypatch.setattr(tconfig, "device", torch.device("cpu"))
 
 RTOL = 1e-9
 
