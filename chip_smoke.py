@@ -5,14 +5,15 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and runs six
+It builds the CUDA kernels from the sources in the checkout and runs seven
 phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
 2. every spd_estep kernel variant and spd_chol against its plain PyTorch
-   version at B=8192, k in {2, 13, 24, 50, 64, 128} (the register-tile
-   design of spd_estep up to k=64, the one-block-per-sample design above;
-   each k prints which), in float64 and float32, on inputs with all-masked
+   version at B=8192, k in {2, 13, 24, 50, 64, 99, 128, 160} (the
+   register-tile designs up to the tile limit the library reports, the
+   one-block-per-sample designs above it; each k prints which serves each
+   kernel), in float64 and float32, on inputs with all-masked
    (spd_estep) or non-SPD and identity (spd_chol) samples and NaN-prefilled
    outputs; a negative-definite sample that goes non-finite alone; a sigma
    per sample against scalar-sigma launches; the M-step row solve at
@@ -40,7 +41,14 @@ phases; any failed check raises and the script exits non-zero:
    from one start, and the phase-4 check on 16,384 structured rows;
 6. the dense path: N=1,048,576 fully observed rows, five trainer
    iterations with no per-sample kernel, and one EM step of the dense path
-   against the masked path on a 16,384-row slice.
+   against the masked path on a 16,384-row slice;
+7. the masked path at k=128 (bench_suite.py's "k128" configuration):
+   D=1024, N=262,144 float32 rows, 50% missing at random, five trainer
+   iterations, ``model.llk``, the posterior sampler on 8,192 rows with a
+   check of its draws' moments, the launch counts of that run (every
+   spd_estep variant but ``full``, and spd_chol, with the design serving
+   each), a profile of one more EM iteration, and the phase-4 check on
+   4,096 rows.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -67,14 +75,19 @@ ROOT = Path(__file__).resolve().parent
 ESTEP_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_estep_tile.cuh",
                 "block": "ppca_rs_tpu_torch/csrc/spd_estep.cu"}
 ESTEP_REPLACES = "ppca_rs_tpu/ops/kernels.py:501"  # spd_estep -> pl.pallas_call, body _make_kernel :176
-CHOL_SOURCE = "ppca_rs_tpu_torch/csrc/spd_chol.cu"
+CHOL_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_chol_tile.cuh",
+               "block": "ppca_rs_tpu_torch/csrc/spd_chol.cu"}
 CHOL_REPLACES = "ppca_rs_tpu/ops/kernels.py:663"   # spd_chol -> pl.pallas_call :727
 
 BATCH = 8192
-#: State sizes of the kernel checks: every register tile (8, 16, 32, 64),
-#: k a multiple of 4 (16-byte accesses) and not, and the block design.
-KS = (2, 13, 24, 50, 64, 128)
+#: State sizes of the kernel checks: every register tile (8, 16, 32, 64,
+#: 128), k a multiple of 4 (16-byte accesses) and not, and the block
+#: designs above the tile limit.
+KS = (2, 13, 24, 50, 64, 99, 128, 160)
+#: The state sizes whose times go into the kernels line: the main path's,
+#: and phase 7's.
 TIMED_K = 64
+WIDE_K = 128
 SIGMA = 0.7
 #: Noise levels cycled over the batch in the per-sample sigma check.
 SIGMA_LEVELS = (0.4, 0.7, 1.0, 1.3)
@@ -121,6 +134,11 @@ P_PATTERN = 32
 N_COMPARE_ITERS = 2
 N_SAMPLER_ROWS = 1024
 N_DRAWS = 64
+#: Phase 7: bench_suite.py's k128 configuration (D=1024, k=128, N=262,144,
+#: 50% missing at random); the sampler's rows and the phase-4 check's rows.
+N_WIDE = 262_144
+N_WIDE_SAMPLER = 8192
+N_WIDE_CPU = 4096
 SEED = 20261016
 
 
@@ -192,8 +210,10 @@ def kernel_inputs(B: int, k: int, gen):
 
 
 #: torch.profiler kernel names -> the kernel they time: an spd_estep
-#: variant by its ``want`` template argument (the last one), or spd_chol.
-_KERNEL_NAME = re.compile(r"spd_(?:estep(?:_tile)?_kernel<float, (?:\d+, )*(\d)>|chol_kernel<float>)")
+#: variant by its ``want`` template argument (the last one), or spd_chol
+#: (either design).
+_KERNEL_NAME = re.compile(
+    r"spd_(?:estep(?:_tile)?_kernel<float, (?:\d+, )*(\d)>|chol(?:_tile)?_kernel<float(?:, \d+)?>)")
 
 
 def profiled_ms(launchers: dict, reps: int) -> dict:
@@ -349,9 +369,12 @@ def phase_kernels():
     from ppca_rs_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    summary, errors = {}, {}
+    summary, errors, wide = {}, {}, {}
     for k in KS:
-        print(f"[kernels] k={k}: spd_estep served by the {kernels.design(k)} design")
+        print(f"[kernels] k={k}: served by the "
+              + ", ".join(f"{kernels.design(k, kern, dt)} design ({name} {str(dt)[6:]})"
+                          for kern, name in (("estep", "spd_estep"), ("chol", "spd_chol"))
+                          for dt in (torch.float32, torch.float64)))
         inputs64, empty = kernel_inputs(BATCH, k, gen)
         for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
             x = {n: t.to(dtype).contiguous() for n, t in inputs64.items()}
@@ -390,12 +413,14 @@ def phase_kernels():
                           f"{tag}: all-masked covariance != I")
                 print(f"[kernels] {tag}: max rel err {max(errs):.3e} (tol {tol:g}), "
                       f"max abs err {abs_err:.3e}")
-                if dtype == torch.float32 and k == TIMED_K:
-                    errors[want] = abs_err
+                if dtype == torch.float32 and k in (TIMED_K, WIDE_K):
+                    errors[want, k] = abs_err
             check_not_pd(k, dtype, tol, gen)
             check_per_sample_sigma(k, dtype, x)
             if dtype == torch.float32:
                 timed = time_estep(k, x, kernels.WANTS)
+                if k == WIDE_K:
+                    wide.update(timed)
                 if k == TIMED_K:
                     summary.update(timed)
                     # the shapes the main path also gives: the pattern
@@ -450,17 +475,24 @@ def phase_kernels():
     print("[kernels] every variant refuses k above its shared-memory ceiling "
           + ", ".join(f"{w}: f32 {kernels.max_k(w, torch.float32)}, f64 {kernels.max_k(w, torch.float64)}"
                       for w in kernels.WANTS))
-    check_chol(gen, summary)
+    check_chol(gen, summary, wide)
+    chol, fullt = wide["chol"], wide["fullt"]
+    print(f"[kernels] k={WIDE_K} B={BATCH} float32 ({chol['design']} design): chol "
+          f"{chol['ms']:.4f} ms vs torch.linalg.cholesky_ex {chol['library_ms']:.4f} ms "
+          f"({'faster' if chol['ms'] < chol['library_ms'] else 'NOT faster'}); fullt "
+          f"{fullt['ms']:.4f} ms vs its plain version {fullt['plain_ms']:.4f} ms "
+          f"({'faster' if fullt['ms'] < fullt['plain_ms'] else 'NOT faster'}) (CUDA events)")
     for want in kernels.WANTS:
-        summary[want]["max_abs_err"] = errors[want]
-    return summary
+        summary[want]["max_abs_err"] = errors[want, TIMED_K]
+        wide[want]["max_abs_err"] = errors[want, WIDE_K]
+    return summary, wide
 
 
 #: spd_chol inputs: this sample is made negative definite, this one the identity.
 NOT_SPD, IDENTITY = 5, 9
 
 
-def check_chol(gen, summary) -> None:
+def check_chol(gen, summary, wide) -> None:
     """spd_chol against its plain version: a non-SPD sample goes non-finite
     alone, the identity factors to itself, and every element above the
     diagonal is written as 0.  Timed beside its plain version and beside
@@ -478,7 +510,7 @@ def check_chol(gen, summary) -> None:
         good = torch.ones(BATCH, dtype=torch.bool, device="cuda")
         good[NOT_SPD] = False
         for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
-            tag = f"chol k={k} {str(dtype).replace('torch.', '')}"
+            tag = f"chol k={k} {str(dtype).replace('torch.', '')}, {kernels.design(k, 'chol', dtype)} design"
             M = M64.to(dtype).contiguous()
             L = torch.full_like(M, math.nan)
             kernels.launch_chol(M, L)
@@ -505,16 +537,20 @@ def check_chol(gen, summary) -> None:
                 dev = profiled_ms({"chol": kern}, KERNEL_REPS)["chol"]
                 # M's lower triangle read, L written whole
                 b_ms, by = bound(BATCH * (k * (k + 1) // 2 + k * k) * 4, BATCH * k ** 3 / 3)
-                print(f"[time] chol k={k} B={BATCH} float32: kernel {k1:.4f}/{k2:.4f} ms (events, "
-                      f"{KERNEL_REPS} launches), "
+                design = kernels.design(k, "chol", dtype)
+                print(f"[time] chol k={k} B={BATCH} float32, {design} design: kernel {k1:.4f}/{k2:.4f} ms "
+                      f"(events, {KERNEL_REPS} launches), "
                       f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
                       f"plain {p1:.4f}/{p2:.4f} ms; torch.linalg.cholesky_ex {l1:.4f}/{l2:.4f} ms; "
                       f"bound {b_ms * 1e3:.2f} us ({by})")
+                row = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
+                           bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by,
+                           library_ms=(l1 + l2) / 2, design=design, B=BATCH, k=k,
+                           max_abs_err=abs_err)
                 if k == TIMED_K:
-                    summary["chol"] = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
-                                           bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by,
-                                           library_ms=(l1 + l2) / 2, design="block", B=BATCH, k=k,
-                                           max_abs_err=abs_err)
+                    summary["chol"] = row
+                if k == WIDE_K:
+                    wide["chol"] = row
             del M, L, ref
         del M64
         torch.cuda.empty_cache()
@@ -533,20 +569,21 @@ def check_chol(gen, summary) -> None:
 # phase 3
 
 
-def make_main_dataset():
-    """N_MAIN x D_MAIN float32 rows of a rank-K_MAIN PPCA model plus noise,
-    50% of the entries missing at random, generated on the card."""
+def make_main_dataset(n: int = N_MAIN, k: int = K_MAIN, seed: int = SEED + 1):
+    """n x D_MAIN float32 rows of a rank-k PPCA model plus noise, 50% of
+    the entries missing at random, generated on the card (n a multiple of
+    65,536)."""
     from ppca_rs_tpu_torch import Dataset
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     opts = dict(generator=gen, device="cuda", dtype=torch.float32)
-    C = torch.randn(D_MAIN, K_MAIN, **opts) * (2.0 / math.sqrt(K_MAIN))
+    C = torch.randn(D_MAIN, k, **opts) * (2.0 / math.sqrt(k))
     mean = torch.randn(D_MAIN, **opts)
-    data = torch.empty(N_MAIN, D_MAIN, device="cuda", dtype=torch.float32)
-    mask = torch.empty(N_MAIN, D_MAIN, device="cuda", dtype=torch.bool)
+    data = torch.empty(n, D_MAIN, device="cuda", dtype=torch.float32)
+    mask = torch.empty(n, D_MAIN, device="cuda", dtype=torch.bool)
     step = 1 << 16
-    for lo in range(0, N_MAIN, step):
-        z = torch.randn(step, K_MAIN, **opts)
+    for lo in range(0, n, step):
+        z = torch.randn(step, k, **opts)
         y = z @ C.T + mean + 0.5 * torch.randn(step, D_MAIN, **opts)
         m = torch.rand(step, D_MAIN, generator=gen, device="cuda") >= 0.5
         data[lo:lo + step] = torch.where(m, y, torch.zeros_like(y))
@@ -554,7 +591,7 @@ def make_main_dataset():
     return Dataset.from_parts(data, mask)
 
 
-def train(tag: str, dataset, seed: int, smi: str):
+def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN):
     """Five trainer iterations from a seeded init, timed per iteration;
     the llk must never decrease.  Returns (model, launches during it)."""
     from ppca_rs_tpu_torch import PPCATrainer
@@ -573,7 +610,7 @@ def train(tag: str, dataset, seed: int, smi: str):
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     model = PPCATrainer(dataset).train(
-        state_size=K_MAIN, n_iters=N_ITERS, quiet=True, callback=callback,
+        state_size=k, n_iters=N_ITERS, quiet=True, callback=callback,
         generator=torch.Generator(device="cuda").manual_seed(seed),
     )
     torch.cuda.synchronize()
@@ -755,7 +792,7 @@ def make_pattern_dataset():
     return Dataset.from_parts(data, mask), patterns
 
 
-def check_sampler_moments(model, rows):
+def check_sampler_moments(tag: str, model, rows):
     """N_DRAWS posterior draws of ``rows``: their mean within SAMPLER_SE
     standard errors of ``smooth`` on every entry, their mean variance within
     SAMPLER_VAR of the mean smoothed covariance diagonal."""
@@ -774,7 +811,7 @@ def check_sampler_moments(model, rows):
     sdiag = inferred.smoothed_covariances_diagonal(model).data.double()
     z = float(((mean - smooth).abs() / (sdiag / N_DRAWS).sqrt()).max())
     ratio = float(var.mean() / sdiag.mean())
-    print(f"[pattern] sampler: {N_DRAWS} draws of {len(rows)} rows: max |mean - smooth| "
+    print(f"[{tag}] sampler: {N_DRAWS} draws of {len(rows)} rows: max |mean - smooth| "
           f"{z:.2f} standard errors (bound {SAMPLER_SE:g}); mean variance / mean smoothed "
           f"covariance diagonal {ratio:.4f} (bound 1 +- {SAMPLER_VAR:g})")
     check(z <= SAMPLER_SE, f"sampler mean {z:.2f} standard errors from smooth")
@@ -822,7 +859,7 @@ def phase_pattern(smi: str):
     check(kernels.LAUNCHES["chol"] >= 1, "the posterior sampler did not launch spd_chol")
     check(tuple(draw.shape) == (N_READOUT, D_MAIN) and bool(torch.isfinite(draw).all()),
           "posterior draws are not finite or have the wrong shape")
-    check_sampler_moments(model, sub.slice(0, N_SAMPLER_ROWS))
+    check_sampler_moments("pattern", model, sub.slice(0, N_SAMPLER_ROWS))
     launches = dict(kernels.LAUNCHES)
     for name in ("fullt", "llk", "infer"):
         check(launches[name] == 0, f"the pattern path launched {name}: {launches}")
@@ -922,6 +959,59 @@ def phase_dense(smi: str):
         check(v <= TOL_CARD_VS_CPU, f"dense vs masked {name}: {v:.3e} above {TOL_CARD_VS_CPU}")
 
 
+# --------------------------------------------------------------------- #
+# phase 7
+
+
+def phase_wide(smi: str):
+    """The masked path at k=WIDE_K, bench_suite.py's k128 configuration:
+    training, ``model.llk``, the sampler, launch counts with the design
+    that served each kernel, a profile, and card vs CPU.  Returns the
+    launch counts of that run."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    dataset = make_main_dataset(N_WIDE, WIDE_K, SEED + 10)
+    torch.cuda.synchronize()
+    print(f"[k128] dataset N={len(dataset)} D={dataset.output_size()} k={WIDE_K} "
+          f"{dataset.dtype}, observed share {float(dataset.mask.float().mean()):.4f}, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    check(dataset.pattern_info() is None, "k128: random masks were taken for structured missingness")
+
+    model, train_launches = train("k128", dataset, SEED + 11, smi, k=WIDE_K)
+    n_blocks = -(-N_WIDE // 8192)
+    n_sub = -(-N_WIDE_SAMPLER // 8192)
+    check(train_launches["fullt"] == N_ITERS * n_blocks,
+          f"k128: fullt launches {train_launches['fullt']} != {N_ITERS * n_blocks}")
+    rows = dataset.slice(0, N_WIDE_SAMPLER)
+    t0 = time.perf_counter()
+    inferred = model.infer(rows)
+    sampler = inferred.posterior_sampler()
+    draw = sampler.sample(generator=torch.Generator(device="cuda").manual_seed(SEED + 12)).data
+    torch.cuda.synchronize()
+    print(f"[k128] infer + posterior_sampler + one draw of {len(rows)} rows: "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(tuple(draw.shape) == (N_WIDE_SAMPLER, D_MAIN) and bool(torch.isfinite(draw).all()),
+          "k128: posterior draws are not finite or have the wrong shape")
+    check_sampler_moments("k128", model, rows)
+    launches = dict(kernels.LAUNCHES)
+    # training: fullt per block and a states row solve per iteration, then
+    # model.llk; infer + sampler here and in check_sampler_moments, whose
+    # smooth runs states
+    want = {"fullt": N_ITERS * n_blocks, "states": N_ITERS + n_sub, "llk": n_blocks,
+            "infer": 2 * n_sub, "full": 0, "chol": 2}
+    check(launches == want, f"k128: launches {launches} != {want}")
+    served = {"fullt": "estep", "states": "estep", "llk": "estep", "infer": "estep", "chol": "chol"}
+    designs = {name: kernels.design(WIDE_K, kern) for name, kern in served.items()}
+    check(all(d == "tile" for d in designs.values()), f"k128: not all served by the tile: {designs}")
+    print(f"[k128] launches of the k={WIDE_K} path (training, llk, infer, sampler): {launches}; "
+          + ", ".join(f"{name} by the {d} design" for name, d in designs.items()))
+    del inferred, sampler, draw
+    profile_iteration("k128", model, dataset)
+    card_vs_cpu("k128", model, dataset.slice(0, N_WIDE_CPU), used=("fullt", "llk"))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -936,7 +1026,7 @@ def main() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are enabled")
     t_start = time.perf_counter()
     smi = phase_card()
-    summary = phase_kernels()
+    summary, wide = phase_kernels()
     model, dataset, masked_launches = phase_main(smi)
     card_vs_cpu("card-vs-cpu", model, dataset.slice(0, N_CPU), used=("fullt", "llk"))
     del model, dataset
@@ -944,18 +1034,23 @@ def main() -> int:
     pattern_launches = phase_pattern(smi)
     torch.cuda.empty_cache()
     phase_dense(smi)
+    torch.cuda.empty_cache()
+    wide_launches = phase_wide(smi)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     entries = [(f"spd_estep_{want}", ESTEP_SOURCE[summary[want]["design"]], ESTEP_REPLACES, want,
                 masked_launches) for want in ("fullt", "states", "llk", "infer")]
     entries += [("spd_estep_full", ESTEP_SOURCE[summary["full"]["design"]], ESTEP_REPLACES, "full",
                  pattern_launches),
-                ("spd_chol", CHOL_SOURCE, CHOL_REPLACES, "chol", pattern_launches)]
+                ("spd_chol", CHOL_SOURCE[summary["chol"]["design"]], CHOL_REPLACES, "chol",
+                 pattern_launches)]
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_us",
               "device_ms", "design", "B", "k")
+    # each kernel at the main path's k, and at phase 7's (launches from that run)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[key], **{f: summary[key][f] for f in fields}}
+         "launches": launches[key], **{f: summary[key][f] for f in fields},
+         f"at_k{WIDE_K}": {"launches": wide_launches[key], **{f: wide[key][f] for f in fields}}}
         for name, source, replaces, key, launches in entries
     ]}
     for entry in kernels_line["kernels"]:

@@ -1,6 +1,7 @@
 // Pieces shared by the package's per-sample SPD kernels (spd_estep.cu,
-// spd_estep_tile.cuh, spd_chol.cu): the one-block-per-sample thread-block
-// shape, the device limits and the type-generic math helpers.
+// spd_estep_tile.cuh, spd_chol.cu, spd_chol_tile.cuh): the
+// one-block-per-sample thread-block shape, the device limits, the tile
+// limit and the type-generic math helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,10 +21,17 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimitBytes = 232448;
 constexpr int kMaxDevices = 64;
 
-// spd_estep serves k <= kTileMaxK with the register-tile design
-// (spd_estep_tile.cuh) and larger k with one block per sample (spd_estep.cu);
-// the entry point spd_estep_tile_max_k reports it to the wrapper.
-constexpr int kTileMaxK = 64;
+// spd_estep and spd_chol serve k up to these limits with the register-tile
+// designs (spd_estep_tile.cuh, spd_chol_tile.cuh: tiles of 8 to 128) and
+// larger k with one block per sample (spd_estep.cu, spd_chol.cu); the entry
+// points spd_estep_tile_max_k and spd_chol_tile_max_k report them to the
+// wrapper.  The float64 E-step stays on the block design above k=64: its
+// KP=128 tile spills (ptxas for sm_90a: 255 registers and 216 bytes of
+// spill stores in fullt, infer and full).
+template <typename T>
+constexpr int estep_tile_max_k() { return sizeof(T) == 4 ? 128 : 64; }
+template <typename T>
+constexpr int chol_tile_max_k() { return 128; }
 
 // Makes `device` current for the launch that follows, switching only when
 // another device is current.

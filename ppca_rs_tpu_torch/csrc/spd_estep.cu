@@ -35,15 +35,17 @@
 // barriers, and two or three shared-memory accesses per FMA.
 //
 // Two designs, chosen by k in the entry points below:
-// * k <= kTileMaxK (64): the register-tile design, spd_estep_tile.cuh
-//   (built in spd_estep_tile_f32.cu and spd_estep_tile_f64.cu).  A sample
-//   belongs to 4 to 64 lanes, several samples to a block; the k x k matrix
-//   is held in registers and inverted in place by k symmetric sweeps
-//   (Gauss-Jordan: factor, inverse and L^T L in one pass over one buffer);
-//   each pivot column is broadcast through shared memory with one warp-level
-//   sync (a named barrier for a two-warp sample) per step; G, SM and Sigma
+// * k <= estep_tile_max_k<T>() (128 in float, 64 in double): the
+//   register-tile design, spd_estep_tile.cuh (built in
+//   spd_estep_tile_f32.cu and spd_estep_tile_f64.cu).  A sample belongs to
+//   4 to 128 lanes, several samples to a block below 128 lanes; the k x k
+//   matrix is held in registers and inverted in place by k symmetric
+//   sweeps (Gauss-Jordan: factor, inverse and L^T L in one pass over one
+//   buffer); each pivot
+//   column is broadcast through shared memory with one warp-level sync (a
+//   named barrier for a sample of whole warps) per step; G, SM and Sigma
 //   move in 16-byte accesses.  Its header states the design in full.
-// * k > kTileMaxK, up to the shared-memory ceiling: the first design, this
+// * larger k, up to the shared-memory ceiling: the first design, this
 //   file's body.  One block per sample, 256 threads as a 32 x 8 tile, M and
 //   W in shared memory; a right-looking Cholesky on the upper triangle with
 //   the columns left unscaled (step j subtracts A[j][i] A[j][l] / d_j), the
@@ -250,7 +252,7 @@ int dispatch(int want, int device, const void* sigma, long long sigma_stride, co
   if (B <= 0) return 0;
   if (k < 1 || B > 0x7fffffffLL || (sigma_stride != 0 && sigma_stride != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (k <= kTileMaxK) {
+  if (k <= estep_tile_max_k<T>()) {
     return sizeof(T) == 4 ? ppca_spd_estep_tile_f32(want, sigma, sigma_stride, G, b, rnorm, d_obs,
                                                     s, m, llk, sq, B, k, stream)
                           : ppca_spd_estep_tile_f64(want, sigma, sigma_stride, G, b, rnorm, d_obs,
@@ -288,9 +290,11 @@ int spd_estep_f64(int want, int device, const void* sigma, long long sigma_strid
                           B, k, stream);
 }
 
-// Largest k that the register-tile design serves; larger k take one block
-// per sample.
-int spd_estep_tile_max_k() { return kTileMaxK; }
+// Largest k that the register-tile design serves for elements of
+// `itemsize` bytes (4 or 8); larger k take one block per sample.
+int spd_estep_tile_max_k(int itemsize) {
+  return itemsize == 4 ? estep_tile_max_k<float>() : itemsize == 8 ? estep_tile_max_k<double>() : 0;
+}
 
 const char* spd_estep_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

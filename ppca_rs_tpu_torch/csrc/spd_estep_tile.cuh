@@ -1,4 +1,5 @@
-// Register-tile design of the batched SPD E-step (sm_90a), for k <= kTileMaxK.
+// Register-tile design of the batched SPD E-step (sm_90a), for
+// k <= estep_tile_max_k<T>().
 //
 // Replaces, with spd_estep.cu's entry points, the Pallas TPU kernel
 // `ppca_rs_tpu/ops/kernels.py:_make_kernel` as launched by `spd_estep`; the
@@ -26,22 +27,26 @@
 //   sum to b^T M^{-1} b = |L^{-1} b|^2 for the llk.  The update is
 //   u[i] u[l] with one rounding, so a symmetric G gives a bitwise
 //   symmetric SM.
-// * A sample belongs to NL lanes (4 to 32 of one warp, or two whole warps
-//   for float64 at KP=64), laid out as a GR x GC lane grid; each lane holds
-//   the 4P x 4Q elements at rows p*4GR + 4r + (0..3) and columns
-//   q*4GC + 4c + (0..3).  A block holds several samples.
+// * A sample belongs to NL lanes (4 to 32 of one warp; two whole warps for
+//   float64 at KP=64; four at float32 KP=128), laid out as the GR x GC
+//   lane grid of tile_common.cuh; each lane holds the 4P x 4Q elements at
+//   rows p*4GR + 4r + (0..3) and columns q*4GC + 4c + (0..3).  A block
+//   holds several samples below 128 lanes a sample, one from there up.
 // * Per step the lanes owning column j write it (with b's pivot entry) to a
 //   double-buffered vector in shared memory with 16-byte stores, the group
-//   syncs once (__syncwarp, or `bar.sync id, 64` for a two-warp sample: a
-//   named barrier, never the block's), and every lane reads its rows' and
-//   columns' entries back with 16-byte broadcast loads.  The other samples
-//   on the SM hide the chain's latency.
+//   syncs once (__syncwarp, or `bar.sync id, NL` for a sample of whole
+//   warps: a named barrier, never the block's), and every lane reads its
+//   rows' and columns' entries back with 16-byte broadcast loads.  The
+//   other samples on the SM hide the chain's latency.  The end-of-sweep
+//   sums (log det M, tr M^{-1}) are taken by every warp of the sample over
+//   all k entries in shared memory, so they need no exchange between its
+//   warps.
 // * G is read, and SM / Sigma written, with 16-byte streaming accesses
 //   when k % 4 == 0 (four neighbouring lanes cover 64 contiguous bytes of
 //   a row); both triangles are read as they are.
-// * k is padded to the tile KP in {8, 16, 32, 64} with an identity block,
-//   which changes neither log det M (its pivots are 1) nor s; nothing of
-//   the padding is written.
+// * k is padded to the tile KP in {8, 16, 32, 64, 128} with an identity
+//   block, which changes neither log det M (its pivots are 1) nor s;
+//   nothing of the padding is written.
 // * A sample whose M is not positive definite has a pivot <= 0 (or NaN):
 //   its log det is not finite and every output element of that sample is
 //   written NaN.  Nothing reduces across samples, so its neighbours in the
@@ -52,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include "spd_common.cuh"
+#include "tile_common.cuh"
 
 namespace ppca {
 namespace tile {
@@ -64,27 +70,6 @@ constexpr int kFull = 4;
 
 constexpr double kLn2Pi = 1.8378770664093453;
 
-// The lane grid of one sample for a tile of KP: GR x GC lanes, each with P
-// row quads and Q column quads; THREADS per block, GROUPS samples a block.
-// A lane holds 16 P Q elements of the tile: 128 at float32 KP=64 (ptxas
-// gives those kernels up to 254 registers and no spills; capped at 168 they
-// spill ~3 KB a thread and `fullt` ran 2.75x slower on an H100), 64 at
-// float64 KP=64 and 32 at float64 KP=32 (with 64 there, ptxas spilled).
-template <typename T, int KP>
-struct Shape {
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int GR = KP == 8 ? 2 : KP == 16 ? 4 : KP == 32 ? (F32 ? 4 : 8) : 8;
-  static constexpr int GC = KP == 8 ? 2 : KP == 16 ? 2 : KP == 32 ? 4 : (F32 ? 4 : 8);
-  static constexpr int NL = GR * GC;
-  static constexpr int P = KP / (4 * GR);
-  static constexpr int Q = KP / (4 * GC);
-  static constexpr int THREADS = NL == 32 ? 64 : 128;
-  static constexpr int GROUPS = THREADS / NL;
-  static_assert(P * 4 * GR == KP && Q * 4 * GC == KP, "the lane grid must cover KP in quads");
-  static_assert(GR % GC == 0, "the rows of four consecutive pivots must lie in one lane row");
-  static_assert(NL <= 32 || NL == 64, "a sample is part of one warp or two whole warps");
-};
-
 // A sample's shared memory: the pivot column, double-buffered, with b's
 // pivot entry at [KP]; the pivots; the diagonal of M^{-1}; s.
 template <typename T, int KP>
@@ -94,51 +79,6 @@ struct alignas(16) Scratch {
   T dg[KP];
   T s[KP];
 };
-
-__device__ __forceinline__ void load_quad(const float* p, float (&o)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void load_quad(const double* p, double (&o)[4]) {
-  const double2 a = reinterpret_cast<const double2*>(p)[0];
-  const double2 b = reinterpret_cast<const double2*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-__device__ __forceinline__ void store_quad(float* p, const float (&o)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-}
-__device__ __forceinline__ void store_quad(double* p, const double (&o)[4]) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(o[0], o[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(o[2], o[3]);
-}
-// Device memory, read or written once: streaming (evict-first) accesses.
-__device__ __forceinline__ void load_quad_stream(const float* p, float (&o)[4]) {
-  const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void load_quad_stream(const double* p, double (&o)[4]) {
-  const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
-  const double2 b = __ldcs(reinterpret_cast<const double2*>(p) + 1);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-__device__ __forceinline__ void store_quad_stream(float* p, const float (&o)[4]) {
-  __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
-}
-__device__ __forceinline__ void store_quad_stream(double* p, const double (&o)[4]) {
-  __stcs(reinterpret_cast<double2*>(p), make_double2(o[0], o[1]));
-  __stcs(reinterpret_cast<double2*>(p) + 1, make_double2(o[2], o[3]));
-}
-
-// Synchronise the lanes of one sample: its warp, or its two warps by the
-// named barrier 1 + group (barrier 0 is the block's).
-template <int NL>
-__device__ __forceinline__ void group_sync(int group) {
-  if constexpr (NL <= 32) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(NL) : "memory");
-  }
-}
 
 template <typename T, int KP, int WANT>
 __global__ void __launch_bounds__(Shape<T, KP>::THREADS)
@@ -397,10 +337,9 @@ cudaError_t launch_tile_want(int want, const T* sigma, long long sigma_stride, c
   }
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
-
-// The register-tile E-step for 1 <= k <= kTileMaxK, on the smallest tile
-// that holds k.  Arguments as spd_estep.cu's entry points take them.
+// The register-tile E-step for 1 <= k <= estep_tile_max_k<T>(), on the
+// smallest tile that holds k.  Arguments as spd_estep.cu's entry points
+// take them.
 template <typename T>
 cudaError_t spd_estep_tile(int want, const void* sigma, long long sigma_stride, const void* G,
                            const void* b, const void* rnorm, const void* d_obs, void* s,
@@ -418,7 +357,10 @@ cudaError_t spd_estep_tile(int want, const void* sigma, long long sigma_stride, 
   if (k <= 8) return launch_tile_want<T, 8>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, vec, stream);
   if (k <= 16) return launch_tile_want<T, 16>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, vec, stream);
   if (k <= 32) return launch_tile_want<T, 32>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, vec, stream);
-  if (k <= kTileMaxK) return launch_tile_want<T, 64>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, vec, stream);
+  if (k <= 64) return launch_tile_want<T, 64>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, vec, stream);
+  if constexpr (estep_tile_max_k<T>() > 64) {
+    if (k <= estep_tile_max_k<T>()) return launch_tile_want<T, 128>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, vec, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -130,8 +130,10 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_int, p, p, ctypes.c_longlong, ctypes.c_int, p]
                 fn.restype = ctypes.c_int
-            lib.spd_estep_tile_max_k.argtypes = []
-            lib.spd_estep_tile_max_k.restype = ctypes.c_int
+            for name in ("spd_estep_tile_max_k", "spd_chol_tile_max_k"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_int]   # bytes per element
+                fn.restype = ctypes.c_int
             lib.spd_estep_error_string.argtypes = [ctypes.c_int]
             lib.spd_estep_error_string.restype = ctypes.c_char_p
             _lib = lib

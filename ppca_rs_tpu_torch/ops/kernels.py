@@ -33,7 +33,9 @@ not positive definite yields non-finite values for that sample only.
 :func:`spd_chol` is the batched lower Cholesky factor ``L (B, k, k)`` of SPD
 matrices ``M (B, k, k)`` behind the posterior sampler: the kernel in
 ``csrc/spd_chol.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:spd_chol``)
-on CUDA tensors, :func:`spd_chol_reference` on CPU tensors.
+on CUDA tensors -- the register tile of ``csrc/spd_chol_tile.cuh`` up to
+the tile limit, one block per sample above it -- and
+:func:`spd_chol_reference` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -86,13 +88,19 @@ def max_k(want: str, dtype: torch.dtype) -> int:
     return k
 
 
-def design(k: int) -> str:
-    """Which spd_estep design serves state size k on the card: "tile"
-    (registers, several samples per block) or "block" (one block per
-    sample, shared memory), by the tile limit the kernel library reports."""
+def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) -> str:
+    """Which design serves state size k on the card for ``kernel``
+    ("estep": every spd_estep variant; "chol": spd_chol) and ``dtype``:
+    "tile" (registers, a sample over one or more warps) or "block" (one
+    block per sample, shared memory), by the tile limit that the kernel
+    library reports for that kernel and element size."""
     from . import _build
 
-    return "tile" if k <= _build.load().spd_estep_tile_max_k() else "block"
+    if kernel not in ("estep", "chol"):
+        raise ValueError(f"kernel must be 'estep' or 'chol', got {kernel!r}")
+    lib = _build.load()
+    limit = lib.spd_estep_tile_max_k if kernel == "estep" else lib.spd_chol_tile_max_k
+    return "tile" if k <= limit(dtype.itemsize) else "block"
 
 
 def sigma_arg(sigma, B: int, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, int]:

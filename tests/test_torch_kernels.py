@@ -97,6 +97,22 @@ def test_reference_matches_pallas(rng, want, k):
         np.testing.assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"output {i}")
 
 
+@pytest.mark.parametrize("want", ["fullt", "llk"])
+def test_reference_matches_pallas_at_k128(rng, want):
+    """k=128, the widest register tile on the card, against the Pallas
+    kernel (its max_k allows 264 for fullt, 456 for llk)."""
+    k = 128
+    assert k <= jk.max_k(want)
+    G, b, rnorm, d_obs = estep_inputs(rng, B=128, D=160, k=k)
+    got = torch_estep(0.7, G, b, rnorm, d_obs, want)
+    ref = jax_estep(0.7, G, b, rnorm, d_obs, want)
+    for i, (g, r, (rtol, atol)) in enumerate(zip(got, ref, TOLS[want])):
+        if want == "fullt" and i == 1:
+            tril = np.tril(np.ones((k, k)))
+            g, r = g * tril, r * tril
+        np.testing.assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"output {i}")
+
+
 @pytest.mark.parametrize("want", ["fullt", "states", "llk", "infer", "full"])
 def test_reference_per_sample_sigma_matches_pallas(rng, want):
     """A sigma per sample (the mixtures' stacked components) against the
@@ -270,13 +286,21 @@ def test_sigma_given_on_the_device_is_used_as_it_is():
 
 
 def test_design_follows_the_tile_limit(monkeypatch):
-    """k up to the tile limit that the kernel library reports takes the
-    register tile, larger k the block design (a stand-in library here: the
-    real one is built on the card)."""
-    lib = types.SimpleNamespace(spd_estep_tile_max_k=lambda: 48)
+    """k up to the tile limit that the kernel library reports, for each
+    kernel and element size, takes the register tile, larger k the block
+    design (a stand-in library here: the real one is built on the card)."""
+    limits = {("estep", 4): 128, ("estep", 8): 64, ("chol", 4): 96, ("chol", 8): 48}
+    lib = types.SimpleNamespace(spd_estep_tile_max_k=lambda size: limits["estep", size],
+                                spd_chol_tile_max_k=lambda size: limits["chol", size])
     monkeypatch.setattr(_build, "load", lambda: lib)
-    assert tk.design(1) == tk.design(48) == "tile"
-    assert tk.design(49) == tk.design(128) == "block"
+    assert tk.design(1) == tk.design(128) == "tile"     # estep, float32 by default
+    assert tk.design(129) == "block"
+    for (kernel, size), limit in limits.items():
+        dtype = torch.float32 if size == 4 else torch.float64
+        assert tk.design(1, kernel, dtype) == tk.design(limit, kernel, dtype) == "tile"
+        assert tk.design(limit + 1, kernel, dtype) == "block"
+    with pytest.raises(ValueError, match="kernel"):
+        tk.design(4, "full")
 
 
 def test_build_command_and_source_key(tmp_path, monkeypatch):
@@ -285,7 +309,8 @@ def test_build_command_and_source_key(tmp_path, monkeypatch):
     (nvcc itself runs on the card)."""
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cu = [p.name for p in _build.sources() if p.suffix == ".cu"]
-    assert cu == ["spd_chol.cu", "spd_estep.cu", "spd_estep_tile_f32.cu", "spd_estep_tile_f64.cu"]
+    assert cu == ["spd_chol.cu", "spd_chol_tile_f32.cu", "spd_chol_tile_f64.cu", "spd_estep.cu",
+                  "spd_estep_tile_f32.cu", "spd_estep_tile_f64.cu"]
     for name in cu:
         cmd = _build.compile_command(_build.SOURCE_DIR / name, tmp_path / "a.o")
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]

@@ -45,7 +45,7 @@ def close(got, want, rtol=RTOL):
                                atol=rtol * max(1.0, np.abs(np.asarray(want)).max()))
 
 
-@pytest.mark.parametrize("k", [1, 3, 13])
+@pytest.mark.parametrize("k", [1, 3, 13, 64, 128])
 def test_chol_reference_matches_pallas_and_numpy(rng, k):
     B = 100   # not a multiple of the TPU kernel's 128 lanes
     M = spd_batch(rng, B, k)
