@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and runs seven
+It builds the CUDA kernels from the sources in the checkout and runs eight
 phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
@@ -48,7 +48,19 @@ phases; any failed check raises and the script exits non-zero:
    check of its draws' moments, the launch counts of that run (every
    spd_estep variant but ``full``, and spd_chol, with the design serving
    each), a profile of one more EM iteration, and the phase-4 check on
-   4,096 rows.
+   4,096 rows;
+8. PPCA mixtures at bench_suite.py's mixture configuration: N=200,000,
+   D=512, k=32, M=8 components, 80% observed at random, made on the card;
+   five ``PPCAMixTrainer`` iterations (the general masked route: ``fullt``
+   on M x 8,192 samples a launch, one sigma per sample, and one ``states``
+   row solve over M x D rows an iteration), the llk, infer_cluster, infer,
+   smooth, extrapolate and posterior-sampler readouts on 8,192 rows with
+   the sampler's moment check, exact launch counts, a profile of one EM
+   iteration, one EM step on 4,096 rows on the card in float32 against the
+   CPU in float64 and against the per-component loop, a fully observed copy
+   that takes the table route (``full``, no ``fullt``), and every kernel at
+   the shapes this phase gave it against its plain version, with the
+   components' sigmas stacked per sample checked against scalar launches.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -139,6 +151,18 @@ N_DRAWS = 64
 N_WIDE = 262_144
 N_WIDE_SAMPLER = 8192
 N_WIDE_CPU = 4096
+#: Phase 8: bench_suite.py's mixture configuration (row 4: N=200,000,
+#: D=512, k=32, M=8, 80% observed at random, noise 0.3, means 3 N(0, 1));
+#: the readout rows, the rows of the card-vs-CPU and fused-vs-loop checks,
+#: and the EM iterations of the fully observed copy.
+N_MIX = 200_000
+D_MIX = 512
+K_MIX = 32
+M_MIX = 8
+MIX_OBSERVED = 0.8
+N_MIX_READOUT = 8192
+N_MIX_CPU = 4096
+N_DENSE_ITERS = 2
 SEED = 20261016
 
 
@@ -248,18 +272,19 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def estep_work(want: str, B: int, k: int, itemsize: int):
+def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1):
     """(bytes, FLOPs) of one spd_estep launch.  Bytes: each input (G, b,
-    rnorm, d_obs, sigma) read once and each output written once, where of
-    the symmetric G only the lower triangle need be read, k(k+1)/2 elements
-    a sample, and of fullt's SM only the lower triangle need be written,
-    since its one consumer (masked_linalg.em_stats) rebuilds SM from it.
+    rnorm, d_obs, ``n_sigma`` sigmas) read once and each output written
+    once, where of the symmetric G only the lower triangle need be read,
+    k(k+1)/2 elements a sample, and of fullt's SM only the lower triangle
+    need be written, since its consumers (masked_linalg.em_stats and
+    mix_fused.mix_em_stats, through their M-steps) rebuild S from it.
     FLOPs: the Cholesky factor k^3/3, M^{-1} from it 2k^3/3 more, k^2 for
     each triangular solve and for s s^T."""
     from ppca_rs_tpu_torch.ops import kernels
 
     tri = k * (k + 1) // 2
-    elems = B * tri + B * k + 2 * B + 1
+    elems = B * tri + B * k + 2 * B + n_sigma
     for sh in kernels.output_shapes(want, B, k):
         elems += B * tri if want == "fullt" and len(sh) == 3 else math.prod(sh)
     if want == "llk":
@@ -271,17 +296,18 @@ def estep_work(want: str, B: int, k: int, itemsize: int):
     return elems * itemsize, B * flops
 
 
-def time_estep(k: int, x, wants) -> dict:
+def time_estep(k: int, x, wants, sigma=None) -> dict:
     """float32 times of the spd_estep variants ``wants`` on the inputs
     ``x``: kernel launches into preallocated outputs with sigma already on
-    the card, KERNEL_REPS back to back between CUDA events, in turns with
+    the card (``sigma``: one for the batch or one per sample; SIGMA if not
+    given), KERNEL_REPS back to back between CUDA events, in turns with
     the plain version (plain, kernel, kernel, plain); then each kernel's
     device time by name from one profiler window; beside them the bound."""
     from ppca_rs_tpu_torch.ops import kernels
 
     G, b, rn, do = x["G"], x["b"], x["rnorm"], x["d_obs"]
     B = G.shape[0]
-    sig = torch.full((1,), SIGMA, dtype=torch.float32, device="cuda")
+    sig = torch.full((1,), SIGMA, dtype=torch.float32, device="cuda") if sigma is None else sigma
     rows, launchers = {}, {}
     for want in wants:
         if k > kernels.max_k(want, torch.float32):
@@ -297,9 +323,10 @@ def time_estep(k: int, x, wants) -> dict:
     out = {}
     for want, r in rows.items():
         (k1, k2), (p1, p2) = r["events"], r["plains"]
-        b_ms, by = bound(*estep_work(want, B, k, 4))
+        b_ms, by = bound(*estep_work(want, B, k, 4, sig.numel()))
         dev = device[want]
-        print(f"[time] {want} k={k} B={B} float32, {kernels.design(k)} design: kernel "
+        print(f"[time] {want} k={k} B={B} float32{', sigma per sample' if sig.numel() > 1 else ''}, "
+              f"{kernels.design(k)} design: kernel "
               f"{k1:.4f}/{k2:.4f} ms (events, {KERNEL_REPS} launches), "
               f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
               f"plain {p1:.4f}/{p2:.4f} ms; bound {b_ms * 1e3:.2f} us ({by})")
@@ -492,6 +519,33 @@ def phase_kernels():
 NOT_SPD, IDENTITY = 5, 9
 
 
+def time_chol(M, L) -> dict:
+    """float32 times of spd_chol on ``M`` into ``L`` (CUDA events in turns
+    with the plain version, device time from the profiler) beside
+    torch.linalg.cholesky_ex alone, which the port never calls, and the
+    bound: M's lower triangle read, L written whole."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    B, k, _ = M.shape
+    kern = functools.partial(kernels.launch_chol, M, L)
+    plain = functools.partial(kernels.spd_chol_reference, M)
+    library = functools.partial(torch.linalg.cholesky_ex, M)
+    p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, KERNEL_REPS),
+                      cuda_ms(kern, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS))
+    l1, l2 = cuda_ms(library, PLAIN_REPS), cuda_ms(library, PLAIN_REPS)
+    dev = profiled_ms({"chol": kern}, KERNEL_REPS)["chol"]
+    b_ms, by = bound(B * (k * (k + 1) // 2 + k * k) * 4, B * k ** 3 / 3)
+    design = kernels.design(k, "chol", M.dtype)
+    print(f"[time] chol k={k} B={B} float32, {design} design: kernel {k1:.4f}/{k2:.4f} ms "
+          f"(events, {KERNEL_REPS} launches), "
+          f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
+          f"plain {p1:.4f}/{p2:.4f} ms; torch.linalg.cholesky_ex {l1:.4f}/{l2:.4f} ms; "
+          f"bound {b_ms * 1e3:.2f} us ({by})")
+    return dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                bound_us=b_ms * 1e3, bound_by=by, library_ms=(l1 + l2) / 2, design=design,
+                B=B, k=k)
+
+
 def check_chol(gen, summary, wide) -> None:
     """spd_chol against its plain version: a non-SPD sample goes non-finite
     alone, the identity factors to itself, and every element above the
@@ -528,25 +582,7 @@ def check_chol(gen, summary, wide) -> None:
                   "non-SPD sample non-finite alone, identity exact, zeros above the diagonal")
             if dtype == torch.float32:
                 M[NOT_SPD] = eye.to(dtype)
-                kern = functools.partial(kernels.launch_chol, M, L)
-                plain = functools.partial(kernels.spd_chol_reference, M)
-                library = functools.partial(torch.linalg.cholesky_ex, M)
-                p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, KERNEL_REPS),
-                                  cuda_ms(kern, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS))
-                l1, l2 = cuda_ms(library, PLAIN_REPS), cuda_ms(library, PLAIN_REPS)
-                dev = profiled_ms({"chol": kern}, KERNEL_REPS)["chol"]
-                # M's lower triangle read, L written whole
-                b_ms, by = bound(BATCH * (k * (k + 1) // 2 + k * k) * 4, BATCH * k ** 3 / 3)
-                design = kernels.design(k, "chol", dtype)
-                print(f"[time] chol k={k} B={BATCH} float32, {design} design: kernel {k1:.4f}/{k2:.4f} ms "
-                      f"(events, {KERNEL_REPS} launches), "
-                      f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
-                      f"plain {p1:.4f}/{p2:.4f} ms; torch.linalg.cholesky_ex {l1:.4f}/{l2:.4f} ms; "
-                      f"bound {b_ms * 1e3:.2f} us ({by})")
-                row = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
-                           bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by,
-                           library_ms=(l1 + l2) / 2, design=design, B=BATCH, k=k,
-                           max_abs_err=abs_err)
+                row = dict(time_chol(M, L), max_abs_err=abs_err)
                 if k == TIMED_K:
                     summary["chol"] = row
                 if k == WIDE_K:
@@ -591,10 +627,11 @@ def make_main_dataset(n: int = N_MAIN, k: int = K_MAIN, seed: int = SEED + 1):
     return Dataset.from_parts(data, mask)
 
 
-def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN):
-    """Five trainer iterations from a seeded init, timed per iteration;
-    the llk must never decrease.  Returns (model, launches during it)."""
-    from ppca_rs_tpu_torch import PPCATrainer
+def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None):
+    """Five trainer iterations from a seeded init, timed per iteration, of
+    a PPCA model or, with ``n_models``, of a mixture of that many; the llk
+    must never decrease.  Returns (model, launches during it)."""
+    from ppca_rs_tpu_torch import PPCAMixTrainer, PPCATrainer
     from ppca_rs_tpu_torch.ops import kernels
 
     llks, stamps = [], []
@@ -609,10 +646,12 @@ def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN):
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    model = PPCATrainer(dataset).train(
-        state_size=k, n_iters=N_ITERS, quiet=True, callback=callback,
-        generator=torch.Generator(device="cuda").manual_seed(seed),
-    )
+    options = dict(state_size=k, n_iters=N_ITERS, quiet=True, callback=callback,
+                   generator=torch.Generator(device="cuda").manual_seed(seed))
+    if n_models is None:
+        model = PPCATrainer(dataset).train(**options)
+    else:
+        model = PPCAMixTrainer(dataset).train(n_models=n_models, **options)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     per_iter = [b - a for a, b in zip(stamps, stamps[1:])]
@@ -663,11 +702,11 @@ def check_readouts(tag: str, model, sub):
     return inferred
 
 
-def profile_iteration(tag: str, model, dataset) -> None:
+def profile_iteration(tag: str, model, dataset, top: int = 0) -> None:
     """One EM step over ``dataset`` under torch.profiler: device time of the
     spd_estep kernels, of the matmuls and of everything else, and the
     device's idle share of the window (one stream, so kernels do not
-    overlap)."""
+    overlap); with ``top``, also the ``top`` device kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -677,6 +716,7 @@ def profile_iteration(tag: str, model, dataset) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups = {"spd_estep": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels_by_time = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -684,6 +724,7 @@ def profile_iteration(tag: str, model, dataset) -> None:
         group = ("spd_estep" if "spd_estep" in name else
                  "matmul" if any(w in name for w in ("gemm", "xmma", "cutlass")) else "other")
         groups[group] += evt.self_device_time_total / 1e6
+        kernels_by_time.append((evt.self_device_time_total / 1e6, evt.count, evt.key))
     busy = sum(groups.values())
     if busy == 0:
         print(f"[{tag}] profile of one EM iteration: the profiler shows no device time "
@@ -692,6 +733,8 @@ def profile_iteration(tag: str, model, dataset) -> None:
     print(f"[{tag}] profile of one EM iteration ({wall:.4f} s of wall time under the profiler): "
           + ", ".join(f"{g} {t:.4f} s ({t / wall:.1%})" for g, t in groups.items())
           + f"; device idle {max(0.0, 1 - busy / wall):.1%}")
+    for t, count, name in sorted(kernels_by_time, reverse=True)[:top]:
+        print(f"[{tag}]   {t:.4f} s in {count} launches: {name[:150]}")
 
 
 def phase_main(smi: str):
@@ -799,7 +842,7 @@ def check_sampler_moments(tag: str, model, rows):
     inferred = model.infer(rows)
     sampler = inferred.posterior_sampler()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    total = torch.zeros(len(rows), D_MAIN, dtype=torch.float64, device="cuda")
+    total = torch.zeros(len(rows), rows.output_size(), dtype=torch.float64, device="cuda")
     total_sq = torch.zeros_like(total)
     for _ in range(N_DRAWS):
         y = sampler.sample(generator=gen).data.double()
@@ -1012,6 +1055,375 @@ def phase_wide(smi: str):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 8
+
+
+def make_mix_dataset(observed: float = MIX_OBSERVED, seed: int = SEED + 13):
+    """bench_suite.py's mixture data (row 4), made on the card: N_MIX rows,
+    each from one of M_MIX components drawn uniformly, y = C_m z + mu_m +
+    0.3 eps with C_m ~ N(0, 1) (D_MIX x K_MIX) and mu_m ~ 3 N(0, 1), each
+    entry observed with probability ``observed`` (1 gives a fully observed
+    copy of the same values)."""
+    from ppca_rs_tpu_torch import Dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    opts = dict(generator=gen, device="cuda", dtype=torch.float32)
+    Cs = torch.randn(M_MIX, D_MIX, K_MIX, **opts)
+    means = 3.0 * torch.randn(M_MIX, D_MIX, **opts)
+    comp = torch.randint(0, M_MIX, (N_MIX,), generator=gen, device="cuda")
+    data = torch.empty(N_MIX, D_MIX, device="cuda", dtype=torch.float32)
+    mask = torch.empty(N_MIX, D_MIX, device="cuda", dtype=torch.bool)
+    step = 1 << 16
+    for lo in range(0, N_MIX, step):
+        hi = min(lo + step, N_MIX)
+        c = comp[lo:hi]
+        z = torch.randn(hi - lo, K_MIX, **opts)
+        y = means[c] + 0.3 * torch.randn(hi - lo, D_MIX, **opts)
+        for m in range(M_MIX):
+            rows = (c == m).nonzero().squeeze(1)
+            y.index_add_(0, rows, z[rows] @ Cs[m].T)
+        seen = torch.rand(hi - lo, D_MIX, generator=gen, device="cuda") < observed
+        data[lo:hi] = torch.where(seen, y, torch.zeros_like(y))
+        mask[lo:hi] = seen
+    return Dataset.from_parts(data, mask)
+
+
+def mix_on_cpu64(mix):
+    """The mixture's parameters in float64 on the CPU."""
+    from ppca_rs_tpu_torch import PPCAMix, PPCAModel
+
+    return PPCAMix([PPCAModel._from_params(m.transform.cpu().double(), m.mean.cpu().double(),
+                                           m.isotropic_noise.cpu().double()) for m in mix.models],
+                   mix.log_weights.cpu().double())
+
+
+def mix_diffs(a, b) -> dict:
+    """Max relative differences of two mixtures' parameters (weights, not
+    log-weights: a dead component's log-weight is -inf)."""
+    pa, pb = a._stacked_params(), b._stacked_params()
+    diffs = {name: rel_err(x.cpu(), y.cpu()) for name, x, y in
+             zip(("transforms", "means", "noises"), pa, pb)}
+    diffs["weights"] = rel_err(a.weights.cpu(), b.weights.cpu())
+    return diffs
+
+
+def report_diffs(tag: str, what: str, diffs: dict, tol: float) -> None:
+    print(f"[{tag}] {what}: " + ", ".join(f"{n} {v:.3e}" for n, v in diffs.items())
+          + f" (max rel diff, tol {tol:g})")
+    for name, v in diffs.items():
+        check(v <= tol, f"{tag} {what} {name}: {v:.3e} above {tol}")
+
+
+def mix_readouts(mix, sub) -> None:
+    """llk, infer_cluster, infer, smooth, extrapolate and the posterior
+    sampler on ``sub``, each timed (host clock, ending in a device sync),
+    with shape, finiteness and consistency checks."""
+    n, times = len(sub), {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    llk = run("llk", lambda: mix.llk(sub))
+    cluster = run("infer_cluster", lambda: mix.infer_cluster(sub))
+    inferred = run("infer", lambda: mix.infer(sub))
+    smoothed = run("smooth", lambda: mix.smooth(sub).data)
+    extrapolated = run("extrapolate", lambda: mix.extrapolate(sub).data)
+    sampler = run("posterior_sampler", inferred.posterior_sampler)
+    draw = run("sample", lambda: sampler.sample(
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 15)).data)
+    check(math.isfinite(llk), "mix: llk is not finite")
+    check(tuple(cluster.shape) == (n, M_MIX) and bool(torch.isfinite(cluster).all()),
+          "mix: infer_cluster has the wrong shape or non-finite values")
+    check(float((cluster.exp().sum(-1) - 1).abs().max()) <= 1e-4,
+          "mix: infer_cluster rows are not log-probabilities")
+    gap = float((inferred.log_posteriors().exp() - cluster.exp()).abs().max())
+    check(gap <= 1e-3, f"mix: infer's and infer_cluster's posteriors differ by {gap:.3e}")
+    states = inferred.states()
+    covs = torch.stack(inferred.covariances())
+    shapes = {"states": (states, (n, K_MIX)), "covariances": (covs, (n, K_MIX, K_MIX)),
+              "smooth": (smoothed, (n, D_MIX)), "extrapolate": (extrapolated, (n, D_MIX)),
+              "sample": (draw, (n, D_MIX))}
+    for name, (t, shape) in shapes.items():
+        check(tuple(t.shape) == shape, f"mix: {name} shape {tuple(t.shape)} != {shape}")
+        check(bool(torch.isfinite(t).all()), f"mix: {name} has non-finite values")
+    check(bool((extrapolated[sub.mask] == sub.data[sub.mask]).all()),
+          "mix: extrapolate changed observed entries")
+    share = cluster.exp().mean(0)
+    print(f"[mix] readouts on {n} rows: llk/sample {llk / n:.6f}; "
+          + ", ".join(f"{name} {t:.4f} s" for name, t in times.items())
+          + f"; mean responsibility per component {[round(float(v), 4) for v in share]}")
+
+
+def phase_mix(smi: str):
+    """PPCA mixtures at bench_suite.py's mixture configuration: training,
+    readouts, sampler moments, exact launch counts, a profile, card vs CPU,
+    fused vs loop, the dense copy on the table route, and every kernel at
+    this phase's shapes.  Returns (launches of the main run, kernel rows
+    at this phase's shapes)."""
+    from ppca_rs_tpu_torch import Dataset, Prior, config
+    from ppca_rs_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    dataset = make_mix_dataset()
+    torch.cuda.synchronize()
+    print(f"[mix] dataset N={len(dataset)} D={D_MIX} k={K_MIX} M={M_MIX} {dataset.dtype}, "
+          f"observed share {float(dataset.mask.float().mean()):.4f}, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(dataset.pattern_info(include_dense=True) is None,
+          "mix: random masks were taken for structured missingness")
+    rows = config.mix_block_rows(M_MIX, K_MIX, 4)
+    n_blocks, n_sub = -(-N_MIX // rows), -(-N_MIX_READOUT // rows)
+    print(f"[mix] {rows} data rows a block: {M_MIX * rows} kernel samples a launch, "
+          f"{n_blocks} blocks")
+
+    mix, train_launches = train("mix", dataset, SEED + 14, smi, k=K_MIX, n_models=M_MIX)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(fullt=N_ITERS * n_blocks, states=N_ITERS)
+    check(train_launches == want, f"mix: training launches {train_launches} != {want}")
+
+    sub = dataset.slice(0, N_MIX_READOUT)
+    mix_readouts(mix, sub)
+    check_sampler_moments("mix", mix, sub)
+    launches = dict(kernels.LAUNCHES)
+    # training; model.llk over all rows; on the readout rows llk and
+    # infer_cluster (llk), infer twice (infer), smooth, extrapolate and the
+    # moment check's smooth (states), two posterior samplers of M factors
+    want.update(states=N_ITERS + 3 * n_sub, llk=n_blocks + 2 * n_sub, infer=2 * n_sub,
+                chol=2 * M_MIX)
+    check(launches == want, f"mix: launches {launches} != {want}")
+    print(f"[mix] launches of the mixture path (training, llk, readouts, sampler): {launches}")
+
+    profile_iteration("mix", mix, dataset, top=8)
+    flops = 2 * 2 * N_MIX * D_MIX * M_MIX * K_MIX ** 2
+    print(f"[mix] the Gram and S matmuls do {flops / 1e12:.3f} TFLOP per iteration: at least "
+          f"{flops / PEAK_F32_FLOPS * 1e3:.1f} ms at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32")
+
+    rows_cpu = dataset.slice(0, N_MIX_CPU)
+    before = dict(kernels.LAUNCHES)
+    card, card_llk = mix._iterate_with_llk(rows_cpu, Prior())
+    card_llks = mix.llks(rows_cpu)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["fullt"] > before["fullt"] and kernels.LAUNCHES["llk"] > before["llk"],
+          "mix card-vs-cpu: the card run did not launch fullt and llk")
+    host = mix_on_cpu64(mix)
+    rows_host = Dataset.from_parts(rows_cpu.data.cpu().double(), rows_cpu.mask.cpu(),
+                                   rows_cpu.weights_dev.cpu().double())
+    t0 = time.perf_counter()
+    cpu, cpu_llk = host._iterate_with_llk(rows_host, Prior())
+    cpu_llks = host.llks(rows_host)
+    diffs = mix_diffs(card, cpu)
+    diffs["llk"] = abs(card_llk - cpu_llk) / abs(cpu_llk)
+    diffs["llks"] = rel_err(card_llks.cpu(), cpu_llks)
+    report_diffs("mix", f"{N_MIX_CPU} rows, one EM step + llks, card float32 vs CPU float64 "
+                 f"({time.perf_counter() - t0:.1f} s on the CPU)", diffs, TOL_CARD_VS_CPU)
+
+    rnorm_envelope(mix, rows_cpu, rows_host)
+
+    loop, loop_llk = mix._iterate_loop(rows_cpu, Prior())
+    diffs = mix_diffs(card, loop)
+    diffs["llk"] = abs(card_llk - loop_llk) / abs(loop_llk)
+    report_diffs("mix", f"{N_MIX_CPU} rows, one EM step on the card, fused vs the per-component "
+                 "loop", diffs, TOL_CARD_VS_CPU)
+
+    dense_launches = phase_mix_dense(mix, smi)
+    kernel_rows = check_mix_kernels(mix, dataset, sub)
+    return {**launches, "full": dense_launches["full"]}, kernel_rows
+
+
+def rnorm_envelope(mix, rows, rows_host) -> None:
+    """The default EM block's expanded |r|^2 in float32 on the card against
+    the residual computed directly (config.mix_exact_rnorm) in float64 on
+    the CPU, on this data: dev_sq, the noise update's data term, and the
+    llk, the sums it enters most directly."""
+    from ppca_rs_tpu_torch import config
+    from ppca_rs_tpu_torch.ops import mix_fused as mf
+
+    def stats(m, ds):
+        Cs, means, sigmas = m._stacked_params()
+        return mf.mix_em_stats(Cs, means, sigmas, m.log_weights, ds.data, ds.mask, ds.weights_dev,
+                               block_size=config.block_size)
+
+    card = stats(mix, rows)
+    config.mix_exact_rnorm = True
+    try:
+        exact = stats(mix_on_cpu64(mix), rows_host)
+    finally:
+        config.mix_exact_rnorm = False
+    alive = exact.resp_sum > 0
+    dev = float(((card.dev_sq.cpu().double() - exact.dev_sq) / exact.dev_sq)[alive].abs().max())
+    llk = abs(float(card.llk) - float(exact.llk)) / abs(float(exact.llk))
+    print(f"[mix] expanded |r|^2 envelope on {len(rows)} rows: card float32 (default block) vs "
+          f"CPU float64 with the residual formed: dev_sq {dev:.3e} (max over live components), "
+          f"llk {llk:.3e} relative")
+    check(dev <= TOL_CARD_VS_CPU and llk <= TOL_CARD_VS_CPU, "mix: |r|^2 envelope above the bound")
+
+
+def phase_mix_dense(mix, smi: str) -> dict:
+    """A fully observed copy of the mixture data takes the table route with
+    one pattern: N_DENSE_ITERS EM iterations and the llk launch ``full``
+    for the tables and ``states`` for the row solves, and no ``fullt``.
+    One step on its first rows agrees with the general route's."""
+    from ppca_rs_tpu_torch import config
+    from ppca_rs_tpu_torch.ops import kernels
+
+    dense = make_mix_dataset(observed=1.0)
+    pattern = dense.pattern_info(include_dense=True)
+    check(dense.all_observed() and pattern is not None and pattern[1].shape[0] == 1,
+          "mix dense: fully observed data did not take the single-pattern table route")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense_mix, llks = mix.iterate_n(dense, N_DENSE_ITERS)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) / N_DENSE_ITERS
+    final = dense_mix.llk(dense)
+    launches = dict(kernels.LAUNCHES)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(full=N_DENSE_ITERS + 1, states=N_DENSE_ITERS)
+    check(launches == want, f"mix dense: launches {launches} != {want}")
+    seq = llks.tolist() + [final]
+    for a, b in zip(seq, seq[1:]):
+        check(b >= a - LLK_SLACK * abs(a), f"mix dense: llk decreased: {a} -> {b}")
+    print(f"[mix] dense copy, table route with one pattern: {N_DENSE_ITERS} iterations at "
+          f"{per_iter:.4f} s each ({smi}); llks {seq}; launches {launches}")
+
+    sub = dense.slice(0, N_MIX_CPU)
+    table = mix._iterate_with_llk(sub, None)
+    config.use_pattern_dedup = False
+    try:
+        general = mix._iterate_with_llk(sub, None)
+    finally:
+        config.use_pattern_dedup = True
+    diffs = mix_diffs(table[0], general[0])
+    diffs["llk"] = abs(table[1] - general[1]) / abs(general[1])
+    report_diffs("mix", f"dense copy, {N_MIX_CPU} rows, one EM step, table route vs general route "
+                 "on the card", diffs, TOL_CARD_VS_CPU)
+    time_pattern_grouping(config.mix_block_rows(M_MIX, K_MIX, 4))
+    return launches
+
+
+def time_pattern_grouping(rows: int) -> None:
+    """The table route's per-pattern second-moment sums of one block (M x
+    ``rows`` samples, k = K_MIX) both ways ``mix_fused.mix_em_stats_pat``
+    has them: ``index_add_`` of the (M, rows, k*k) outer products, whose
+    atomic adds all land on P rows, and the one-hot matmul it takes for
+    P <= k (CUDA events, 30 calls each, in turns)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    M, k = M_MIX, K_MIX
+    s = torch.randn(M, rows, k, generator=gen, device="cuda")
+    sw = s * torch.rand(M, rows, 1, generator=gen, device="cuda")
+    for P in (1, 8, 32):
+        pb = torch.randint(0, P, (rows,), generator=gen, device="cuda")
+        Souter = torch.zeros(M, P, k * k, device="cuda")
+
+        def by_index_add():
+            Souter.index_add_(1, pb, (sw[..., :, None] * s[..., None, :]).view(M, -1, k * k))
+
+        def by_one_hot():
+            onehot = torch.nn.functional.one_hot(pb, P).float()
+            A = (onehot[None, :, :, None] * sw[:, :, None, :]).view(M, -1, P * k)
+            Souter.add_(torch.bmm(A.mT, s).view(M, P, k * k))
+
+        a1, o1, o2, a2 = (cuda_ms(by_index_add, KERNEL_REPS), cuda_ms(by_one_hot, KERNEL_REPS),
+                          cuda_ms(by_one_hot, KERNEL_REPS), cuda_ms(by_index_add, KERNEL_REPS))
+        print(f"[mix] per-pattern sums of {M} x {rows} rows, k={k}, P={P}: index_add_ "
+              f"{a1:.4f}/{a2:.4f} ms, one-hot matmul {o1:.4f}/{o2:.4f} ms")
+
+
+def check_mix_kernels(mix, dataset, sub) -> dict:
+    """Every kernel at the shapes phase 8 gave it, against its plain
+    version on NaN-prefilled outputs, and timed: fullt, llk and infer on
+    the first block (M x rows samples, sigma per sample, component-major,
+    checked bit for bit against launches with each component's sigma for
+    the whole batch); states on the M x D row solve of this mixture's
+    statistics (lambda = 0); full on the dense copy's M x 1 tables; chol
+    on the 8,192 posterior covariances of the first component."""
+    from ppca_rs_tpu_torch import config
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+    from ppca_rs_tpu_torch.ops import mix_fused as mf
+
+    Cs, means, sigmas = mix._stacked_params()
+    rows = config.mix_block_rows(M_MIX, K_MIX, 4)
+    B, k = M_MIX * rows, K_MIX
+    block = dataset.slice(0, rows)
+    mask_f = block.mask.float()
+    _, b, rnorm = mf._projections(Cs, mf._center_prep(Cs, means), block.data, mask_f)
+    x = dict(G=torch.matmul(mask_f, ml.outer_flat(Cs)).reshape(B, k, k), b=b.reshape(B, k),
+             rnorm=rnorm.reshape(B), d_obs=mask_f.sum(-1).repeat(M_MIX))
+    sig = sigmas.repeat_interleave(rows)
+
+    # the row solve of the live components (a dead one's statistics are 0)
+    stats = mf.mix_em_stats(Cs, means, sigmas, mix.log_weights, dataset.data, dataset.mask,
+                            dataset.weights_dev, block_size=rows)
+    alive = stats.resp_max > 0
+    inv = 1.0 / stats.resp_max[alive]
+    S = ml.symmetric_from_lower((stats.S[alive] * inv[:, None, None]).reshape(-1, k, k))
+    cross = (stats.cross[alive] * inv[:, None, None]).reshape(-1, k)
+    zeros = torch.zeros(cross.shape[0], device="cuda")
+    x_states = dict(G=S.contiguous(), b=cross.contiguous(), rnorm=zeros, d_obs=zeros)
+    ones = torch.ones(1, D_MIX, device="cuda")
+    x_full = dict(G=torch.matmul(ones, ml.outer_flat(Cs)).reshape(M_MIX, k, k),
+                  b=torch.zeros(M_MIX, k, device="cuda"), rnorm=torch.zeros(M_MIX, device="cuda"),
+                  d_obs=torch.full((M_MIX,), float(D_MIX), device="cuda"))
+    cases = [("fullt", x, sig), ("llk", x, sig), ("infer", x, sig),
+             ("states", x_states, torch.zeros(1, device="cuda")), ("full", x_full, sigmas)]
+    errors = {}
+    for want, inp, s in cases:
+        n = inp["G"].shape[0]
+        outs = tuple(torch.full(sh, math.nan, device="cuda") for sh in kernels.output_shapes(want, n, k))
+        kernels.launch(want, s, inp["G"], inp["b"], inp["rnorm"], inp["d_obs"], outs)
+        torch.cuda.synchronize()
+        ref = kernels.spd_estep_reference(s.double(), *(inp[n_].double() for n_ in
+                                                        ("G", "b", "rnorm", "d_obs")), want)
+        if want == "states":      # lambda = 0: the row solve reads the solution alone
+            outs, ref = outs[:1], ref[:1]
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"mix {want} B={n}: an output element was left unwritten or is non-finite")
+        err = max(rel_err(o, r) for o, r in zip(outs, ref))
+        errors[want] = max(float((o.double() - r).abs().max()) for o, r in zip(outs, ref))
+        check(err <= TOL_F32, f"mix {want} B={n}: relative error {err:.3e} above {TOL_F32}")
+        print(f"[mix] kernel {want} k={k} B={n} float32: max rel err {err:.3e} (tol {TOL_F32:g}), "
+              f"max abs err {errors[want]:.3e}")
+    which = torch.arange(B, device="cuda") // rows
+    for want in ("fullt", "llk", "infer"):
+        got = kernels.spd_estep(sig, x["G"], x["b"], x["rnorm"], x["d_obs"], want=want)
+        for m in range(M_MIX):
+            scalar = kernels.spd_estep(sigmas[m:m + 1], x["G"], x["b"], x["rnorm"], x["d_obs"],
+                                       want=want)
+            for g, s_ in zip(got, scalar):
+                check(torch.equal(g[which == m], s_[which == m]),
+                      f"mix {want}: component {m}'s samples differ from its scalar-sigma launch")
+    print(f"[mix] fullt, llk, infer at B={B}: the {M_MIX} components' sigmas stacked per sample "
+          "equal scalar-sigma launches bit for bit")
+
+    covs = mix.infer(sub).sub_states()[0].covariances_array().contiguous()
+    L = torch.full_like(covs, math.nan)
+    kernels.launch_chol(covs, L)
+    torch.cuda.synchronize()
+    ref = kernels.spd_chol_reference(covs.double())
+    err = rel_err(L, ref)
+    errors["chol"] = float((L.double() - ref).abs().max())
+    check(bool(torch.isfinite(L).all()) and err <= TOL_F32,
+          f"mix chol B={len(covs)}: relative error {err:.3e} or non-finite values")
+    print(f"[mix] kernel chol k={k} B={len(covs)} float32: max rel err {err:.3e} "
+          f"(tol {TOL_F32:g}), max abs err {errors['chol']:.3e}")
+
+    timed = time_estep(k, x, ("fullt", "llk", "infer"), sigma=sig)
+    timed.update(time_estep(k, x_states, ("states",), sigma=torch.zeros(1, device="cuda")))
+    timed.update(time_estep(k, x_full, ("full",), sigma=sigmas))
+    timed["chol"] = time_chol(covs, L)
+    for name, row in timed.items():
+        row["max_abs_err"] = errors[name]
+    return timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1036,6 +1448,8 @@ def main() -> int:
     phase_dense(smi)
     torch.cuda.empty_cache()
     wide_launches = phase_wide(smi)
+    torch.cuda.empty_cache()
+    mix_launches, mix_rows = phase_mix(smi)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     entries = [(f"spd_estep_{want}", ESTEP_SOURCE[summary[want]["design"]], ESTEP_REPLACES, want,
@@ -1046,11 +1460,13 @@ def main() -> int:
                  pattern_launches)]
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_us",
               "device_ms", "design", "B", "k")
-    # each kernel at the main path's k, and at phase 7's (launches from that run)
+    # each kernel at the main path's k, at phase 7's and at phase 8's shapes
+    # (launches from those runs)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], **{f: summary[key][f] for f in fields},
-         f"at_k{WIDE_K}": {"launches": wide_launches[key], **{f: wide[key][f] for f in fields}}}
+         f"at_k{WIDE_K}": {"launches": wide_launches[key], **{f: wide[key][f] for f in fields}},
+         "at_mix": {"launches": mix_launches[key], **{f: mix_rows[key][f] for f in fields}}}
         for name, source, replaces, key, launches in entries
     ]}
     for entry in kernels_line["kernels"]:

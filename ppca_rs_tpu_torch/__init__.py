@@ -1,8 +1,10 @@
-"""ppca_rs_tpu_torch — masked Probabilistic PCA on PyTorch and CUDA.
+"""ppca_rs_tpu_torch — masked Probabilistic PCA and PPCA mixtures on PyTorch
+and CUDA.
 
 The PyTorch port of ``ppca_rs_tpu``: the same public API and array layouts,
 on torch tensors.  The per-sample SPD factorization of the E-step, of the
-pattern tables and of the M-step row solves (``csrc/spd_estep.cu``) and the
+pattern tables and of the M-step row solves (``csrc/spd_estep.cu``; a
+mixture stacks its components on the batch axis) and the
 posterior sampler's batched Cholesky factor (``csrc/spd_chol.cu``) are CUDA
 kernels written for Hopper, built with ``nvcc`` at first use; on CPU tensors
 their plain PyTorch versions run instead.  This package imports neither JAX
@@ -11,9 +13,10 @@ nor ``ppca_rs_tpu``.
 
 from .config import config
 from .dataset import Dataset
+from .models.mix import InferredMaskedMix, PosteriorSamplerMix, PPCAMix
 from .models.ppca import InferredMasked, PosteriorSampler, PPCAModel
 from .prior import Prior
-from .trainer import PPCATrainer, TrainMetrics
+from .trainer import PPCAMixTrainer, PPCATrainer, TrainMetrics
 from .utils.rng import seed
 
 __version__ = "0.1.0"
@@ -24,7 +27,11 @@ __all__ = [
     "PPCAModel",
     "InferredMasked",
     "PosteriorSampler",
+    "PPCAMix",
+    "InferredMaskedMix",
+    "PosteriorSamplerMix",
     "PPCATrainer",
+    "PPCAMixTrainer",
     "TrainMetrics",
     "config",
     "seed",

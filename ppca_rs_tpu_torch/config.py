@@ -17,6 +17,13 @@ import dataclasses
 import torch
 
 
+#: Bytes of one (M * rows, k, k) tensor of a mixture block: 512 MiB, the
+#: single-model route's own largest (8192 x 128 x 128 float32).  At M=8,
+#: k=32 in float32 the full 8192 rows fit (256 MiB); at M=8, k=64 the rows
+#: halve to 4096.
+MIX_BLOCK_MAX_BYTES = 512 << 20
+
+
 @dataclasses.dataclass
 class Config:
     #: Device for datasets and models built from host arrays: the card.
@@ -59,6 +66,28 @@ class Config:
     #: segment), 104-132 vs 27 ms at N=262,144, P=256 (1,024 rows), and
     #: 763-833 vs 29-34 ms at P=2,048 (128 rows); the two cross near 8,192.
     pat_sorted_min_rows: int = 8192
+
+    #: Compute the fused mixture EM's per-component residual norms from a
+    #: materialized (M, block, D) residual (ops/mix_fused._block_mix) instead
+    #: of the expanded quadratic |md0|^2 - 2 md0.dm + mask.dm^2 of the
+    #: default block.  The expanded form's float32 cancellation grows with
+    #: the spread of the component means against the noise: at a separation
+    #: of 300 with residual 0.5, dev_sq is 1.8e-3 and the llk 8.5e-4 off
+    #: float64 on the CPU, 3.8e-7 and 5.5e-8 with this flag
+    #: (tests/test_torch_mix_ops.py::test_exact_rnorm_envelope_float32).  EM
+    #: convergence is unaffected.  Turn on when widely separated components
+    #: need exact llk and noise values.
+    mix_exact_rnorm: bool = False
+
+    def mix_block_rows(self, n_models: int, k: int, itemsize: int) -> int:
+        """Data rows per mixture block.  A block of ``rows`` data rows
+        factors M * rows posteriors in one kernel launch, with (M * rows, k,
+        k) Gram and second-moment tensors; rows are halved from
+        :attr:`block_size` until each of those fits MIX_BLOCK_MAX_BYTES."""
+        rows = self.block_size
+        while rows > 1 and n_models * rows * k * k * itemsize > MIX_BLOCK_MAX_BYTES:
+            rows //= 2
+        return rows
 
     def resolve_device(self, device=None) -> torch.device:
         """The device for tensors built from host arrays: ``device`` if

@@ -223,7 +223,7 @@ class Dataset:
             self._all_observed = bool(self.mask.all())
         return self._all_observed
 
-    def pattern_info(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    def pattern_info(self, include_dense: bool = False) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """Distinct-mask-pattern table for the pattern path
         (ops/pattern_dedup.py), or ``None`` when it would not pay off.
 
@@ -236,7 +236,12 @@ class Dataset:
         Datasets of more than 131,072 rows first count the patterns of a
         65,536-row prefix, so unstructured masks demote cheaply.  Cached;
         ``with_weights`` and ``to`` share the cache.  ``config.use_pattern_dedup``
-        is read on every call, so turning it off takes effect at once."""
+        is read on every call, so turning it off takes effect at once.
+
+        ``include_dense=True`` (the mixtures' table route) also returns the
+        trivial single-pattern table ``(zeros(N), ones(1, D))`` for fully
+        observed data; the default call leaves that case to the dense path
+        and caches nothing for it."""
         if not config.use_pattern_dedup:
             return None
         if self._patterns is not None:
@@ -246,6 +251,9 @@ class Dataset:
             self._patterns = False
             return None
         if self.all_observed():
+            if include_dense:
+                return (torch.zeros(n, dtype=torch.int64, device=self.device),
+                        torch.ones((1, self.data.shape[1]), dtype=torch.bool, device=self.device))
             return None
         p_cap = min(config.pattern_max, n // config.pattern_min_ratio)
         self._patterns = _detect_patterns(self.mask, p_cap) or False

@@ -1,6 +1,6 @@
 """Carry parameters and datasets across from the JAX package.
 
-Both functions take plain numpy arrays (for example ``jax_model.transform``,
+Every function takes plain numpy arrays (for example ``jax_model.transform``,
 ``np.asarray(jax_dataset.data)``), so this module imports nothing of JAX.
 """
 
@@ -11,6 +11,7 @@ import torch
 
 from .config import config
 from .dataset import Dataset
+from .models.mix import PPCAMix
 from .models.ppca import PPCAModel
 
 
@@ -28,6 +29,16 @@ def model_from_arrays(transform, mean, isotropic_noise, *, device=None,
     return PPCAModel(isotropic_noise=float(np.asarray(isotropic_noise)),
                      transform=transform, mean=np.asarray(mean),
                      device=device, dtype=_torch_dtype(transform, dtype))
+
+
+def mix_from_arrays(transforms, means, noises, log_weights, *, device=None,
+                    dtype=None) -> PPCAMix:
+    """A port ``PPCAMix`` with one component per (D, k_i) transform, (D,)
+    mean and scalar noise, and the given log-weights (normalized as
+    ``PPCAMix`` does), in ``dtype`` (default: each transform's own)."""
+    models = [model_from_arrays(C, mu, s, device=device, dtype=dtype)
+              for C, mu, s in zip(transforms, means, noises)]
+    return PPCAMix(models, np.asarray(log_weights, dtype=np.float64))
 
 
 def dataset_from_arrays(data, mask, weights=None, *, device=None, dtype=None) -> Dataset:

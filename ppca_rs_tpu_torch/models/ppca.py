@@ -353,6 +353,28 @@ class PPCAModel(nn.Module):
         return PPCAModel._from_params(new_C * signs[None, :], self.mean, self.isotropic_noise)
 
 
+def smoothed_cov_diag(model: PPCAModel, covs: torch.Tensor) -> torch.Tensor:
+    """(N, D) diagonals of ``C Sigma_n C^T + sigma^2 I`` for posterior
+    covariances ``covs`` (N, k, k): ``diag(C Sigma C^T)[d] = sum_kl C[d,k]
+    Sigma[k,l] C[d,l] = (Sigma_flat @ CC_flat^T)[n, d]``, one matmul."""
+    n, k, _ = covs.shape
+    sigma = model.isotropic_noise
+    return covs.reshape(n, k * k) @ ml.outer_flat(model.transform).T + sigma * sigma
+
+
+def extrapolated_cov_diag(model: PPCAModel, covs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`smoothed_cov_diag`, zero at observed entries."""
+    diag = smoothed_cov_diag(model, covs)
+    return torch.where(mask, torch.zeros_like(diag), diag)
+
+
+def smoothed_cov_full(model: PPCAModel, covs: torch.Tensor) -> torch.Tensor:
+    """(N, D, D) smoothed output covariances ``C Sigma_n C^T + sigma^2 I``."""
+    C, sigma = model.transform, model.isotropic_noise
+    full = torch.einsum("dk,nkl,el->nde", C, covs, C)
+    return full + (sigma * sigma) * torch.eye(C.shape[0], dtype=C.dtype, device=C.device)
+
+
 class InferredMasked:
     """Batch of per-sample posterior distributions in state space
     (`src/python_bindings.rs:203-345` over `ppca_model.rs:428-593`)."""
@@ -395,38 +417,24 @@ class InferredMasked:
         smoothed = self._states @ model.transform.T + model.mean
         return Dataset.unmasked(torch.where(dataset.mask, dataset.data, smoothed))
 
-    def _cov_diag(self, model: PPCAModel) -> torch.Tensor:
-        # diag(C Sigma C^T)[d] = sum_{kl} C[d,k] Sigma[k,l] C[d,l]
-        #                      = (Sigma_flat @ CC_flat^T)[n, d]: one matmul.
-        n, k, _ = self._covariances.shape
-        CC = ml.outer_flat(model.transform)
-        sigma = model.isotropic_noise
-        return self._covariances.reshape(n, k * k) @ CC.T + sigma * sigma
-
-    def _cov_full(self, model: PPCAModel) -> torch.Tensor:
-        C, sigma = model.transform, model.isotropic_noise
-        full = torch.einsum("dk,nkl,el->nde", C, self._covariances, C)
-        return full + (sigma * sigma) * torch.eye(C.shape[0], dtype=C.dtype, device=C.device)
-
     def smoothed_covariances(self, model: PPCAModel) -> List[torch.Tensor]:
         """Full (D, D) smoothed output covariances (`ppca_model.rs:471-477`)."""
-        return list(self._cov_full(model))
+        return list(smoothed_cov_full(model, self._covariances))
 
     def smoothed_covariances_diagonal(self, model: PPCAModel) -> Dataset:
         """Diagonal smoothed output covariances (`ppca_model.rs:485-508`)."""
-        return Dataset.unmasked(self._cov_diag(model))
+        return Dataset.unmasked(smoothed_cov_diag(model, self._covariances))
 
     def extrapolated_covariances(self, model: PPCAModel, dataset: Dataset) -> List[torch.Tensor]:
         """Full (D, D) extrapolation covariances, zero at observed dims
         (`ppca_model.rs:517-534`)."""
         neg = (~dataset.mask).to(model.transform.dtype)
-        return list(self._cov_full(model) * neg[:, :, None] * neg[:, None, :])
+        return list(smoothed_cov_full(model, self._covariances) * neg[:, :, None] * neg[:, None, :])
 
     def extrapolated_covariances_diagonal(self, model: PPCAModel, dataset: Dataset) -> Dataset:
         """Diagonal extrapolation variances, zero at observed dims
         (`ppca_model.rs:542-577`)."""
-        diag = self._cov_diag(model)
-        return Dataset.unmasked(torch.where(dataset.mask, torch.zeros_like(diag), diag))
+        return Dataset.unmasked(extrapolated_cov_diag(model, self._covariances, dataset.mask))
 
     def posterior_sampler(self) -> "PosteriorSampler":
         """Cholesky-factor the posterior covariances for repeated sampling

@@ -31,9 +31,10 @@ from . import kernels
 
 
 def outer_flat(C: torch.Tensor) -> torch.Tensor:
-    """Per-row flattened outer products: ``CC[d] = vec(c_d c_d^T)``, (D, k*k)."""
-    D, k = C.shape
-    return (C[:, :, None] * C[:, None, :]).reshape(D, k * k)
+    """Per-row flattened outer products: ``CC[d] = vec(c_d c_d^T)``, (D, k*k),
+    or (M, D, k*k) for a stack of M transforms (M, D, k)."""
+    k = C.shape[-1]
+    return (C[..., :, None] * C[..., None, :]).reshape(*C.shape[:-1], k * k)
 
 
 class BlockPosterior(NamedTuple):
@@ -187,19 +188,32 @@ def rows_solve(S_sq, cross, lam) -> torch.Tensor:
     return sol
 
 
+def symmetric_from_lower(S_sq: torch.Tensor) -> torch.Tensor:
+    """``tril(S) + tril(S, -1)^T`` over the last two axes: S is symmetric
+    by construction, and rebuilding it from its lower triangle keeps the
+    row solves exact for any producer that fills only that triangle."""
+    return torch.tril(S_sq) + torch.tril(S_sq, -1).mT
+
+
 def em_finalize(C, mean, sigma, stats: EMStats, *, transformation_precision,
-                noise_prior: Optional[tuple] = None, mean_prior: Optional[tuple] = None):
+                noise_prior: Optional[tuple] = None, mean_prior: Optional[tuple] = None,
+                transform_rows: Optional[torch.Tensor] = None):
     """M-step parameter updates from the sufficient statistics
-    (`ppca_model.rs:294-393`).  Returns ``(new_C, new_mean, new_sigma)``."""
+    (`ppca_model.rs:294-393`).  Returns ``(new_C, new_mean, new_sigma)``.
+
+    ``transform_rows`` (D, k), when given, are the row solves already done
+    by the caller (the mixture M-step solves every component's rows in one
+    launch, ``mix_fused.mix_em_finalize``); they take the same
+    keep-old-row fallback."""
     D, k = C.shape
 
     # --- transform rows, keeping the old row where the solve is non-finite
-    # (the QR-failure fallback at ppca_model.rs:313-321).  S is symmetric
-    # by construction; rebuilding it from its lower triangle keeps the
-    # solve exact for any consumer that fills only that triangle.
-    S_sq = stats.S.reshape(D, k, k)
-    S_sq = torch.tril(S_sq) + torch.tril(S_sq, -1).mT
-    sol = rows_solve(S_sq, stats.cross, transformation_precision)
+    # (the QR-failure fallback at ppca_model.rs:313-321).
+    if transform_rows is None:
+        S_sq = symmetric_from_lower(stats.S.reshape(D, k, k))
+        sol = rows_solve(S_sq, stats.cross, transformation_precision)
+    else:
+        sol = transform_rows
     ok = torch.isfinite(sol).all(dim=-1, keepdim=True)
     new_C = torch.where(ok, sol, C)
 

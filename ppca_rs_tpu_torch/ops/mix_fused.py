@@ -1,0 +1,450 @@
+"""Fused mixture EM and readouts: all M components in one pass over the data.
+
+Port of ``ppca_rs_tpu/ops/mix_fused.py`` for one device.  The reference's
+mixture EM (`ppca/src/mix.rs:281-337`) makes M llk passes for the
+responsibilities and then M reweighted single-model EM passes.  Here one
+blocked pass does it all:
+
+* the per-sample masked Grams and projections of all M components are
+  batched matmuls against the stacked ``Cs (M, D, k)``;
+* the SPD kernel is independent per sample, so the M components' blocks
+  are stacked on its batch axis, component-major (sample ``m * B + n`` is
+  row n under component m), with one sigma per sample
+  (``sigmas.repeat_interleave(B)``): ONE launch factors M * B posteriors;
+* the responsibilities come from those same per-sample llks, and the
+  M-step statistics are summed responsibility-weighted in the same pass.
+
+The reference scales each component's weights to max 1 before its inner EM
+(`mix.rs:310-323`).  Without priors the updates do not see that scale; with
+priors they do, so the pass tracks each component's largest responsibility
+(``resp_max``) and :func:`mix_em_finalize` rescales the weight-linear
+statistics by it.
+
+Two routes, as in the JAX package: the general masked route
+(:func:`mix_em_stats` and the readouts without ``pidx``) and the table route
+(:func:`mix_em_stats_pat` and the readouts with ``pidx``/``patterns``), where
+the P distinct mask patterns (one for fully observed data) reduce every
+factorization to an M x P table (:func:`compute_mix_tables`, the ``full``
+kernel variant).  Heterogeneous state sizes arrive zero-padded to the
+largest k (``models/mix.py``); padded latent dimensions are exactly inert.
+Rows are blocked by plain loops over row slices.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import config
+from . import kernels
+from . import masked_linalg as ml
+from .masked_linalg import _blocks, _cat, _compute_dtype
+from .pattern_dedup import PatternTables
+
+
+class MixEMStats(NamedTuple):
+    """Per-component EM sufficient statistics (leading axis M), plus the
+    mixture llk and the new-log-weight numerators."""
+
+    cross: torch.Tensor         # (M, D, k)
+    S: torch.Tensor             # (M, D, k*k)
+    square_error: torch.Tensor  # (M,)
+    dev_sq: torch.Tensor        # (M,)
+    total_dev: torch.Tensor     # (M, D)
+    totals: torch.Tensor        # (M, D)
+    resp_sum: torch.Tensor      # (M,) sum_n w_n post_nm (new log-weight numerators)
+    resp_max: torch.Tensor      # (M,) max_n w_n post_nm (the max-1 weight scaling)
+    llk: torch.Tensor           # scalar mixture llk of the current parameters
+
+
+def _accumulate(acc: Optional[MixEMStats], new: MixEMStats) -> MixEMStats:
+    """Sum two blocks' statistics (resp_max by maximum)."""
+    if acc is None:
+        return new
+    return MixEMStats(*(a + b for a, b in zip(acc, new)))._replace(
+        resp_max=torch.maximum(acc.resp_max, new.resp_max))
+
+
+class _Center(NamedTuple):
+    """Component centring relative to the average mean: each residual
+    ``mask * (y - mu_m) = md0 - mask * dm_m`` with ``md0 = mask * (y -
+    mean0)``, so no (M, B, D) residual is formed and the expanded |r|^2
+    cancels only with the spread of the means, not with the data's size."""
+
+    mean0: torch.Tensor  # (D,)
+    dm: torch.Tensor     # (M, D) means - mean0
+    Cdm: torch.Tensor    # (M, D, k) Cs * dm
+
+
+def _center_prep(Cs, means) -> _Center:
+    mean0 = means.mean(0)
+    dm = means - mean0
+    return _Center(mean0, dm, Cs * dm[:, :, None])
+
+
+def _projections(Cs, center: _Center, datab, mask_f):
+    """``(md0 (B, D), b (M, B, k), rnorm (M, B))`` without the (M, B, D)
+    residual: ``b_m = C_m^T md0 - C_m^T (mask dm_m)`` as two batched
+    matmuls, and ``|r_m|^2 = |md0|^2 - 2 md0.dm_m + mask.dm_m^2``."""
+    mean0, dm, Cdm = center
+    md0 = mask_f * (datab - mean0)
+    b = torch.matmul(md0, Cs) - torch.matmul(mask_f, Cdm)
+    rnorm = ((md0 * md0).sum(-1)[:, None] - 2.0 * (md0 @ dm.T) + mask_f @ (dm * dm).T).T
+    return md0, b, rnorm
+
+
+def _residual(means, datab, mask_f):
+    """The per-component masked residuals ``mask * (y - mu_m)``, (M, B, D)."""
+    return mask_f * (datab - means[:, None, :])
+
+
+def _estep(sigmas, G, b, rnorm, d_obs, want: str):
+    """One :func:`kernels.spd_estep` launch over all components, stacked
+    component-major on the batch axis with a sigma per sample.  ``G`` is
+    (M, B, k*k) (or (M, B, k, k)), ``b`` (M, B, k), ``rnorm`` (M, B),
+    ``d_obs`` (B,).  Returns ``(llks (M, B), s (M, B, k), mat (M, B, k, k),
+    sq (M, B))``, None where ``want`` gives no such output; ``mat`` is the
+    second moment (fullt, full) or the covariance (infer)."""
+    M, B, k = b.shape
+    out = kernels.spd_estep(sigmas.repeat_interleave(B), G.reshape(M * B, k, k),
+                            b.reshape(M * B, k), rnorm.reshape(M * B), d_obs.repeat(M),
+                            want=want)
+    if want == "llk":
+        return out[0].view(M, B), None, None, None
+    if want == "states":
+        s, llk = out
+        return llk.view(M, B), s.view(M, B, k), None, None
+    s, mat, llk, sq = out
+    return llk.view(M, B), s.view(M, B, k), mat.view(M, B, k, k), sq.view(M, B)
+
+
+def _responsibilities(llks, log_weights, w):
+    """``(resp (M, B) = w * posterior, weighted mixture llk of the block)``
+    (`mix.rs:289-295`)."""
+    joint = llks + log_weights[:, None]
+    lse = torch.logsumexp(joint, 0)
+    return torch.exp(joint - lse) * w, (w * lse).sum()
+
+
+def _weighted_S(mask_f, SM, resp):
+    """``S[m] = mask^T (resp_m SM_m)``, (M, D, k*k): SM is the block's own
+    kernel output, scaled in place, and the M products are one batched
+    matmul against the shared mask (a stride-0 batch, no copy)."""
+    M, B = resp.shape
+    SMw = SM.view(M, B, -1).mul_(resp[..., None])
+    return torch.bmm(mask_f.T.expand(M, -1, -1), SMw)
+
+
+def _block_post(Cs, CCs, means, sigmas, datab, mask_f, want: str):
+    """Per-component posteriors of one block with the residual
+    materialized: ``(R (M, B, D), (llks, s, mat, sq))``."""
+    R = _residual(means, datab, mask_f)
+    out = _estep(sigmas, torch.matmul(mask_f, CCs), torch.bmm(R, Cs), (R * R).sum(-1),
+                 mask_f.sum(-1), want)
+    return R, out
+
+
+def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f, w) -> MixEMStats:
+    """One block of the fused EM with no (M, B, D) temporary: projections
+    from :func:`_projections`, the Gram ``mask @ CC_m`` (M, B, k*k) as one
+    batched matmul (already in the kernel's component-major order), and the
+    residual statistics from ``s^T G s = b.s - sigma^2 |s|^2`` (M s = b).
+
+    Precision: ``rnorm`` is the expanded quadratic, whose float32
+    cancellation relative to the residual grows with the spread of the
+    component means against the noise (``config.mix_exact_rnorm`` selects
+    :func:`_block_mix`, which is immune)."""
+    M, D, _ = Cs.shape
+    _, dm, _ = center
+    md0, b, rnorm = _projections(Cs, center, datab, mask_f)
+    llks, s, SM, sq_b = _estep(sigmas, torch.matmul(mask_f, CCs), b, rnorm, mask_f.sum(-1), "fullt")
+    resp, llk = _responsibilities(llks, log_weights, w)
+    srw = s * resp[..., None]
+    c2 = torch.bmm(mask_f.T.expand(M, -1, -1), srw)            # (M, D, k) mask^T (s resp)
+    cross = torch.bmm(md0.T.expand(M, -1, -1), srw) - dm[:, :, None] * c2
+    sigma2 = (sigmas * sigmas)[:, None]
+    # clamp: epsilon-negative in float32 iff |dev|^2 ~ 0 (see dense_fast)
+    dev = torch.clamp(rnorm - (b * s).sum(-1) - sigma2 * (s * s).sum(-1), min=0.0)
+    totals = resp @ mask_f
+    return MixEMStats(
+        cross=cross,
+        S=_weighted_S(mask_f, SM, resp),
+        square_error=(resp * sq_b).sum(-1),
+        dev_sq=(resp * dev).sum(-1),
+        total_dev=resp @ md0 - dm * totals - (Cs * c2).sum(-1),
+        totals=totals,
+        resp_sum=resp.sum(-1),
+        resp_max=resp.amax(-1),
+        llk=llk,
+    )
+
+
+def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w) -> MixEMStats:
+    """One block of the fused EM with the (M, B, D) residual and deviation
+    materialized (``config.mix_exact_rnorm``)."""
+    R, (llks, s, SM, sq_b) = _block_post(Cs, CCs, means, sigmas, datab, mask_f, "fullt")
+    resp, llk = _responsibilities(llks, log_weights, w)
+    dev = mask_f * (datab - torch.bmm(s, Cs.mT) - means[:, None, :])   # (M, B, D)
+    return MixEMStats(
+        cross=torch.bmm(R.mT, s * resp[..., None]),
+        S=_weighted_S(mask_f, SM, resp),
+        square_error=(resp * sq_b).sum(-1),
+        dev_sq=(resp * (dev * dev).sum(-1)).sum(-1),
+        total_dev=torch.bmm(resp[:, None, :], dev).squeeze(1),
+        totals=resp @ mask_f,
+        resp_sum=resp.sum(-1),
+        resp_max=resp.amax(-1),
+        llk=llk,
+    )
+
+
+def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
+                 block_size: int) -> MixEMStats:
+    """One fused pass over non-empty data: every component's EM
+    statistics, the responsibilities, the mixture llk and the new-weight
+    numerators.  ``block_size`` rows of data make M * block_size kernel
+    samples."""
+    dtype = _compute_dtype(data, Cs)
+    CCs = ml.outer_flat(Cs)
+    center = None if config.mix_exact_rnorm else _center_prep(Cs, means)
+    acc = None
+    for lo, hi in _blocks(data.shape[0], block_size):
+        datab, mask_f, w = data[lo:hi].to(dtype), mask[lo:hi].to(dtype), weights[lo:hi].to(dtype)
+        if center is None:
+            new = _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w)
+        else:
+            new = _block_mix_fast(Cs, CCs, center, sigmas, log_weights, datab, mask_f, w)
+        acc = _accumulate(acc, new)
+    return acc
+
+
+# --------------------------------------------------------------------- #
+# the table route
+
+
+def compute_mix_tables(Cs, sigmas, patterns_f) -> PatternTables:
+    """Per-(component, pattern) E-step tables, leading axes (M, P): the
+    mixture twin of ``pattern_dedup.compute_tables``, all M * P problems in
+    ONE ``full`` launch with b = 0 and rnorm = 0, whose second moment is
+    then sigma^2 M^{-1}, its llk the mask-only term and its sq tr(G Sigma).
+    Fully observed data is the P = 1 case."""
+    M, _, k = Cs.shape
+    P = patterns_f.shape[0]
+    opts = dict(dtype=patterns_f.dtype, device=patterns_f.device)
+    G = torch.matmul(patterns_f, ml.outer_flat(Cs).to(patterns_f.dtype))   # (M, P, k*k)
+    pat_llk, _, Sigma, sq = _estep(sigmas, G, torch.zeros((M, P, k), **opts),
+                                   torch.zeros((M, P), **opts), patterns_f.sum(-1), "full")
+    return PatternTables(Sigma.reshape(M, P, k * k), pat_llk, sq)
+
+
+def _block_post_pat(Cs, means, sigmas, tables: PatternTables, datab, mask_f, pidx,
+                    center: Optional[_Center] = None):
+    """Table-driven posteriors of one block, no per-sample factorization:
+    ``(llks (M, B), s (M, B, k), Sig_b (M, B, k, k), sq_b (M, B), b, rnorm)``.
+    Each row's covariance is gathered from the table (``Sig_b``) and its
+    states are the batched mat-vec ``Sig_b b / sigma^2``.  With ``center``
+    the projections come from :func:`_projections`; without it from the
+    materialized residual (``config.mix_exact_rnorm``)."""
+    M, _, k = Cs.shape
+    B = datab.shape[0]
+    if center is None:
+        R = _residual(means, datab, mask_f)
+        b, rnorm = torch.bmm(R, Cs), (R * R).sum(-1)
+    else:
+        _, b, rnorm = _projections(Cs, center, datab, mask_f)
+    sigma2 = (sigmas * sigmas)[:, None]
+    Sig_b = tables.Sigma.index_select(1, pidx).view(M, B, k, k)
+    s = torch.matmul(Sig_b, b.unsqueeze(-1)).squeeze(-1) / sigma2[..., None]
+    quad = (rnorm - (b * s).sum(-1)) / sigma2
+    llks = tables.pat_llk.index_select(1, pidx) - 0.5 * quad
+    return llks, s, Sig_b, tables.sq.index_select(1, pidx), b, rnorm
+
+
+def mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns, weights, *,
+                     block_size: int) -> MixEMStats:
+    """:func:`mix_em_stats` through the M x P tables, for non-empty data
+    with ``patterns[pidx] == mask``.  As ``pattern_dedup.em_stats`` does
+    for one model, the second-moment sums ``w s s^T``, the weight sums and
+    the ``w s`` sums are added into P rows per component (one-hot matmuls
+    for P <= k, ``index_add_`` above), and the covariance half of S, the
+    noise trace and the observation totals come from the tables in one
+    (D, P) contraction each."""
+    M, D, k = Cs.shape
+    dtype = _compute_dtype(data, Cs)
+    patterns_f = patterns.to(dtype)
+    P = patterns_f.shape[0]
+    tables = compute_mix_tables(Cs, sigmas, patterns_f)
+    center = _center_prep(Cs, means)
+    post_center = None if config.mix_exact_rnorm else center
+    sigma2 = (sigmas * sigmas)[:, None]
+    opts = dict(dtype=dtype, device=data.device)
+    c1 = torch.zeros((M, D, k), **opts)           # md0^T (w s), the data half of cross
+    Souter = torch.zeros((M, P, k * k), **opts)   # per pattern: sum w s s^T
+    wsum = torch.zeros((M, P), **opts)            # per pattern: sum w
+    psw = torch.zeros((M, P, k), **opts)          # per pattern: sum w s
+    t1 = torch.zeros((M, D), **opts)              # w @ md0
+    square_error, dev_sq = torch.zeros(M, **opts), torch.zeros(M, **opts)
+    resp_max, llk = torch.zeros(M, **opts), torch.zeros((), **opts)
+    for lo, hi in _blocks(data.shape[0], block_size):
+        datab, mask_f, pb = data[lo:hi].to(dtype), mask[lo:hi].to(dtype), pidx[lo:hi]
+        llks, s, _, sq_b, b, rnorm = _block_post_pat(Cs, means, sigmas, tables, datab, mask_f, pb,
+                                                     post_center)
+        resp, llk_b = _responsibilities(llks, log_weights, weights[lo:hi].to(dtype))
+        md0 = mask_f * (datab - center.mean0)
+        sw = s * resp[..., None]
+        c1 += torch.bmm(md0.T.expand(M, -1, -1), sw)
+        if P <= k:
+            # few patterns (one for dense data): one-hot matmuls, Souter[m, p]
+            # = (onehot_p sw_m)^T s_m, one (P k, B) x (B, k) product a
+            # component and no (M, B, k*k) outer products.  On an H100
+            # (80GB HBM3, 700 W) at M=8, B=8192, k=32: 0.18 ms at P=1, 0.52 ms
+            # at P=32, against 0.68 ms for index_add_ (chip_smoke.py phase 8)
+            onehot = torch.nn.functional.one_hot(pb, P).to(dtype)           # (B, P)
+            A = (onehot[None, :, :, None] * sw[:, :, None, :]).view(M, -1, P * k)
+            Souter += torch.bmm(A.mT, s).view(M, P, k * k)
+            psw += torch.matmul(onehot.T, sw)
+            wsum += resp @ onehot
+        else:
+            Souter.index_add_(1, pb, (sw[..., :, None] * s[..., None, :]).view(M, -1, k * k))
+            psw.index_add_(1, pb, sw)
+            wsum.index_add_(1, pb, resp)
+        t1 += resp @ md0
+        dev = torch.clamp(rnorm - (b * s).sum(-1) - sigma2 * (s * s).sum(-1), min=0.0)
+        dev_sq += (resp * dev).sum(-1)
+        square_error += (resp * sq_b).sum(-1)
+        resp_max = torch.maximum(resp_max, resp.amax(-1))
+        llk = llk + llk_b
+    # mask^T (w s) = patterns^T psw and resp @ mask = wsum @ patterns: the
+    # mask of a row IS its pattern row
+    c2 = torch.matmul(patterns_f.T, psw)                          # (M, D, k)
+    totals = wsum @ patterns_f                                    # (M, D)
+    return MixEMStats(
+        cross=c1 - center.dm[:, :, None] * c2,
+        S=torch.matmul(patterns_f.T, Souter + wsum[..., None] * tables.Sigma),
+        square_error=square_error,
+        dev_sq=dev_sq,
+        total_dev=t1 - center.dm * totals - (Cs * c2).sum(-1),
+        totals=totals,
+        resp_sum=wsum.sum(-1),
+        resp_max=resp_max,
+        llk=llk,
+    )
+
+
+# --------------------------------------------------------------------- #
+# M-step
+
+
+def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *, transformation_precision,
+                    noise_prior=None, mean_prior=None):
+    """Per-component M-step (``masked_linalg.em_finalize``) plus the new
+    mixture log-weights (`mix.rs:324-335`).  Returns ``(new_Cs, new_means,
+    new_sigmas, new_log_weights)``.
+
+    The statistics are rescaled by 1 / resp_max (the reference's max-1
+    weights, which set the priors' strength); the M * D row solves of all
+    components run in ONE ``states`` launch on S rebuilt from its lower
+    triangle, so a singular row (an empty dimension with lambda = 0) goes
+    non-finite alone and keeps its old row.  A dead component (resp_max =
+    0: every responsibility underflowed) keeps its parameters and gets
+    log-weight -inf."""
+    M, D, k = Cs.shape
+    alive = stats.resp_max > 0
+    inv_scale = torch.where(alive, 1.0 / torch.where(alive, stats.resp_max, 1.0), 0.0)
+    scaled = [x * inv_scale.view(-1, *([1] * (x.ndim - 1)))
+              for x in stats[:6]]                  # cross, S, square_error, dev_sq, total_dev, totals
+    S_sq = ml.symmetric_from_lower(scaled[1].reshape(M * D, k, k))
+    rows = ml.rows_solve(S_sq, scaled[0].reshape(M * D, k), transformation_precision).view(M, D, k)
+    zero = torch.zeros((), dtype=Cs.dtype, device=Cs.device)
+    new = [ml.em_finalize(Cs[m], means[m], sigmas[m],
+                          ml.EMStats(*(x[m] for x in scaled), llk=zero),
+                          transformation_precision=transformation_precision,
+                          noise_prior=noise_prior, mean_prior=mean_prior, transform_rows=rows[m])
+           for m in range(M)]
+    new_Cs, new_means, new_sigmas = (torch.stack(parts) for parts in zip(*new))
+    new_Cs = torch.where(alive[:, None, None], new_Cs, Cs)
+    new_means = torch.where(alive[:, None], new_means, means)
+    new_sigmas = torch.where(alive, new_sigmas, sigmas)
+    log_w = torch.log(stats.resp_sum)
+    return new_Cs, new_means, new_sigmas, log_w - torch.logsumexp(log_w, 0)
+
+
+# --------------------------------------------------------------------- #
+# readouts
+
+
+def _block_llks_kernel(Cs, CCs, center: _Center, sigmas, datab, mask_f, want: str):
+    """llk / states / infer of one block of the general route: the Gram and
+    the projections of all components, then one kernel launch.  Returns
+    ``(llks (M, B), s (M, B, k), Sigma (M, B, k, k), sq)`` as :func:`_estep`."""
+    _, b, rnorm = _projections(Cs, center, datab, mask_f)
+    return _estep(sigmas, torch.matmul(mask_f, CCs), b, rnorm, mask_f.sum(-1), want)
+
+
+def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, pidx, patterns):
+    """Per block: ``(llks (M, B), s (M, B, k), Sigma (M, B, k, k))`` from the
+    kernel's ``want`` variant (general route) or the tables (``pidx``)."""
+    dtype = _compute_dtype(data, Cs)
+    center = _center_prep(Cs, means)
+    if pidx is None:
+        CCs = ml.outer_flat(Cs)
+    else:
+        tables = compute_mix_tables(Cs, sigmas, patterns.to(dtype))
+    for lo, hi in _blocks(data.shape[0], block_size):
+        datab, mask_f = data[lo:hi].to(dtype), mask[lo:hi].to(dtype)
+        if pidx is None:
+            llks, s, Sig, _ = _block_llks_kernel(Cs, CCs, center, sigmas, datab, mask_f, want)
+        else:
+            llks, s, Sig, _, _, _ = _block_post_pat(Cs, means, sigmas, tables, datab, mask_f,
+                                                    pidx[lo:hi], center)
+        yield datab, mask[lo:hi], llks, s, Sig
+
+
+def mix_llks(Cs, means, sigmas, data, mask, *, block_size: int, pidx=None,
+             patterns=None) -> torch.Tensor:
+    """(N, M) per-component per-sample log-likelihoods in ONE pass (the
+    reference makes M, `mix.rs:137-159`)."""
+    out = [llks.T for _, _, llks, _, _ in
+           _readout_blocks(Cs, means, sigmas, data, mask, "llk", block_size, pidx, patterns)]
+    return _cat(out, data, _compute_dtype(data, Cs), Cs.shape[0])
+
+
+def mix_infer(Cs, means, sigmas, log_weights, data, mask, *, block_size: int, pidx=None,
+              patterns=None):
+    """``(log_post (N, M), states (M, N, k), covs (M, N, k, k))`` in ONE pass
+    (the reference makes M llk and M infer passes, `mix.rs:205-236`).  The
+    covariances come from the ``infer`` variant (sigma^2 M^{-1} directly)
+    or straight from the tables."""
+    M, _, k = Cs.shape
+    dtype = _compute_dtype(data, Cs)
+    llks, states, covs = [], [], []
+    for _, _, l_b, s_b, c_b in _readout_blocks(Cs, means, sigmas, data, mask, "infer",
+                                               block_size, pidx, patterns):
+        llks.append(l_b.T)
+        states.append(s_b)
+        covs.append(c_b)
+    if not llks:
+        opts = dict(dtype=dtype, device=data.device)
+        return (torch.empty((0, M), **opts), torch.empty((M, 0, k), **opts),
+                torch.empty((M, 0, k, k), **opts))
+    log_post = torch.log_softmax(torch.cat(llks) + log_weights, -1)
+    return log_post, torch.cat(states, 1), torch.cat(covs, 1)
+
+
+def mix_smooth(Cs, means, sigmas, log_weights, data, mask, *, block_size: int,
+               extrapolate: bool = False, pidx=None, patterns=None) -> torch.Tensor:
+    """Posterior-weighted smoothing (`mix.rs:239-251`), or with
+    ``extrapolate=True`` extrapolation (`mix.rs:253-265`), in one pass: per
+    block the posterior weights fold into the states, so the M-component
+    combine is ONE (B, M k) x (M k, D) matmul; no (M, N, ...) tensor."""
+    M, D, k = Cs.shape
+    C_flat = Cs.mT.reshape(M * k, D)
+    out = []
+    for datab, maskb, llks, s, _ in _readout_blocks(Cs, means, sigmas, data, mask, "states",
+                                                    block_size, pidx, patterns):
+        post = torch.softmax(llks + log_weights[:, None], 0)                  # (M, B)
+        ws = (post[..., None] * s).transpose(0, 1).reshape(-1, M * k)
+        sm = ws @ C_flat + post.T @ means
+        out.append(torch.where(maskb, datab, sm) if extrapolate else sm)
+    return _cat(out, data, _compute_dtype(data, Cs), D)

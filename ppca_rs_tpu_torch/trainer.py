@@ -1,5 +1,5 @@
-"""Train loop for a single PPCA model — port of ``ppca_rs_tpu/trainer.py``
-(a rebuild of `python/ppca_rs/__init__.py:14-67`).
+"""Train loops for a PPCA model and a PPCA mixture — port of
+``ppca_rs_tpu/trainer.py`` (a rebuild of `python/ppca_rs/__init__.py:14-118`).
 
 Same API and metric semantics as the reference trainer (llk/aic/bic per
 iteration, optional warm start and prior, final ``to_canonical``).  The
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .dataset import Dataset
+from .models.mix import PPCAMix
 from .models.ppca import PPCAModel
 from .prior import Prior
 
@@ -46,8 +47,9 @@ MetricsCallback = Callable[[int, TrainMetrics], None]
 
 
 def _maybe_checkpoint(model, iteration: int, n_iters: int, path: Optional[str], every: int) -> None:
-    """Atomic dump of the in-progress model (resume with
-    ``train(start=PPCAModel.load(open(path, 'rb').read()), ...)``)."""
+    """Atomic dump of the in-progress model or mixture (resume with
+    ``train(start=PPCAModel.load(open(path, 'rb').read()), ...)``, or
+    ``PPCAMix.load``)."""
     if path is None:
         return
     if iteration % max(every, 1) != 0 and iteration != n_iters:
@@ -56,6 +58,26 @@ def _maybe_checkpoint(model, iteration: int, n_iters: int, path: Optional[str], 
     with open(tmp, "wb") as fh:
         fh.write(model.dump())
     os.replace(tmp, path)
+
+
+def _train(model, dataset: Dataset, prior: Optional[Prior], n_iters: int, metric: Metric,
+           quiet: bool, callback: Optional[MetricsCallback], checkpoint_path: Optional[str],
+           checkpoint_every: int, label: str):
+    """The EM loop both trainers share: ``model._em_step`` gives the new
+    model and the llk of the current one from one pass; the llk reaches the
+    host only for the callback or the printout."""
+    n = len(dataset)
+    for idx in range(n_iters):
+        new_model, llk = model._em_step(dataset, prior)
+        if not quiet or callback is not None:
+            metrics = TrainMetrics.compute(float(llk), model.n_parameters, n)
+            if callback is not None:
+                callback(idx + 1, metrics)
+            if not quiet:
+                print(f"{label} iteration {idx + 1}: {metric}={getattr(metrics, metric)}")
+        model = new_model
+        _maybe_checkpoint(model, idx + 1, n_iters, checkpoint_path, checkpoint_every)
+    return model.to_canonical()
 
 
 @dataclass
@@ -81,15 +103,35 @@ class PPCATrainer:
     ) -> PPCAModel:
         model = start if start is not None else PPCAModel.init(
             state_size, self.dataset, generator=generator)
-        n = len(self.dataset)
-        for idx in range(n_iters):
-            new_model, llk = model._em_step(self.dataset, prior)
-            if not quiet or callback is not None:
-                metrics = TrainMetrics.compute(float(llk), model.n_parameters, n)
-                if callback is not None:
-                    callback(idx + 1, metrics)
-                if not quiet:
-                    print(f"Masked PPCA iteration {idx + 1}: {metric}={getattr(metrics, metric)}")
-            model = new_model
-            _maybe_checkpoint(model, idx + 1, n_iters, checkpoint_path, checkpoint_every)
-        return model.to_canonical()
+        return _train(model, self.dataset, prior, n_iters, metric, quiet, callback,
+                      checkpoint_path, checkpoint_every, "Masked PPCA")
+
+
+@dataclass
+class PPCAMixTrainer:
+    """A trainer for a PPCA mixture over masked data
+    (`python/ppca_rs/__init__.py:70-118`).  The per-iteration llk comes from
+    the responsibilities of the fused EM step (``PPCAMix._em_step``, the
+    tensor form of ``_iterate_with_llk``)."""
+
+    dataset: Dataset
+
+    def train(
+        self,
+        *,
+        start: Optional[PPCAMix] = None,
+        prior: Optional[Prior] = None,
+        n_models: int,
+        state_size: int,
+        n_iters: int = 10,
+        metric: Metric = "aic",
+        quiet: bool = False,
+        callback: Optional[MetricsCallback] = None,
+        generator: Optional[torch.Generator] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 10,
+    ) -> PPCAMix:
+        model = start if start is not None else PPCAMix.init(
+            n_models, state_size, self.dataset, generator=generator)
+        return _train(model, self.dataset, prior, n_iters, metric, quiet, callback,
+                      checkpoint_path, checkpoint_every, "Masked PPCA mix")
