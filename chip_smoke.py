@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and runs eight
+It builds the CUDA kernels from the sources in the checkout and runs nine
 phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
@@ -60,7 +60,22 @@ phases; any failed check raises and the script exits non-zero:
    CPU in float64 and against the per-component loop, a fully observed copy
    that takes the table route (``full``, no ``fullt``), and every kernel at
    the shapes this phase gave it against its plain version, with the
-   components' sigmas stacked per sample checked against scalar launches.
+   components' sigmas stacked per sample checked against scalar launches;
+9. out-of-core streaming (``[stream]`` lines): (a) phase 3's data as eight
+   pinned host chunks of 131,072 rows passed as callables, three
+   ``StreamingPPCATrainer`` iterations and the llk over the chunks (exact
+   launch counts), one ``iterate_streamed`` at prefetch 0, 1 and 2 (timed,
+   bit-identical, peak device memory, the prefetch=1 peak within two
+   chunks plus 1 GiB), pageable chunks and the copy rates, and the same
+   iteration on the data resident on the card (within 1e-4); (b) a fully
+   observed, a pattern and a randomly masked chunk streamed against
+   ``_em_step`` on their ``Dataset.concat`` (exact launch counts, 1e-4);
+   (e) the resident data stored in bfloat16 against float32, and a
+   streamed training traced through ``profile_dir``; (c) phase 8's mixture
+   from four host chunks, ``StreamingPPCAMixTrainer`` and
+   ``iterate_mix_streamed`` against ``PPCAMix._em_step`` (1e-4); (d) the
+   host packing times of ``Dataset()`` on a float64 array with NaN holes
+   and of ``DataFrameAdapter.from_pandas`` on a long frame.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -163,6 +178,26 @@ MIX_OBSERVED = 0.8
 N_MIX_READOUT = 8192
 N_MIX_CPU = 4096
 N_DENSE_ITERS = 2
+#: Phase 9: streaming.  9a streams phase 3's data from this many host chunks
+#: (131,072 rows each) for this many trainer iterations, then times one
+#: streamed iteration at each prefetch level; 9b streams one chunk of each
+#: kind (fully observed, pattern, random masks) of this many rows; 9c
+#: streams phase 8's mixture data from this many chunks (50,000 rows each)
+#: for N_DENSE_ITERS trainer iterations; 9d packs a float64 array of
+#: N_PACK x D_MAIN and a long frame of PACK_SAMPLES x PACK_DIMS rows.
+N_STREAM_CHUNKS = 8
+STREAM_ITERS = 3
+STREAM_PREFETCH = (0, 1, 2)
+N_STREAM_KIND = 131_072
+N_STREAM_MIX_CHUNKS = 4
+N_PACK = 131_072
+PACK_SAMPLES, PACK_DIMS = 8192, 128
+#: Streamed vs resident iteration, float32 on the card: only the order of
+#: summation differs (per chunk, then across chunks).
+TOL_STREAM = 1e-4
+#: bfloat16 vs float32 storage, llk relative difference: bfloat16 rounds
+#: each stored value by up to 2^-9 of it; the llk moves far less.
+TOL_BF16 = 1e-2
 SEED = 20261016
 
 
@@ -1424,6 +1459,409 @@ def check_mix_kernels(mix, dataset, sub) -> dict:
     return timed
 
 
+# --------------------------------------------------------------------- #
+# phase 9
+
+
+def chunk_bytes(ds) -> int:
+    return ds.data.nbytes + ds.mask.nbytes + ds.weights_dev.nbytes
+
+
+def host_copies(parts, pinned: bool):
+    """Host copies of the datasets ``parts``, their tensors in pinned (or
+    pageable) memory."""
+    from ppca_rs_tpu_torch import Dataset
+
+    return [Dataset.from_parts(*(torch.empty(t.shape, dtype=t.dtype, pin_memory=pinned).copy_(t)
+                                 for t in (p.data, p.mask, p.weights_dev))) for p in parts]
+
+
+def lazy(chunks):
+    """The chunks as zero-argument callables, as a lazy loader hands them."""
+    return [functools.partial(lambda c: c, c) for c in chunks]
+
+
+def stream_once(model, chunks, prefetch: int, mix: bool = False):
+    """One streamed EM iteration, timed by the host clock ending in a device
+    sync, with the launch counts of that iteration and its peak device
+    memory: (new model, llk, seconds, launches, peak bytes).  The peak is
+    the allocator's reserved memory, from an emptied cache: a chunk freed
+    while the device still reads it stays reserved (``record_stream``)
+    but no longer counts as allocated."""
+    from ppca_rs_tpu_torch import iterate_mix_streamed, iterate_streamed
+    from ppca_rs_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    new, llk = (iterate_mix_streamed if mix else iterate_streamed)(model, chunks, prefetch=prefetch)
+    torch.cuda.synchronize()
+    return (new, llk, time.perf_counter() - t0, dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_reserved())
+
+
+def resident_step(model, dataset, reps: int = 2):
+    """``model._em_step`` over the resident ``dataset``, ``reps`` times (the
+    first also decides the route): (new model, llk, seconds of each, peak
+    reserved device memory of the last, as :func:`stream_once` reads it)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, llk = model._em_step(dataset, None)
+        llk = float(llk)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return new, llk, times, torch.cuda.max_memory_reserved()
+
+
+def model_diffs(a, b) -> dict:
+    return {"transform": rel_err(a.transform, b.transform), "mean": rel_err(a.mean, b.mean),
+            "isotropic_noise": rel_err(a.isotropic_noise.reshape(1), b.isotropic_noise.reshape(1))}
+
+
+def launches_of(**counts) -> dict:
+    from ppca_rs_tpu_torch.ops import kernels
+
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(counts)
+    return want
+
+
+def h2d_gbps(chunks, pinned: bool) -> float:
+    """Copies of the chunks' data and mask alone into one device buffer
+    (non-blocking from pinned memory), GB/s by the host clock ending in a
+    device sync."""
+    data = torch.empty(chunks[0].data.shape, dtype=chunks[0].data.dtype, device="cuda")
+    mask = torch.empty(chunks[0].mask.shape, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in chunks:
+        data.copy_(c.data, non_blocking=pinned)
+        mask.copy_(c.mask, non_blocking=pinned)
+    torch.cuda.synchronize()
+    return sum(c.data.nbytes + c.mask.nbytes for c in chunks) / (time.perf_counter() - t0) / 1e9
+
+
+def phase_stream_masked(smi: str):
+    """9a: phase 3's configuration streamed from N_STREAM_CHUNKS pinned host
+    chunks through StreamingPPCATrainer and iterate_streamed, against the
+    same data resident on the card.  Returns (model, host chunks, resident
+    dataset, launches of the counted run)."""
+    from ppca_rs_tpu_torch import Dataset, StreamingPPCATrainer
+    from ppca_rs_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    card = make_main_dataset(N_MAIN)
+    host = host_copies(card.chunks(N_STREAM_CHUNKS), pinned=True)
+    del card
+    torch.cuda.empty_cache()
+    per_chunk, total = chunk_bytes(host[0]), sum(chunk_bytes(c) for c in host)
+    chunks = lazy(host)
+    check(all(c.data.is_pinned() and c.mask.is_pinned() for c in host), "stream: chunks not pinned")
+    print(f"[stream] 9a: {len(host)} pinned host chunks of {len(host[0])} rows x {D_MAIN} "
+          f"(f32 data + bool mask + f32 weights: {per_chunk / 2**20:.1f} MiB each, "
+          f"{total / 2**30:.2f} GiB in all), made in {time.perf_counter() - t0:.2f} s; "
+          f"device memory in use {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+
+    llks, stamps = [], []
+
+    def callback(it, metrics):
+        stamps.append(time.perf_counter())
+        llks.append(metrics.llk)
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    model = StreamingPPCATrainer(chunks).train(
+        state_size=K_MAIN, n_iters=STREAM_ITERS, quiet=True, callback=callback,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 17))
+    final = sum(model.llk(c.to("cuda")) for c in host) / N_MAIN
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    n_blocks = N_MAIN // config_block_size()
+    want = launches_of(fullt=STREAM_ITERS * n_blocks, states=STREAM_ITERS, llk=n_blocks)
+    check(launches == want, f"stream: launches {launches} != {want}")
+    seq = llks + [final]
+    for a, b in zip(seq, seq[1:]):
+        check(math.isfinite(b) and b >= a - LLK_SLACK * abs(a), f"stream: llk decreased: {a} -> {b}")
+    check(all(c._all_observed is False and c._patterns is False for c in host),
+          "stream: the chunks' routes were not recorded on the host chunks")
+    print(f"[stream] StreamingPPCATrainer, {STREAM_ITERS} iterations: llk/sample {llks} then "
+          f"{final:.6f} (model.llk over the chunks); seconds per iteration "
+          + ", ".join(f"{b - a:.4f}" for a, b in zip(stamps, stamps[1:]))
+          + f" (the first decides each chunk's route); launches {launches}")
+
+    runs = {}
+    for p in STREAM_PREFETCH + STREAM_PREFETCH[::-1]:
+        new, llk, secs, counted, peak = stream_once(model, chunks, p)
+        want = launches_of(fullt=n_blocks, states=1)
+        check(counted == want, f"stream: prefetch={p}: launches {counted} != {want}")
+        runs.setdefault(p, []).append((new, llk, secs, peak))
+    ref = runs[0][0]
+    for p, rs in runs.items():
+        for new, llk, _, _ in rs:
+            check(llk == ref[1] and all(torch.equal(x, y) for x, y in
+                                        zip(new._params(), ref[0]._params())),
+                  f"stream: prefetch={p} is not bit-identical to prefetch=0")
+    bound = 2 * per_chunk + (1 << 30)
+    peak1 = max(r[3] for r in runs[1])
+    for p, rs in runs.items():
+        secs = [r[2] for r in rs]
+        print(f"[stream] prefetch={p}: seconds per streamed iteration "
+              + ", ".join(f"{s:.4f}" for s in secs)
+              + f" ({smi}); {total / min(secs) / 1e9:.2f} GB/s of chunks; peak reserved device "
+              f"memory {max(r[3] for r in rs) / 2**30:.3f} GiB")
+    print(f"[stream] prefetch 0/1/2 bit-identical; launches per streamed iteration fullt "
+          f"{n_blocks}, states 1; prefetch=1 peak reserved {peak1 / 2**30:.3f} GiB (bound: 2 chunks + "
+          f"1 GiB = {bound / 2**30:.3f} GiB)")
+    check(peak1 <= bound, f"stream: prefetch=1 peak {peak1} B above {bound} B")
+
+    pageable = host_copies(host, pinned=False)
+    new_pg, llk_pg, secs_pg, counted, peak_pg = stream_once(model, lazy(pageable), 1)
+    check(llk_pg == ref[1] and all(torch.equal(x, y) for x, y in
+                                   zip(new_pg._params(), ref[0]._params())),
+          "stream: pageable chunks differ from pinned ones")
+    rate_pinned, rate_pageable = h2d_gbps(host, True), h2d_gbps(pageable, False)
+    del pageable
+    print(f"[stream] pageable chunks, prefetch=1: {secs_pg:.4f} s per streamed iteration "
+          f"(pinned {min(r[2] for r in runs[1]):.4f} s), peak reserved {peak_pg / 2**30:.3f} GiB, same "
+          f"result bit for bit; copies alone (data + mask, {N_STREAM_CHUNKS} chunks): pinned "
+          f"{rate_pinned:.2f} GB/s, pageable {rate_pageable:.2f} GB/s ({smi})")
+
+    t0 = time.perf_counter()
+    resident = Dataset.concat([c.to("cuda") for c in host])
+    torch.cuda.synchronize()
+    check(resident.pattern_info() is None, "stream: the resident copy took another route")
+    t_build = time.perf_counter() - t0
+    res_model, res_llk, res_secs, res_peak = resident_step(model, resident)
+    diffs = model_diffs(runs[1][0][0], res_model)
+    diffs["llk"] = abs(runs[1][0][1] - res_llk) / abs(res_llk)
+    print(f"[stream] resident on the card (built from the host chunks in {t_build:.2f} s): "
+          f"seconds per iteration " + ", ".join(f"{s:.4f}" for s in res_secs)
+          + f" ({smi}); peak reserved device memory {res_peak / 2**30:.3f} GiB")
+    report_diffs("stream", "one streamed iteration vs one resident _em_step", diffs, TOL_STREAM)
+    return model, host, resident, launches
+
+
+def config_block_size() -> int:
+    from ppca_rs_tpu_torch import config
+
+    return config.block_size
+
+
+def make_stream_kinds(n: int, seed: int):
+    """Three n-row datasets on the card from one rank-K_MAIN model plus
+    noise at D_MAIN: fully observed, rows from P_PATTERN Bernoulli(0.5) mask
+    patterns, and 50% missing at random."""
+    from ppca_rs_tpu_torch import Dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    opts = dict(generator=gen, device="cuda", dtype=torch.float32)
+    C = torch.randn(D_MAIN, K_MAIN, **opts) * (2.0 / math.sqrt(K_MAIN))
+    mean = torch.randn(D_MAIN, **opts)
+    patterns = torch.rand(P_PATTERN, D_MAIN, generator=gen, device="cuda") < 0.5
+    masks = [torch.ones(n, D_MAIN, dtype=torch.bool, device="cuda"),
+             patterns[torch.randint(0, P_PATTERN, (n,), generator=gen, device="cuda")],
+             torch.rand(n, D_MAIN, generator=gen, device="cuda") >= 0.5]
+    out = []
+    for m in masks:
+        y = torch.randn(n, K_MAIN, **opts) @ C.T + mean + 0.5 * torch.randn(n, D_MAIN, **opts)
+        out.append(Dataset.from_parts(torch.where(m, y, torch.zeros_like(y)), m))
+    return out
+
+
+def phase_stream_kinds(model):
+    """9b: one streamed iteration over a fully observed, a pattern and a
+    randomly masked chunk against one _em_step over their concatenation on
+    the card.  Returns the launches of the streamed iteration."""
+    from ppca_rs_tpu_torch import Dataset
+
+    kinds = make_stream_kinds(N_STREAM_KIND, SEED + 18)
+    host = host_copies(kinds, pinned=True)
+    new, llk, secs, launches, _ = stream_once(model, lazy(host), 1)
+    n_blocks = N_STREAM_KIND // config_block_size()
+    want = launches_of(fullt=n_blocks, full=1, states=1)
+    check(launches == want, f"stream kinds: launches {launches} != {want}")
+    dense, pattern, masked = host
+    check(dense._all_observed is True and pattern._patterns
+          and pattern._patterns[1].shape[0] == P_PATTERN and masked._patterns is False,
+          "stream kinds: the chunks did not take the dense, pattern and masked routes")
+    res_model, res_llk, _, _ = resident_step(model, Dataset.concat(kinds), reps=1)
+    diffs = model_diffs(new, res_model)
+    diffs["llk"] = abs(llk - res_llk) / abs(res_llk)
+    print(f"[stream] 9b: chunks of {N_STREAM_KIND} rows, fully observed (dense pass), "
+          f"{P_PATTERN} mask patterns (tables) and random masks: one streamed iteration "
+          f"{secs:.4f} s (the first: routes decided), launches {launches}")
+    report_diffs("stream", "mixed chunk kinds, streamed vs _em_step on Dataset.concat", diffs,
+                 TOL_STREAM)
+    return launches
+
+
+def phase_stream_mix(smi: str):
+    """9c: phase 8's mixture configuration streamed from N_STREAM_MIX_CHUNKS
+    pinned host chunks through StreamingPPCAMixTrainer and
+    iterate_mix_streamed, against PPCAMix._em_step on the resident data.
+    Returns the launches of the trainer run."""
+    from ppca_rs_tpu_torch import StreamingPPCAMixTrainer
+    from ppca_rs_tpu_torch.ops import kernels
+
+    dataset = make_mix_dataset()
+    host = host_copies(dataset.chunks(N_STREAM_MIX_CHUNKS), pinned=True)
+    chunks = lazy(host)
+    kernels.reset_launch_counts()
+    llks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mix = StreamingPPCAMixTrainer(chunks).train(
+        n_models=M_MIX, state_size=K_MIX, n_iters=N_DENSE_ITERS, quiet=True,
+        callback=lambda it, m: llks.append(m.llk),
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 19))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rows = -(-len(host[0]) // config_mix_rows())
+    want = launches_of(fullt=N_DENSE_ITERS * N_STREAM_MIX_CHUNKS * rows, states=N_DENSE_ITERS)
+    check(launches == want, f"stream mix: trainer launches {launches} != {want}")
+    check(all(math.isfinite(v) for v in llks) and llks[1] >= llks[0] - LLK_SLACK * abs(llks[0]),
+          f"stream mix: llk {llks}")
+    new, llk, secs, counted, _ = stream_once(mix, chunks, 1, mix=True)
+    want = launches_of(fullt=N_STREAM_MIX_CHUNKS * rows, states=1)
+    check(counted == want, f"stream mix: launches {counted} != {want}")
+    res, res_llk, res_secs, _ = resident_step(mix, dataset)
+    diffs = mix_diffs(new, res)
+    live = torch.isfinite(res.log_weights)
+    check(torch.equal(live, torch.isfinite(new.log_weights)), "stream mix: dead components differ")
+    diffs["log_weights"] = rel_err(new.log_weights[live].cpu(), res.log_weights[live].cpu())
+    diffs["llk"] = abs(llk - res_llk) / abs(res_llk)
+    print(f"[stream] 9c: mixture, {len(host)} pinned host chunks of {len(host[0])} rows: "
+          f"StreamingPPCAMixTrainer {N_DENSE_ITERS} iterations in {t_train:.3f} s, llk/sample "
+          f"{llks}, launches {launches}; one streamed iteration {secs:.4f} s, resident _em_step "
+          + ", ".join(f"{s:.4f}" for s in res_secs) + f" s ({smi})")
+    report_diffs("stream", "mixture, streamed vs resident PPCAMix._em_step", diffs, TOL_STREAM)
+    return launches
+
+
+def config_mix_rows() -> int:
+    from ppca_rs_tpu_torch import config
+
+    return config.mix_block_rows(M_MIX, K_MIX, 4)
+
+
+def phase_packing(smi: str) -> None:
+    """9d: host packing: Dataset() from a float64 array with NaN holes (the
+    CPU's isfinite/where pass, then the copy to the card), and
+    DataFrameAdapter.from_pandas on a long frame."""
+    import numpy as np
+    import pandas as pd
+
+    from ppca_rs_tpu_torch import DataFrameAdapter, Dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    x = torch.randn(N_PACK, D_MAIN, generator=gen, dtype=torch.float64, device="cuda")
+    x[torch.rand(N_PACK, D_MAIN, generator=gen, device="cuda") < 0.5] = math.nan
+    arr = x.cpu().numpy()
+    del x
+    t0 = time.perf_counter()
+    ds = Dataset(arr, device="cpu")
+    t_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds_card = Dataset(arr)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    check(ds.mask.numpy().sum() == np.isfinite(arr).sum() and ds_card.device.type == "cuda",
+          "packing: the mask does not match the finite entries")
+    print(f"[stream] 9d: Dataset() from a {N_PACK} x {D_MAIN} float64 array with NaN holes "
+          f"({arr.nbytes / 2**30:.2f} GiB): {t_host:.3f} s on the CPU "
+          f"({arr.nbytes / t_host / 1e9:.2f} GB/s), {t_card:.3f} s to the card")
+    del ds, ds_card, arr
+
+    rng = np.random.default_rng(SEED)
+    order = rng.permutation(PACK_SAMPLES * PACK_DIMS)
+    values = rng.normal(size=PACK_SAMPLES * PACK_DIMS)
+    df = pd.DataFrame({"sample": np.repeat(np.arange(PACK_SAMPLES), PACK_DIMS)[order],
+                       "dim": np.tile(np.arange(PACK_DIMS), PACK_SAMPLES)[order],
+                       "value": values[order]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adapter = DataFrameAdapter.from_pandas(df, keys=["sample"], dimensions=["dim"], metric="value")
+    torch.cuda.synchronize()
+    t_frame = time.perf_counter() - t0
+    got = adapter.dataset.numpy()
+    check(got.shape == (PACK_SAMPLES, PACK_DIMS) and adapter.dataset.device.type == "cuda"
+          and np.array_equal(got, values.reshape(PACK_SAMPLES, PACK_DIMS).astype(np.float32)),
+          "packing: the adapter's dataset does not hold the frame's values")
+    print(f"[stream] 9d: DataFrameAdapter.from_pandas on a long frame of {len(df)} rows "
+          f"({PACK_SAMPLES} samples x {PACK_DIMS} dimensions, shuffled): {t_frame:.3f} s "
+          f"({len(df) / t_frame / 1e6:.2f} M rows/s), dataset on the card ({smi})")
+
+
+def phase_bf16_and_profile(model, resident, host, smi: str) -> None:
+    """9e: the resident data stored in bfloat16 against float32 from one
+    start, and a streamed training traced through profile_dir."""
+    import tempfile
+
+    from ppca_rs_tpu_torch import PPCAModel, StreamingPPCATrainer
+
+    bf16 = resident.astype(torch.bfloat16)
+    check(bf16.data.dtype == torch.bfloat16 and bf16.mask.data_ptr() == resident.mask.data_ptr()
+          and bf16.weights_dev.data_ptr() == resident.weights_dev.data_ptr(),
+          "bf16: astype copied the mask or the weights")
+    start = PPCAModel.init(K_MAIN, resident, generator=torch.Generator(device="cuda").manual_seed(SEED + 21))
+    out = {}
+    for name, ds in (("float32", resident), ("bfloat16", bf16)):
+        secs = []
+        m = start
+        llks = []
+        for _ in range(N_DENSE_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, llk = m._em_step(ds, None)
+            llks.append(float(llk))
+            secs.append(time.perf_counter() - t0)
+        out[name] = (llks, secs, ds.data.nbytes)
+    rel = max(abs(a - b) / abs(a) for a, b in zip(out["float32"][0], out["bfloat16"][0]))
+    for name, (llks, secs, nbytes) in out.items():
+        print(f"[stream] 9e: {name} storage: seconds per iteration "
+              + ", ".join(f"{s:.4f}" for s in secs)
+              + f" ({smi}); data {nbytes / 2**30:.2f} GiB on the card; llks {llks}")
+    print(f"[stream] 9e: bfloat16 vs float32 llk, max relative difference {rel:.3e} (tol "
+          f"{TOL_BF16:g}: bfloat16 rounds each value by up to 2^-9 of it)")
+    check(rel <= TOL_BF16, f"bf16: llk {rel:.3e} above {TOL_BF16}")
+    del bf16
+
+    with tempfile.TemporaryDirectory() as tmp:
+        StreamingPPCATrainer(lazy(host)).train(start=model, state_size=K_MAIN, n_iters=1,
+                                               quiet=True, profile_dir=tmp)
+        traces = list(Path(tmp).glob("*.json"))
+        check(len(traces) == 1, f"profile_dir: {len(traces)} trace files")
+        text = traces[0].read_text()
+        check("spd_estep" in text, "profile_dir: the trace does not name the E-step kernel")
+        print(f"[stream] 9e: profile_dir wrote {traces[0].name} ({len(text) / 2**20:.1f} MiB), "
+              "which names the spd_estep kernel")
+
+
+def phase_stream(smi: str):
+    """Phase 9: out-of-core streaming at full width.  Returns the launches
+    of its counted runs (9a's trainer and llk, 9b's streamed iteration, 9c's
+    trainer), by part."""
+    model, host, resident, a = phase_stream_masked(smi)
+    b = phase_stream_kinds(model)
+    torch.cuda.empty_cache()
+    phase_bf16_and_profile(model, resident, host, smi)
+    del resident, host
+    torch.cuda.empty_cache()
+    c = phase_stream_mix(smi)
+    torch.cuda.empty_cache()
+    phase_packing(smi)
+    return {"9a": a, "9b": b, "9c": c}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1450,6 +1888,8 @@ def main() -> int:
     wide_launches = phase_wide(smi)
     torch.cuda.empty_cache()
     mix_launches, mix_rows = phase_mix(smi)
+    torch.cuda.empty_cache()
+    stream_launches = phase_stream(smi)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     entries = [(f"spd_estep_{want}", ESTEP_SOURCE[summary[want]["design"]], ESTEP_REPLACES, want,
@@ -1461,12 +1901,14 @@ def main() -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_us",
               "device_ms", "design", "B", "k")
     # each kernel at the main path's k, at phase 7's and at phase 8's shapes
-    # (launches from those runs)
+    # (launches from those runs), and its launches in phase 9's counted runs
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], **{f: summary[key][f] for f in fields},
          f"at_k{WIDE_K}": {"launches": wide_launches[key], **{f: wide[key][f] for f in fields}},
-         "at_mix": {"launches": mix_launches[key], **{f: mix_rows[key][f] for f in fields}}}
+         "at_mix": {"launches": mix_launches[key], **{f: mix_rows[key][f] for f in fields}},
+         "at_stream": {"launches": sum(part[key] for part in stream_launches.values()),
+                       **{part: counts[key] for part, counts in stream_launches.items()}}}
         for name, source, replaces, key, launches in entries
     ]}
     for entry in kernels_line["kernels"]:

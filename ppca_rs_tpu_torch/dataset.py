@@ -8,12 +8,14 @@ Port of the core of ``ppca_rs_tpu/dataset.py``: one dense zero-filled
 round-trips with NaN fill, ``dump``/``load``/pickle use the container the
 JAX package uses, so a dataset dumped by either package loads in the other.
 ``pattern_info``/``pattern_order`` detect structured missingness for the
-pattern path (``ops/pattern_dedup.py``).
+pattern path (``ops/pattern_dedup.py``).  ``chunks``/``concat`` split and
+join datasets for out-of-core work (``streaming.py``); ``astype`` stores
+the values in another dtype, such as bfloat16.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -172,6 +174,17 @@ class Dataset:
         new = cls.from_parts(data, torch.ones(data.shape, dtype=torch.bool, device=data.device),
                              weights)
         new._all_observed = True
+        return new
+
+    def astype(self, dtype) -> "Dataset":
+        """The values stored in ``dtype`` (``torch.bfloat16`` halves their
+        device bytes; every computation still runs in float32 or wider).
+        The mask is kept, with the caches that depend on it alone, and so
+        are the weights, in the dtype ``from_parts`` gives them (float32 for
+        a 16-bit storage type, as in the JAX package)."""
+        new = self._share_caches(Dataset.from_parts(self.data.to(dtype), self.mask,
+                                                    self.weights_dev))
+        new._pattern_order = None   # holds a sorted copy of the old values
         return new
 
     def with_weights(self, weights) -> "Dataset":
@@ -340,6 +353,48 @@ class Dataset:
             new._all_observed = True
         return new
 
+    def chunks(self, chunks: int) -> "DatasetChunks":
+        """Iterator over ``chunks`` contiguous slices of stride ``ceil(len /
+        chunks)``; the last may be shorter (`src/python_bindings.rs:110-118,
+        136-166`)."""
+        stride = -(-len(self) // chunks) if chunks > 0 else len(self)
+        return DatasetChunks(self, max(stride, 1))
+
+    @staticmethod
+    def concat(datasets: Sequence["Dataset"]) -> "Dataset":
+        """The datasets' rows one after another (`src/python_bindings.rs:
+        120-133`).  They must lie on one device: nothing is moved here."""
+        datasets = list(datasets)
+        if not datasets:
+            raise ValueError("cannot concat an empty list of datasets")
+        devices = {d.device for d in datasets}
+        if len(devices) != 1:
+            raise ValueError(f"cannot concat datasets on different devices: "
+                             f"{sorted(str(d) for d in devices)}")
+        return Dataset.from_parts(torch.cat([d.data for d in datasets]),
+                                  torch.cat([d.mask for d in datasets]),
+                                  torch.cat([d.weights_dev for d in datasets]))
+
     def __repr__(self) -> str:
         return (f"Dataset(len={len(self)}, output_size={self.output_size()}, "
                 f"dtype={self.dtype}, device={self.device})")
+
+
+class DatasetChunks:
+    """Iterator of contiguous :class:`Dataset` slices
+    (`src/python_bindings.rs:136-166`)."""
+
+    def __init__(self, dataset: Dataset, stride: int):
+        self._dataset = dataset
+        self._stride = stride
+        self._position = 0
+
+    def __iter__(self) -> Iterator[Dataset]:
+        return self
+
+    def __next__(self) -> Dataset:
+        if self._position >= len(self._dataset):
+            raise StopIteration
+        start = self._position
+        self._position += self._stride
+        return self._dataset.slice(start, start + self._stride)

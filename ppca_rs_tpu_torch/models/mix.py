@@ -275,21 +275,31 @@ class PPCAMix:
         come out exactly 0)."""
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
-        Cs, means, sigmas = self._stacked_params()
-        tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(Cs.dtype, Cs.device)
+        params = self._stacked_params()
+        stats = self._em_stats(dataset, *params)
+        return self._finalize(*params, stats, prior), stats.llk
+
+    def _em_stats(self, dataset: Dataset, Cs, means, sigmas) -> mf.MixEMStats:
+        """The fused EM statistics of ``dataset`` on its route, for the
+        stacked parameters ``Cs, means, sigmas`` of this mixture."""
         route = self._route_args(dataset, Cs)
         args = (Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask)
         if route["pidx"] is None:
-            stats = mf.mix_em_stats(*args, dataset.weights_dev, block_size=route["block_size"])
-        else:
-            stats = mf.mix_em_stats_pat(*args, route["pidx"], route["patterns"],
-                                        dataset.weights_dev, block_size=route["block_size"])
+            return mf.mix_em_stats(*args, dataset.weights_dev, block_size=route["block_size"])
+        return mf.mix_em_stats_pat(*args, route["pidx"], route["patterns"],
+                                   dataset.weights_dev, block_size=route["block_size"])
+
+    def _finalize(self, Cs, means, sigmas, stats: mf.MixEMStats,
+                  prior: Optional[Prior]) -> "PPCAMix":
+        """The M-step from the statistics; each new transform is sliced back
+        to its component's k."""
+        tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(Cs.dtype, Cs.device)
         new_Cs, new_means, new_sigmas, new_lw = mf.mix_em_finalize(
             Cs, means, sigmas, stats, transformation_precision=tprec,
             noise_prior=noise_prior, mean_prior=mean_prior)
         models = [PPCAModel._from_params(new_Cs[i, :, :m.state_size], new_means[i], new_sigmas[i])
                   for i, m in enumerate(self._models)]
-        return PPCAMix(models, new_lw), stats.llk
+        return PPCAMix(models, new_lw)
 
     def _iterate_with_llk(self, dataset: Dataset, prior: Optional[Prior]) -> Tuple["PPCAMix", float]:
         """Fused EM step: (new mixture, llk of *this* mixture on the dataset)."""

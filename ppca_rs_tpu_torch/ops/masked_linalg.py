@@ -151,7 +151,7 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int) -> EMStats
         sw = s * w[:, None]
         cross += post.R.T @ sw
         mw = mask_f * w[:, None]
-        S += mw.T @ SM.reshape(-1, k * k)
+        S += mw.T @ SM.reshape(hi - lo, k * k)
         sq_parts.append((w * sq_b).sum())
         # No residual materialization: with M s = b and G = M - sigma^2 I,
         # s^T G s = b.s - sigma^2 |s|^2, so the masked residual norm is

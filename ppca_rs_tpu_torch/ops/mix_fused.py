@@ -306,7 +306,7 @@ def mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
             psw += torch.matmul(onehot.T, sw)
             wsum += resp @ onehot
         else:
-            Souter.index_add_(1, pb, (sw[..., :, None] * s[..., None, :]).view(M, -1, k * k))
+            Souter.index_add_(1, pb, (sw[..., :, None] * s[..., None, :]).view(M, hi - lo, k * k))
             psw.index_add_(1, pb, sw)
             wsum.index_add_(1, pb, resp)
         t1 += resp @ md0
@@ -444,7 +444,7 @@ def mix_smooth(Cs, means, sigmas, log_weights, data, mask, *, block_size: int,
     for datab, maskb, llks, s, _ in _readout_blocks(Cs, means, sigmas, data, mask, "states",
                                                     block_size, pidx, patterns):
         post = torch.softmax(llks + log_weights[:, None], 0)                  # (M, B)
-        ws = (post[..., None] * s).transpose(0, 1).reshape(-1, M * k)
+        ws = (post[..., None] * s).transpose(0, 1).reshape(datab.shape[0], M * k)
         sm = ws @ C_flat + post.T @ means
         out.append(torch.where(maskb, datab, sm) if extrapolate else sm)
     return _cat(out, data, _compute_dtype(data, Cs), D)

@@ -129,7 +129,8 @@ def infer(C, mean, sigma, data, mask, pidx, patterns, *, block_size: int):
     dtype, tables = _tables_for(C, sigma, data, patterns)
     s = [post.s for _, _, post in
          _posteriors(C, mean, sigma, data, mask, pidx, tables, dtype, block_size)]
-    return _cat(s, data, dtype, k), tables.Sigma.reshape(-1, k, k).index_select(0, pidx)
+    P = tables.Sigma.shape[0]
+    return _cat(s, data, dtype, k), tables.Sigma.reshape(P, k, k).index_select(0, pidx)
 
 
 def _assemble(C, patterns_f, tables, cross, Souter, wsum, psw, wR, dev_sq, llk) -> ml.EMStats:
@@ -173,7 +174,7 @@ def em_stats(C, mean, sigma, data, mask, pidx, patterns, weights, *,
         s = post.s
         sw = s * w[:, None]
         cross += post.R.T @ sw
-        Souter.index_add_(0, pb, (sw[:, :, None] * s[:, None, :]).reshape(-1, k * k))
+        Souter.index_add_(0, pb, (sw[:, :, None] * s[:, None, :]).reshape(hi - lo, k * k))
         wsum.index_add_(0, pb, w)
         psw.index_add_(0, pb, sw)
         wR += w @ post.R

@@ -1,0 +1,311 @@
+"""Out-of-core (streaming) EM training — port of ``ppca_rs_tpu/streaming.py``
+for one device.
+
+The sufficient statistics of one EM iteration (``masked_linalg.EMStats``;
+``mix_fused.MixEMStats`` for mixtures, whose ``resp_max`` combines by
+maximum) are additive over samples, so a dataset larger than device memory
+trains by streaming chunks through the statistics pass and summing the
+small results: the streamed iteration equals one iteration over the
+concatenated data, up to the order of summation.
+
+    chunks = list(Dataset(table, device="cpu").chunks(8))   # host tensors
+    model = StreamingPPCATrainer(chunks).train(state_size=16, n_iters=10)
+
+A chunk is a :class:`Dataset` or a zero-argument callable returning one
+(lazy loading).  Each chunk takes its own route, as a resident dataset
+does: the dense pass when fully observed (converted to the common
+statistics), the pattern tables (``pattern_dedup.em_stats``, which needs no
+sorted copy of the chunk) when its masks repeat, the general masked pass
+otherwise.
+
+Device rules.  Parameters and statistics live on the model's device, which
+the trainers take from ``config.device`` (the card by default; without one
+they raise unless the caller asks for the CPU).  A chunk elsewhere is
+copied there before its statistics are computed: from pinned host memory
+(``data.is_pinned()``) asynchronously on a copy stream of its own, so the
+copy overlaps the statistics of the chunk before; from pageable memory by a
+plain synchronous ``.to``.  The compute stream waits on an event recorded
+after the copy, and the copied tensors are held for the compute stream
+(``record_stream``) until its work on them is done.  A chunk's route is
+decided on the device the first time and recorded on the host chunk, so a
+chunk passed again is not examined again.  ``prefetch`` bounds how far the
+host runs ahead of the device: after enqueueing the statistics of chunk i
+it waits for those of chunk i - prefetch to finish (:func:`_accumulate`).
+The data-axis-sharded chunks of the JAX package wait for ``parallel/``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Union
+
+import torch
+
+from .config import config
+from .dataset import Dataset
+from .models.mix import PPCAMix
+from .models.ppca import PPCAModel
+from .ops import dense_fast as df
+from .ops import masked_linalg as ml
+from .ops import mix_fused as mf
+from .ops import pattern_dedup as pd
+from .prior import Prior
+from .trainer import Metric, MetricsCallback, _train
+
+ChunkLike = Union[Dataset, Callable[[], Dataset]]
+
+
+def _resolve(chunk: ChunkLike) -> Dataset:
+    return chunk() if callable(chunk) else chunk
+
+
+class _Transfer:
+    """Brings chunks to ``device``: CUDA copies run on one copy stream, and
+    the current (compute) stream waits for each before using it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def __call__(self, ds: Dataset) -> Dataset:
+        """``ds`` on the device, with its route caches: ``ds`` itself if it
+        is there already."""
+        if ds.device == self.device:
+            return ds
+        if self.stream is None:
+            return ds.to(self.device)
+        patterns = ds._patterns or ()
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            moved = [t.to(self.device, non_blocking=t.is_pinned())
+                     for t in (ds.data, ds.mask, ds.weights_dev, *patterns)]
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        compute.wait_event(copied)
+        for t in moved:
+            t.record_stream(compute)
+        new = Dataset.from_parts(*moved[:3])
+        new._all_observed = ds._all_observed
+        new._patterns = tuple(moved[3:]) if patterns else ds._patterns
+        return new
+
+    def event(self) -> Optional[torch.cuda.Event]:
+        """An event after the work enqueued so far on the compute stream
+        (None on the CPU, where that work is done already)."""
+        if self.stream is None:
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
+
+def _keep_route(src: Dataset, ds: Dataset) -> None:
+    """Record on the host chunk ``src`` the route its device copy ``ds``
+    took (``all_observed``, the pattern table), so that the next pass copies
+    the table along instead of deciding again.  The table keeps the host
+    chunk's pinning."""
+    if ds is src:
+        return
+    if src._all_observed is None:
+        src._all_observed = ds._all_observed
+    if src._patterns is None and ds._patterns is not None:
+        pin = src.data.is_pinned()
+        src._patterns = ds._patterns and tuple(
+            t.to(src.device).pin_memory() if pin else t.to(src.device) for t in ds._patterns)
+
+
+def _accumulate(chunks: Sequence[ChunkLike], device: torch.device, stats_fn, add_fn,
+                prefetch: int):
+    """The statistics of every chunk, computed on ``device`` one chunk at
+    a time and summed by ``add_fn``.  Returns ``(total, n_samples)``.
+
+    A chunk this loop brings in (a callable's result, or a dataset copied
+    to the device) holds device memory until its statistics are computed.
+    So after enqueueing chunk i's statistics the host waits for chunk
+    i - ``prefetch``'s to finish: at most ``prefetch + 1`` such chunks are
+    on the device at once (``prefetch=0``: one at a time), while the copy
+    and the launches of the next chunk overlap the device's work on the
+    ones before.  Chunks resident on the device already are not waited
+    for.  ``prefetch`` changes when the host waits, never what is
+    computed."""
+    if not len(chunks):
+        raise ValueError("need at least one chunk")
+    if prefetch < 0:
+        raise ValueError("prefetch must be >= 0")
+    transfer = _Transfer(device)
+    total, n_samples, pending = None, 0, []
+    for chunk in chunks:
+        src = _resolve(chunk)
+        ds = transfer(src)
+        n_samples += len(ds)
+        stats = stats_fn(ds)
+        _keep_route(src, ds)
+        total = stats if total is None else add_fn(total, stats)
+        brought_in = callable(chunk) or ds is not src
+        del src, ds   # the device copy may be freed once its work is done
+        if brought_in:
+            pending.append(transfer.event())
+            if len(pending) > prefetch:
+                done = pending.pop(0)
+                if done is not None:
+                    done.synchronize()
+    return total, n_samples
+
+
+def _dense_to_masked_stats(st: df.DenseEMStats) -> ml.EMStats:
+    """The dense pass's statistics in the common form the accumulator sums:
+    every output row's second moment is the one (k, k) ``S_common`` (all
+    masks are 1), and the per-dimension observed-weight totals are the
+    weight sum.  Lets fully observed chunks mix with the others."""
+    D, k = st.cross.shape
+    return ml.EMStats(st.cross, st.S_common.reshape(1, k * k).expand(D, k * k),
+                      st.square_error, st.dev_sq, st.total_dev, st.w_sum.expand(D), st.llk)
+
+
+def _chunk_stats(model: PPCAModel, ds: Dataset) -> ml.EMStats:
+    """EM statistics of one chunk on its route (fully observed: the dense
+    pass; repeating masks: the pattern tables; otherwise the masked pass)."""
+    args, bs = model._params(), config.block_size
+    if ds.all_observed():
+        return _dense_to_masked_stats(df.em_stats(*args, ds.data, ds.weights_dev, block_size=bs))
+    pat = ds.pattern_info()
+    if pat is not None:
+        return pd.em_stats(*args, ds.data, ds.mask, *pat, ds.weights_dev, block_size=bs)
+    return ml.em_stats(*args, ds.data, ds.mask, ds.weights_dev, block_size=bs)
+
+
+def _stats_add(a: ml.EMStats, b: ml.EMStats) -> ml.EMStats:
+    return ml.EMStats(*(x + y for x, y in zip(a, b)))
+
+
+def _step(model: PPCAModel, chunks: Sequence[ChunkLike], prior: Optional[Prior],
+          prefetch: int):
+    """One streamed EM iteration: ``(new model, llk of model as a 0-dim
+    tensor, number of samples)``."""
+    C, mean, sigma = model._params()
+    tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(C.dtype, C.device)
+    total, n = _accumulate(chunks, C.device, lambda ds: _chunk_stats(model, ds), _stats_add,
+                           prefetch)
+    new = ml.em_finalize(C, mean, sigma, total, transformation_precision=tprec,
+                         noise_prior=noise_prior, mean_prior=mean_prior)
+    return PPCAModel._from_params(*new), total.llk, n
+
+
+def iterate_streamed(model: PPCAModel, chunks: Sequence[ChunkLike],
+                     prior: Optional[Prior] = None, prefetch: int = 1):
+    """One EM iteration over a stream of chunks.  Returns ``(new_model,
+    llk)``, llk the total log-likelihood of ``model`` over all chunks: the
+    values of ``model._iterate_with_llk`` on the concatenated dataset.
+    ``prefetch`` bounds the chunks in flight (:func:`_accumulate`)."""
+    new, llk, _ = _step(model, chunks, prior, prefetch)
+    return new, float(llk)
+
+
+def _mix_step(mix: PPCAMix, chunks: Sequence[ChunkLike], prior: Optional[Prior],
+              prefetch: int):
+    """One streamed fused mixture EM iteration: ``(new mixture, llk, number
+    of samples)``."""
+    params = mix._stacked_params()
+    total, n = _accumulate(chunks, mix.device, lambda ds: mix._em_stats(ds, *params),
+                           mf._accumulate, prefetch)
+    return mix._finalize(*params, total, prior), total.llk, n
+
+
+def iterate_mix_streamed(mix: PPCAMix, chunks: Sequence[ChunkLike],
+                         prior: Optional[Prior] = None, prefetch: int = 1):
+    """One fused mixture EM iteration over a stream of chunks: the values of
+    ``mix._iterate_with_llk`` on the concatenated dataset.  Chunks may be
+    resident or lazy callables, mixed freely."""
+    new, llk, _ = _mix_step(mix, chunks, prior, prefetch)
+    return new, float(llk)
+
+
+def _first_chunk(chunks: List[ChunkLike]) -> Dataset:
+    """The first chunk on ``config.device``, to initialize a model from."""
+    return _resolve(chunks[0]).to(config.resolve_device())
+
+
+def _train_streamed(model, step_fn, chunks, prior, n_iters, metric, quiet, callback, label,
+                    profile_dir, checkpoint_path, checkpoint_every, prefetch):
+    """The shared trainer loop (``trainer._train``) over streamed steps; the
+    number of samples is counted by the first pass, with no extra I/O."""
+    counted: List[int] = []
+
+    def step(m):
+        new, llk, n = step_fn(m, chunks, prior, prefetch)
+        counted[:] = [n]
+        return new, llk
+
+    return _train(model, step, lambda: counted[0], n_iters, metric, quiet, callback,
+                  checkpoint_path, checkpoint_every, label, profile_dir)
+
+
+class StreamingPPCATrainer:
+    """Train a PPCA model over chunks that need never be on the device
+    together.  API of :class:`ppca_rs_tpu_torch.PPCATrainer`, plus
+    ``prefetch``."""
+
+    def __init__(self, chunks: Sequence[ChunkLike]):
+        self.chunks = list(chunks)
+        if not self.chunks:
+            raise ValueError("need at least one chunk")
+
+    def train(
+        self,
+        *,
+        start: Optional[PPCAModel] = None,
+        prior: Optional[Prior] = None,
+        state_size: int,
+        n_iters: int = 10,
+        metric: Metric = "aic",
+        quiet: bool = False,
+        callback: Optional[MetricsCallback] = None,
+        generator: Optional[torch.Generator] = None,
+        profile_dir: Optional[str] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 10,
+        prefetch: int = 1,
+    ) -> PPCAModel:
+        """Without ``start``, the model is initialized from the first chunk
+        on ``config.device``.  ``prefetch``: chunks the host may bring in
+        ahead of the one the device computes (1: at most two on the device
+        at once; 0: one)."""
+        model = start if start is not None else PPCAModel.init(
+            state_size, _first_chunk(self.chunks), generator=generator)
+        return _train_streamed(model, _step, self.chunks, prior, n_iters, metric, quiet,
+                               callback, "Masked PPCA", profile_dir, checkpoint_path,
+                               checkpoint_every, prefetch)
+
+
+class StreamingPPCAMixTrainer:
+    """Train a PPCA mixture over chunks that need never be on the device
+    together.  API of :class:`ppca_rs_tpu_torch.PPCAMixTrainer`, plus
+    ``prefetch``."""
+
+    def __init__(self, chunks: Sequence[ChunkLike]):
+        self.chunks = list(chunks)
+        if not self.chunks:
+            raise ValueError("need at least one chunk")
+
+    def train(
+        self,
+        *,
+        start: Optional[PPCAMix] = None,
+        prior: Optional[Prior] = None,
+        n_models: int,
+        state_size: int,
+        n_iters: int = 10,
+        metric: Metric = "aic",
+        quiet: bool = False,
+        callback: Optional[MetricsCallback] = None,
+        generator: Optional[torch.Generator] = None,
+        profile_dir: Optional[str] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 10,
+        prefetch: int = 1,
+    ) -> PPCAMix:
+        """See :meth:`StreamingPPCATrainer.train`."""
+        mix = start if start is not None else PPCAMix.init(
+            n_models, state_size, _first_chunk(self.chunks), generator=generator)
+        return _train_streamed(mix, _mix_step, self.chunks, prior, n_iters, metric, quiet,
+                               callback, "Masked PPCA mix", profile_dir, checkpoint_path,
+                               checkpoint_every, prefetch)

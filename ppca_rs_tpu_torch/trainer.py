@@ -5,7 +5,8 @@ Same API and metric semantics as the reference trainer (llk/aic/bic per
 iteration, optional warm start and prior, final ``to_canonical``).  The
 per-iteration log-likelihood comes from the same pass over the data as the
 EM update, and is copied to the host only when a callback or the printout
-asks for it.
+asks for it.  ``profile_dir`` traces the training (``utils/profiling.py``).
+The streaming trainers (``streaming.py``) run the same loop.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .dataset import Dataset
 from .models.mix import PPCAMix
 from .models.ppca import PPCAModel
 from .prior import Prior
+from .utils.profiling import trace
 
 
 @dataclass(frozen=True)
@@ -60,23 +62,25 @@ def _maybe_checkpoint(model, iteration: int, n_iters: int, path: Optional[str], 
     os.replace(tmp, path)
 
 
-def _train(model, dataset: Dataset, prior: Optional[Prior], n_iters: int, metric: Metric,
+def _train(model, step, n_samples: Callable[[], int], n_iters: int, metric: Metric,
            quiet: bool, callback: Optional[MetricsCallback], checkpoint_path: Optional[str],
-           checkpoint_every: int, label: str):
-    """The EM loop both trainers share: ``model._em_step`` gives the new
-    model and the llk of the current one from one pass; the llk reaches the
-    host only for the callback or the printout."""
-    n = len(dataset)
-    for idx in range(n_iters):
-        new_model, llk = model._em_step(dataset, prior)
-        if not quiet or callback is not None:
-            metrics = TrainMetrics.compute(float(llk), model.n_parameters, n)
-            if callback is not None:
-                callback(idx + 1, metrics)
-            if not quiet:
-                print(f"{label} iteration {idx + 1}: {metric}={getattr(metrics, metric)}")
-        model = new_model
-        _maybe_checkpoint(model, idx + 1, n_iters, checkpoint_path, checkpoint_every)
+           checkpoint_every: int, label: str, profile_dir: Optional[str]):
+    """The EM loop every trainer shares: ``step(model)`` gives the new model
+    and the llk of the current one from one pass over the data; the llk
+    reaches the host only for the callback or the printout, which divide
+    it by ``n_samples()``.  With ``profile_dir``, the loop is traced there
+    (``utils.profiling.trace``)."""
+    with trace(profile_dir):
+        for idx in range(n_iters):
+            new_model, llk = step(model)
+            if not quiet or callback is not None:
+                metrics = TrainMetrics.compute(float(llk), model.n_parameters, n_samples())
+                if callback is not None:
+                    callback(idx + 1, metrics)
+                if not quiet:
+                    print(f"{label} iteration {idx + 1}: {metric}={getattr(metrics, metric)}")
+            model = new_model
+            _maybe_checkpoint(model, idx + 1, n_iters, checkpoint_path, checkpoint_every)
     return model.to_canonical()
 
 
@@ -98,13 +102,15 @@ class PPCATrainer:
         quiet: bool = False,
         callback: Optional[MetricsCallback] = None,
         generator: Optional[torch.Generator] = None,
+        profile_dir: Optional[str] = None,
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 10,
     ) -> PPCAModel:
         model = start if start is not None else PPCAModel.init(
             state_size, self.dataset, generator=generator)
-        return _train(model, self.dataset, prior, n_iters, metric, quiet, callback,
-                      checkpoint_path, checkpoint_every, "Masked PPCA")
+        return _train(model, lambda m: m._em_step(self.dataset, prior), lambda: len(self.dataset),
+                      n_iters, metric, quiet, callback, checkpoint_path, checkpoint_every,
+                      "Masked PPCA", profile_dir)
 
 
 @dataclass
@@ -128,10 +134,12 @@ class PPCAMixTrainer:
         quiet: bool = False,
         callback: Optional[MetricsCallback] = None,
         generator: Optional[torch.Generator] = None,
+        profile_dir: Optional[str] = None,
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 10,
     ) -> PPCAMix:
         model = start if start is not None else PPCAMix.init(
             n_models, state_size, self.dataset, generator=generator)
-        return _train(model, self.dataset, prior, n_iters, metric, quiet, callback,
-                      checkpoint_path, checkpoint_every, "Masked PPCA mix")
+        return _train(model, lambda m: m._em_step(self.dataset, prior), lambda: len(self.dataset),
+                      n_iters, metric, quiet, callback, checkpoint_path, checkpoint_every,
+                      "Masked PPCA mix", profile_dir)

@@ -204,6 +204,32 @@ def test_heterogeneous_state_sizes(rng):
         ti.states()
 
 
+@pytest.mark.parametrize("route", ROUTES)
+def test_state_size_zero_components(rng, route):
+    """Every component at state size 0 (noise-only clusters) on each route:
+    the readouts match the JAX package, and one EM step matches the port's
+    per-component loop and, on the masked route, the JAX package (whose
+    table route fails on it).  ``smooth`` and the table route's EM step
+    used to fail reshaping 0 elements."""
+    data, mask, weights = make_data(rng, route)
+    jds, tds = both_datasets(data, mask, weights)
+    jmix, tmix = both_mixes(make_params(rng, ks=[0, 0]))
+    close(tmix.llks(tds), jmix.llks(jds))
+    close(tmix.smooth(tds).numpy(), jmix.smooth(jds).numpy())
+    close(tmix.extrapolate(tds).numpy(), jmix.extrapolate(jds).numpy())
+    tnew, tllk = tmix._iterate_with_llk(tds, tp.Prior())
+    refs = [tmix._iterate_loop(tds, tp.Prior())]
+    if route == "masked":
+        refs.append(jmix._iterate_with_llk(jds, jp.Prior()))
+    for ref, ref_llk in refs:
+        assert tnew.state_sizes == ref.state_sizes == [0, 0]
+        assert tllk == pytest.approx(ref_llk, rel=TOL)
+        close(tnew.log_weights, ref.log_weights)
+        for a, b in zip(tnew.models, ref.models):
+            close(a.mean, b.mean)
+            assert float(a.isotropic_noise) == pytest.approx(float(b.isotropic_noise), rel=TOL)
+
+
 @pytest.mark.parametrize("exact_rnorm", [False, True])
 def test_dead_component_keeps_params(rng, monkeypatch, exact_rnorm):
     """A component ~1e6 away from every row gets responsibility exactly 0:
@@ -391,15 +417,23 @@ def test_main_path_never_launches_on_cpu(rng):
 
 
 def test_port_imports_no_jax():
-    """Training and reading out a mixture with the port alone loads no JAX
-    and nothing of the JAX package."""
+    """Training and reading out a mixture, streaming both model kinds over
+    bfloat16 chunks and a round trip through the DataFrame adapter with the
+    port alone load no JAX and nothing of the JAX package."""
     code = (
-        "import sys, numpy as np, torch\n"
+        "import sys, numpy as np, pandas as pd, torch\n"
         "import ppca_rs_tpu_torch as tp\n"
         "tp.config.device = torch.device('cpu')\n"
         "ds = tp.Dataset(np.random.default_rng(0).normal(size=(40, 5)))\n"
         "mix = tp.PPCAMixTrainer(ds).train(n_models=2, state_size=1, n_iters=2, quiet=True)\n"
         "mix.infer(ds).posterior_sampler().sample(); mix.extrapolate(ds)\n"
+        "chunks = list(ds.astype(torch.bfloat16).chunks(3))\n"
+        "tp.StreamingPPCATrainer(chunks).train(state_size=1, n_iters=2, quiet=True)\n"
+        "tp.StreamingPPCAMixTrainer(chunks).train(n_models=2, state_size=1, n_iters=1, quiet=True)\n"
+        "df = pd.DataFrame({'k': [0, 0, 1], 'd': [0, 1, 0], 'v': [1.0, 2.0, 3.0]})\n"
+        "a = tp.DataFrameAdapter.from_pandas(df, keys=['k'], dimensions=['d'], metric='v')\n"
+        "fit = tp.PPCATrainer(a.dataset).train(state_size=1, n_iters=1, quiet=True)\n"
+        "a.convert_dataset(fit.extrapolate(a.dataset), column_name='v')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ppca_rs_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -352,3 +352,78 @@ def test_from_parts_honours_config_device(monkeypatch):
     assert tp.Dataset.unmasked(arr).device.type == "meta"
     kept = tp.Dataset.from_parts(torch.from_numpy(arr), torch.from_numpy(arr > 1))
     assert kept.device.type == "cpu" and kept.mask.device.type == "cpu"
+
+
+def zero_state_data(rng, route, N=40, D=5):
+    """(data zero-filled where masked, mask, weights) that take ``route``;
+    a zero-weight row."""
+    data = rng.normal(size=(N, D)) + rng.normal(size=D)
+    if route == "dense":
+        mask = np.ones((N, D), dtype=bool)
+    elif route == "pattern":
+        patterns = rng.random((3, D)) > 0.4
+        mask = patterns[rng.integers(0, 3, size=N)]
+        mask[:3] = patterns
+    else:
+        mask = rng.random((N, D)) > 0.3
+    weights = rng.random(N) + 0.5
+    weights[7] = 0.0
+    return np.where(mask, data, 0.0), mask, weights
+
+
+ZERO_ROUTES = ("dense", "pattern", "masked")
+
+
+@pytest.mark.parametrize("route", ZERO_ROUTES)
+def test_state_size_zero_iterates_like_jax(rng, route):
+    """State size 0 (a noise-only model) on each route: one EM iteration
+    gives the JAX package's finite model (the masked and pattern routes
+    used to fail reshaping 0 elements)."""
+    from ppca_rs_tpu_torch.models.ppca import _route
+
+    data, mask, weights = zero_state_data(rng, route)
+    jds, tds = both_datasets(data, mask, weights)
+    assert _route(tds).kind == route
+    C0, mean = np.zeros((data.shape[1], 0)), rng.normal(size=data.shape[1])
+    jm, jllk = jp.PPCAModel(isotropic_noise=0.8, transform=C0, mean=mean)._iterate_with_llk(jds, None)
+    tm, tllk = interop.model_from_arrays(C0, mean, 0.8)._iterate_with_llk(tds, None)
+    assert tuple(tm.transform.shape) == (data.shape[1], 0)
+    assert np.isfinite(tllk) and tllk == pytest.approx(jllk, rel=1e-9)
+    close(tm.mean, jm.mean, 1e-9)
+    assert float(tm.isotropic_noise) == pytest.approx(jm.isotropic_noise, rel=1e-9)
+
+
+def test_state_size_zero_pattern_infer_matches_masked(rng, monkeypatch):
+    """Pattern-route ``infer`` at state size 0 answers as the masked route
+    does: (N, 0) states and (N, 0, 0) covariances (the JAX package's
+    pattern route raises here, so the masked route is the reference)."""
+    from ppca_rs_tpu_torch.models.ppca import _route
+
+    data, mask, weights = zero_state_data(rng, "pattern")
+    tds = interop.dataset_from_arrays(data, mask, weights)
+    model = interop.model_from_arrays(np.zeros((data.shape[1], 0)), np.zeros(data.shape[1]), 0.8)
+    assert _route(tds).kind == "pattern"
+    pat = model.infer(tds)
+    monkeypatch.setattr(tconfig, "use_pattern_dedup", False)
+    plain = interop.dataset_from_arrays(data, mask, weights)
+    assert _route(plain).kind == "masked"
+    masked = model.infer(plain)
+    n = data.shape[0]
+    assert tuple(pat.states().shape) == tuple(masked.states().shape) == (n, 0)
+    assert tuple(pat.covariances_array().shape) == tuple(masked.covariances_array().shape) == (n, 0, 0)
+
+
+@pytest.mark.parametrize("route", ZERO_ROUTES)
+def test_state_size_zero_streams_like_jax(rng, route):
+    """A streamed iteration at state size 0 on each route's chunks gives the
+    JAX package's ``iterate_streamed`` (the dense chunks' second moments
+    are reshaped with an explicit row count)."""
+    data, mask, weights = zero_state_data(rng, route, N=48)
+    jds, tds = both_datasets(data, mask, weights)
+    C0, mean = np.zeros((data.shape[1], 0)), rng.normal(size=data.shape[1])
+    jm, jllk = jp.iterate_streamed(jp.PPCAModel(isotropic_noise=0.8, transform=C0, mean=mean),
+                                   list(jds.chunks(2)))
+    tm, tllk = tp.iterate_streamed(interop.model_from_arrays(C0, mean, 0.8), list(tds.chunks(2)))
+    assert tllk == pytest.approx(jllk, rel=1e-9)
+    close(tm.mean, jm.mean, 1e-9)
+    assert float(tm.isotropic_noise) == pytest.approx(jm.isotropic_noise, rel=1e-9)
