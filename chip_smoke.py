@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and runs nine
+It builds the CUDA kernels from the sources in the checkout and runs ten
 phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
@@ -75,7 +75,24 @@ phases; any failed check raises and the script exits non-zero:
    from four host chunks, ``StreamingPPCAMixTrainer`` and
    ``iterate_mix_streamed`` against ``PPCAMix._em_step`` (1e-4); (d) the
    host packing times of ``Dataset()`` on a float64 array with NaN holes
-   and of ``DataFrameAdapter.from_pandas`` on a long frame.
+   and of ``DataFrameAdapter.from_pandas`` on a long frame;
+10. the sharded path (``[parallel]`` lines), in child processes of this
+   script (``--parallel-child``) on this card, each held against a
+   single-process run here from the same start (1e-4), the ranks against
+   each other bit for bit, with exact per-rank launch counts: one job of
+   two gloo ranks (NCCL takes no two ranks on one device) runs (a) phase
+   3's rows split 524,289 + 524,287 by ``shard_dataset_local``, three
+   ``PPCATrainer`` iterations, ``model.llk``, infer and the sampler on
+   8,192 local rows, and the statistics all_reduce timed alone; (c) D on a
+   1x2 model axis over 65,536 rows: two iterations, llks and extrapolate
+   on each rank's columns, the per-block all_reduce timed alone; (d) phase
+   5's data, 500,000 rows a rank: collective ``detect_patterns`` (the
+   single-process table), the sorted EM on each rank, two iterations; (e)
+   phase 8's mixture, two ``PPCAMixTrainer`` iterations, ``infer_cluster``;
+   (f) 4 of 9a's pinned chunks streamed on each rank, one statistics
+   all_reduce per pass.  A job of one NCCL rank through ``initialize()``'s
+   default backend runs (b): ``iterate`` on a 1x1 mesh equals ``_em_step``
+   bit for bit.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -198,6 +215,21 @@ TOL_STREAM = 1e-4
 #: bfloat16 vs float32 storage, llk relative difference: bfloat16 rounds
 #: each stored value by up to 2^-9 of it; the llk moves far less.
 TOL_BF16 = 1e-2
+#: Phase 10: the sharded path in child processes on this card, two gloo
+#: ranks (NCCL takes no two ranks on one device) and one NCCL rank.  10a
+#: splits phase 3's rows unevenly between the two ranks and trains
+#: PAR_ITERS iterations, then reads N_PAR_ROWS_READ rows of each rank; 10c
+#: puts D on a 1x2 model axis over the first N_MODEL_AXIS rows; 10e trains
+#: phase 8's mixture for N_DENSE_ITERS iterations; 10f streams 4 of 9a's
+#: chunks on each rank.  Sharded vs single-process results: TOL_STREAM
+#: (only the order of summation differs).  Each job is killed after
+#: PAR_TIMEOUT seconds.
+PAR_ROWS = (524_289, 524_287)
+PAR_ITERS = 3
+N_PAR_ROWS_READ = 8192
+N_MODEL_AXIS = 65_536
+PAR_REDUCE_REPS = 5
+PAR_TIMEOUT = 600
 SEED = 20261016
 
 
@@ -1862,7 +1894,546 @@ def phase_stream(smi: str):
     return {"9a": a, "9b": b, "9c": c}
 
 
+# --------------------------------------------------------------------- #
+# phase 10: the ranks (this script run as a child, ``--parallel-child``)
+
+
+def par_counts(fn):
+    """``fn()``'s result, with the kernel launches and the statistics
+    all_reduces it made (counts set to 0 just before it)."""
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.parallel import api
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    api.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), dict(api.STATS_REDUCES)
+
+
+def par_reduce_ms(nbytes: int, group) -> float:
+    """Mean time of one all_reduce of ``nbytes`` of float32 on the card over
+    ``group``, alone (every rank of the group runs it together)."""
+    buf = torch.zeros(nbytes // 4, dtype=torch.float32, device="cuda")
+    torch.distributed.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    torch.distributed.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(PAR_REDUCE_REPS):
+        torch.distributed.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / PAR_REDUCE_REPS * 1e3
+
+
+def par_print(part: str, rank: int, text: str) -> None:
+    """One line in one write, so that the ranks' lines do not interleave."""
+    sys.stdout.write(f"[parallel] {part} rank {rank}: {text}\n")
+    sys.stdout.flush()
+
+
+def par_start(out: Path, name: str):
+    from ppca_rs_tpu_torch import PPCAMix, PPCAModel
+
+    blob = (out / f"{name}.bin").read_bytes()
+    load = PPCAMix.load if name == "mix" else PPCAModel.load
+    return load(blob, device="cuda", dtype=torch.float32)
+
+
+def par_host(model) -> dict:
+    return {n: t.detach().cpu() for n, t in zip(("C", "mean", "sigma"), model._params())}
+
+
+def par_data_axis(rank: int, out: Path) -> dict:
+    """10a: phase 3's rows split unevenly over a 2x1 mesh
+    (shard_dataset_local), PAR_ITERS PPCATrainer iterations, model.llk,
+    infer and the posterior sampler on N_PAR_ROWS_READ local rows."""
+    from ppca_rs_tpu_torch import PPCATrainer
+    from ppca_rs_tpu_torch.parallel import DATA_AXIS, api, distributed, make_mesh
+    from ppca_rs_tpu_torch.parallel.mesh import axis_group
+
+    mesh = make_mesh(2, 1)
+    lo = sum(PAR_ROWS[:rank])
+    full = make_main_dataset()
+    sds = distributed.shard_dataset_local(full.slice(lo, lo + PAR_ROWS[rank]), mesh)
+    del full
+    torch.cuda.empty_cache()
+    start = par_start(out, "start")
+    llks, stamps = [], []
+
+    def run():
+        def callback(it, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            llks.append(metrics.llk)
+
+        torch.distributed.barrier()
+        stamps.append(time.perf_counter())
+        model = PPCATrainer(sds).train(start=start, state_size=K_MAIN, n_iters=PAR_ITERS,
+                                       quiet=True, callback=callback)
+        total = model.llk(sds)
+        sub = distributed.shard_dataset_local(sds.slice(0, N_PAR_ROWS_READ), mesh)
+        draw = model.infer(sub).posterior_sampler().sample(
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 33)).data
+        return model, total, bool(torch.isfinite(draw).all()) and tuple(draw.shape) == (
+            len(sub.data), D_MAIN)
+
+    (model, total, draw_ok), launches, reduces = par_counts(run)
+    secs = [b - a for a, b in zip(stamps, stamps[1:])]
+    per = reduces["bytes"] // max(reduces["calls"], 1)
+    reduce_ms = par_reduce_ms(per, axis_group(mesh, DATA_AXIS))
+    par_print("10a", rank, f"{len(sds.data)} of {len(sds)} rows; seconds per iteration "
+              + ", ".join(f"{s:.4f}" for s in secs) + f"; llk/sample {llks} then "
+              f"{total / len(sds):.6f}; statistics all_reduce {reduces['calls']} per training "
+              f"({per / 2**20:.2f} MiB each), alone {reduce_ms:.2f} ms (gloo, two ranks on one "
+              f"card); launches {launches}")
+    return dict(params=par_host(model), llks=llks, llk=total, secs=secs, launches=launches,
+                reduces=reduces, reduce_ms=reduce_ms, reduce_bytes=per, draw_ok=draw_ok,
+                rows=len(sds.data))
+
+
+def par_model_axis(rank: int, out: Path) -> dict:
+    """10c: the first N_MODEL_AXIS rows of phase 3's data with D on a 1x2
+    model axis: two iterations, then llks and extrapolate on the rank's
+    block of columns."""
+    from ppca_rs_tpu_torch.parallel import MODEL_AXIS, distributed, make_mesh
+    from ppca_rs_tpu_torch.parallel.mesh import axis_group
+
+    mesh = make_mesh(1, 2)
+    sds = distributed.shard_dataset_local(make_main_dataset(N_MODEL_AXIS), mesh)
+    torch.cuda.empty_cache()
+    start = par_start(out, "start")
+    secs = []
+
+    def run():
+        model = start
+        for _ in range(2):
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            model = model.iterate(sds)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return model, model.llks(sds), model.extrapolate(sds).data[:N_PAR_ROWS_READ]
+
+    (model, llks, extrapolated), launches, _ = par_counts(run)
+    k = K_MAIN
+    block_bytes = config_block_size() * (k * k + k + 2) * 4
+    reduce_ms = par_reduce_ms(block_bytes, axis_group(mesh, MODEL_AXIS))
+    par_print("10c", rank, f"columns {sds.data.shape[1]} of {sds.output_size()}; seconds per "
+              "iteration " + ", ".join(f"{s:.4f}" for s in secs) + f"; per-block E-step "
+              f"all_reduce over the model axis ({block_bytes / 2**20:.1f} MiB, gloo through "
+              f"the host) alone {reduce_ms:.1f} ms, {-(-len(sds.data) // config_block_size())} "
+              f"blocks a pass; launches {launches}")
+    return dict(params=par_host(model), llks=llks.cpu(), extrapolated=extrapolated.cpu(),
+                secs=secs, launches=launches, reduce_ms=reduce_ms, reduce_bytes=block_bytes,
+                columns=(rank * sds.data.shape[1], (rank + 1) * sds.data.shape[1]))
+
+
+def par_patterns(rank: int, out: Path) -> dict:
+    """10d: phase 5's data, 500,000 rows a rank: collective detection, the
+    sorted per-segment EM on each rank, two iterations and model.llk."""
+    from ppca_rs_tpu_torch.models.ppca import _route
+    from ppca_rs_tpu_torch.parallel import distributed, make_mesh
+
+    mesh = make_mesh(2, 1)
+    half = N_PATTERN // 2
+    full, _ = make_pattern_dataset()
+    sds = distributed.shard_dataset_local(full.slice(rank * half, (rank + 1) * half), mesh)
+    del full
+    torch.cuda.empty_cache()
+    before = sds.pattern_info() is None
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    pidx, patterns = sds.detect_patterns()
+    t_detect = time.perf_counter() - t0
+    route = _route(sds)
+    start = par_start(out, "start_pattern")
+
+    def run():
+        model, llks = start, []
+        for _ in range(2):
+            model, llk = model._em_step(sds, None)
+            llks.append(float(llk))
+        return model, llks, model.llk(sds)
+
+    (model, llks, total), launches, _ = par_counts(run)
+    par_print("10d", rank, f"detect_patterns {t_detect:.3f} s, P={patterns.shape[0]}, route "
+              f"{route.kind} (sorted: {route.order is not None}); llks {llks} then {total:.6e}; "
+              f"launches {launches}")
+    return dict(params=par_host(model), llks=llks, llk=total, launches=launches,
+                patterns=patterns.cpu(), before=before,
+                mapped=bool(torch.equal(patterns[pidx], sds.mask)),
+                sorted=route.kind == "pattern" and route.order is not None)
+
+
+def par_mixture(rank: int, out: Path) -> dict:
+    """10e: phase 8's mixture, 100,000 rows a rank: N_DENSE_ITERS
+    PPCAMixTrainer iterations, then infer_cluster on the rank's rows."""
+    from ppca_rs_tpu_torch import PPCAMixTrainer
+    from ppca_rs_tpu_torch.parallel import distributed, make_mesh
+
+    mesh = make_mesh(2, 1)
+    half = N_MIX // 2
+    full = make_mix_dataset()
+    sds = distributed.shard_dataset_local(full.slice(rank * half, (rank + 1) * half), mesh)
+    del full
+    start = par_start(out, "mix")
+    llks = []
+
+    def run():
+        mix = PPCAMixTrainer(sds).train(start=start, n_models=M_MIX, state_size=K_MIX,
+                                        n_iters=N_DENSE_ITERS, quiet=True,
+                                        callback=lambda it, m: llks.append(m.llk))
+        return mix, mix.infer_cluster(sds)
+
+    (mix, cluster), launches, reduces = par_counts(run)
+    ok = bool(torch.isfinite(cluster.exp().sum(-1)).all()) and tuple(cluster.shape) == (half, M_MIX)
+    par_print("10e", rank, f"llk/sample {llks}; statistics all_reduces {reduces['calls']}; "
+              f"launches {launches}")
+    return dict(stacked=[t.cpu() for t in mix._stacked_params()], weights=mix.weights.cpu(),
+                llks=llks, cluster=cluster[:N_PAR_ROWS_READ].cpu(), cluster_ok=ok,
+                launches=launches, reduces=reduces)
+
+
+def par_stream(rank: int, out: Path) -> dict:
+    """10f: each rank streams 4 of 9a's 8 pinned host chunks; one
+    iterate_streamed over the 2x1 mesh."""
+    from ppca_rs_tpu_torch import iterate_streamed
+    from ppca_rs_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, 1)
+    full = make_main_dataset()
+    mine = list(full.chunks(N_STREAM_CHUNKS))[rank::2]
+    host = host_copies(mine, pinned=True)
+    del full, mine
+    torch.cuda.empty_cache()
+    start = par_start(out, "start")
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    (new, llk), launches, reduces = par_counts(
+        lambda: iterate_streamed(start, lazy(host), mesh=mesh))
+    secs = time.perf_counter() - t0
+    par_print("10f", rank, f"{len(host)} chunks of {len(host[0])} rows; one streamed iteration "
+              f"{secs:.4f} s; statistics all_reduces {reduces['calls']}; launches {launches}")
+    return dict(params=par_host(new), llk=llk, secs=secs, launches=launches, reduces=reduces)
+
+
+def par_world_of_one(out: Path) -> dict:
+    """10b: a world of one rank through initialize()'s default backend: one
+    iterate on a 1x1 mesh against _em_step on the same, unsharded rows."""
+    from ppca_rs_tpu_torch.parallel import make_mesh, shard_dataset
+
+    mesh = make_mesh()
+    full = make_main_dataset()
+    sds = shard_dataset(full, mesh)
+    start = par_start(out, "start")
+    sharded = start.iterate(sds)
+    single, _ = start._em_step(full, None)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(sharded._params(), single._params()))
+    backend = str(torch.distributed.get_backend())
+    par_print("10b", 0, f"backend {backend}, mesh {tuple(mesh.shape)}: iterate on the sharded "
+              f"dataset {'equals' if same else 'DIFFERS FROM'} _em_step bit for bit")
+    return dict(same=same, backend=backend)
+
+
+PAR_PARTS = {"10a": par_data_axis, "10c": par_model_axis, "10d": par_patterns,
+             "10e": par_mixture, "10f": par_stream}
+
+
+def parallel_child(job: str, rank: int, out: str) -> int:
+    """One rank of a phase-10 job; writes its results to OUT/JOB_RANK.pt."""
+    sys.path.insert(0, str(ROOT))
+    import ppca_rs_tpu_torch  # noqa: F401  (sets full-float32 matmuls)
+    from ppca_rs_tpu_torch.parallel import distributed
+
+    out = Path(out)
+    distributed.initialize(backend="gloo" if job == "gloo" else None)
+    if job == "nccl":
+        results = {"10b": par_world_of_one(out)}
+    else:
+        results = {}
+        for part, fn in PAR_PARTS.items():
+            results[part] = fn(rank, out)
+            torch.cuda.empty_cache()
+            torch.distributed.barrier()
+    torch.save(results, out / f"{job}_{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+# --------------------------------------------------------------------- #
+# phase 10: the parent
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_job(job: str, world: int, out: Path) -> list:
+    """Start ``world`` ranks of ``job`` as child processes of this script,
+    wait for all with PAR_TIMEOUT (killing every rank on timeout), fail on
+    any non-zero exit; return each rank's results."""
+    import os
+
+    port = free_port()
+    sys.stdout.flush()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--parallel-child", job, str(rank),
+             str(out)], env=env, cwd=str(ROOT)))
+    deadline = time.monotonic() + PAR_TIMEOUT
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    codes = [proc.returncode for proc in procs]
+    check(codes == [0] * world, f"parallel job {job}: exit codes {codes}")
+    return [torch.load(out / f"{job}_{rank}.pt", weights_only=False) for rank in range(world)]
+
+
+def par_references(out: Path) -> dict:
+    """The single-process runs phase 10 is held against, on this card, from
+    the starts the ranks load: 10a's trainer and llk, 10f's resident
+    _em_step, 10c's two iterations on its rows, 10d's table and two
+    pattern-route iterations, 10e's mixture trainer."""
+    from ppca_rs_tpu_torch import PPCAMix, PPCAMixTrainer, PPCAModel, PPCATrainer
+
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+    ref = {}
+    main = make_main_dataset()
+    start = PPCAModel.init(K_MAIN, main, generator=gen(SEED + 30))
+    (out / "start.bin").write_bytes(start.dump())
+    llks = []
+    model = PPCATrainer(main).train(start=start, state_size=K_MAIN, n_iters=PAR_ITERS,
+                                    quiet=True, callback=lambda it, m: llks.append(m.llk))
+    ref["10a"] = dict(params=par_host(model), llks=llks, llk=model.llk(main))
+    new, llk = start._em_step(main, None)
+    ref["10f"] = dict(params=par_host(new), llk=float(llk))
+    del main
+    rows = make_main_dataset(N_MODEL_AXIS)
+    model = start.iterate(rows).iterate(rows)
+    ref["10c"] = dict(params=par_host(model), llks=model.llks(rows).cpu(),
+                      extrapolated=model.extrapolate(rows).data[:N_PAR_ROWS_READ].cpu())
+    del rows
+    pattern, _ = make_pattern_dataset()
+    start_p = PPCAModel.init(K_MAIN, pattern, generator=gen(SEED + 31))
+    (out / "start_pattern.bin").write_bytes(start_p.dump())
+    model, llks = start_p, []
+    for _ in range(2):
+        model, llk = model._em_step(pattern, None)
+        llks.append(float(llk))
+    ref["10d"] = dict(params=par_host(model), llks=llks, llk=model.llk(pattern),
+                      patterns=pattern.pattern_info()[1].cpu())
+    del pattern
+    mixd = make_mix_dataset()
+    mix = PPCAMix.init(M_MIX, K_MIX, mixd, generator=gen(SEED + 32))
+    (out / "mix.bin").write_bytes(mix.dump())
+    llks = []
+    mix = PPCAMixTrainer(mixd).train(start=mix, n_models=M_MIX, state_size=K_MIX,
+                                     n_iters=N_DENSE_ITERS, quiet=True,
+                                     callback=lambda it, m: llks.append(m.llk))
+    half = N_MIX // 2
+    ref["10e"] = dict(stacked=[t.cpu() for t in mix._stacked_params()], weights=mix.weights.cpu(),
+                      llks=llks, cluster=[mix.infer_cluster(mixd.slice(lo, lo + N_PAR_ROWS_READ)).cpu()
+                                          for lo in (0, half)])
+    del mixd
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def par_same(a: dict, b: dict, keys) -> bool:
+    """Two ranks' results bit for bit."""
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        if isinstance(x, dict):
+            return all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        return x == y
+
+    return all(same(a[k], b[k]) for k in keys)
+
+
+def par_diffs(got: dict, want: dict) -> dict:
+    return {name: rel_err(got[name].reshape(-1), want[name].reshape(-1)) for name in want}
+
+
+def gram(C: torch.Tensor) -> torch.Tensor:
+    return C.double() @ C.double().mT
+
+
+def sv_gap(C: torch.Tensor) -> float:
+    """The smallest gap between neighbouring singular values of C (or of
+    any of a stack of transforms), relative to the largest."""
+    sv = torch.linalg.svdvals(C.double())
+    return float(((sv[..., :-1] - sv[..., 1:]) / sv[..., :1]).min())
+
+
+def canonical_diffs(got: dict, want: dict) -> dict:
+    """par_diffs of two trainers' canonical models, the transform held
+    through C C^T: to_canonical's SVD fixes the latent rotation, and where
+    two singular values lie close its rotation between them is
+    ill-conditioned, so C itself may differ more than the model does."""
+    diffs = par_diffs({k: v for k, v in got.items() if k != "C"},
+                      {k: v for k, v in want.items() if k != "C"})
+    diffs["C C^T"] = rel_err(gram(got["C"]), gram(want["C"]))
+    return diffs
+
+
+def phase_parallel(smi: str) -> dict:
+    """Phase 10: the sharded path in two jobs of child processes on this
+    card.  Returns rank 0's launches in the counted runs, by part."""
+    import tempfile
+
+    def blocks(n):
+        return -(-n // config_block_size())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        t0 = time.perf_counter()
+        ref = par_references(out)
+        print(f"[parallel] single-process references on this card in "
+              f"{time.perf_counter() - t0:.1f} s; starting 2 gloo ranks on the one card ({smi})",
+              flush=True)
+        t0 = time.perf_counter()
+        ranks = run_job("gloo", 2, out)
+        t_gloo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (one,) = run_job("nccl", 1, out)
+        t_nccl = time.perf_counter() - t0
+    print(f"[parallel] jobs: 2 gloo ranks {t_gloo:.1f} s, 1 NCCL rank {t_nccl:.1f} s "
+          "(process start, data, all parts)")
+
+    # 10a
+    for rank, res in enumerate(ranks):
+        a = res["10a"]
+        n_b = blocks(PAR_ROWS[rank])
+        want = launches_of(fullt=PAR_ITERS * n_b, states=PAR_ITERS, llk=n_b, infer=1, chol=1)
+        check(a["launches"] == want, f"10a rank {rank}: launches {a['launches']} != {want}")
+        check(a["reduces"]["calls"] == PAR_ITERS, f"10a rank {rank}: {a['reduces']} statistics "
+              f"all_reduces, want {PAR_ITERS}")
+        check(a["draw_ok"], f"10a rank {rank}: posterior draws not finite")
+        for x, y in zip(a["llks"], a["llks"][1:]):
+            check(y >= x - LLK_SLACK * abs(x), f"10a rank {rank}: llk decreased: {x} -> {y}")
+    check(par_same(ranks[0]["10a"], ranks[1]["10a"], ("params", "llks", "llk")),
+          "10a: the ranks' parameters or llks differ")
+    a, r = ranks[0]["10a"], ref["10a"]
+    diffs = canonical_diffs(a["params"], r["params"])
+    diffs["llk"] = abs(a["llk"] - r["llk"]) / abs(r["llk"])
+    diffs["llks"] = max(abs(x - y) / abs(y) for x, y in zip(a["llks"], r["llks"]))
+    report_diffs("parallel", f"10a: 2 ranks ({PAR_ROWS[0]} + {PAR_ROWS[1]} rows), "
+                 f"{PAR_ITERS} trainer iterations and llk vs one process", diffs, TOL_STREAM)
+    print(f"[parallel] 10a: seconds per iteration rank 0 "
+          + ", ".join(f"{s:.4f}" for s in a["secs"]) + ", rank 1 "
+          + ", ".join(f"{s:.4f}" for s in ranks[1]["10a"]["secs"])
+          + f" (two ranks share the card: not a scale-out figure); C itself "
+          f"{rel_err(a['params']['C'], r['params']['C']):.3e} (smallest singular value gap "
+          f"{sv_gap(r['params']['C']):.3e} of the largest); statistics all_reduce "
+          f"{a['reduce_bytes'] / 2**20:.2f} MiB alone {a['reduce_ms']:.2f} / "
+          f"{ranks[1]['10a']['reduce_ms']:.2f} ms (gloo) ({smi})")
+
+    # 10b
+    check(one["10b"]["same"], "10b: the world of one is not bit-identical to _em_step")
+    check("nccl" in one["10b"]["backend"], f"10b: backend {one['10b']['backend']}")
+    print(f"[parallel] 10b: one NCCL rank ({one['10b']['backend']}): iterate on a 1x1 mesh "
+          "equals _em_step bit for bit")
+
+    # 10c
+    n_b = blocks(N_MODEL_AXIS)
+    for rank, res in enumerate(ranks):
+        c = res["10c"]
+        want = launches_of(fullt=2 * n_b, states=2 + n_b, llk=n_b)
+        check(c["launches"] == want, f"10c rank {rank}: launches {c['launches']} != {want}")
+        lo, hi = c["columns"]
+        diffs = par_diffs(c["params"], ref["10c"]["params"])
+        diffs["llks"] = rel_err(c["llks"], ref["10c"]["llks"])
+        diffs["extrapolate"] = rel_err(c["extrapolated"], ref["10c"]["extrapolated"][:, lo:hi])
+        report_diffs("parallel", f"10c rank {rank} (columns {lo}-{hi}): 1x2 model axis, 2 "
+                     "iterations, llks and extrapolate vs one process", diffs, TOL_STREAM)
+    check(par_same(ranks[0]["10c"], ranks[1]["10c"], ("params", "llks")),
+          "10c: the ranks' parameters or llks differ")
+    print(f"[parallel] 10c: seconds per iteration " + ", ".join(
+        f"{s:.4f}" for s in ranks[0]["10c"]["secs"]) + f"; per-block all_reduce "
+          f"{ranks[0]['10c']['reduce_bytes'] / 2**20:.1f} MiB alone "
+          f"{ranks[0]['10c']['reduce_ms']:.1f} ms (gloo through the host) ({smi})")
+
+    # 10d
+    for rank, res in enumerate(ranks):
+        d = res["10d"]
+        want = launches_of(full=3, states=2)
+        check(d["launches"] == want, f"10d rank {rank}: launches {d['launches']} != {want}")
+        check(d["before"] and d["mapped"] and d["sorted"],
+              f"10d rank {rank}: pattern_info before detection, the row map or the sorted route")
+        check(torch.equal(d["patterns"], ref["10d"]["patterns"]),
+              f"10d rank {rank}: the table differs from the single-process table")
+    check(par_same(ranks[0]["10d"], ranks[1]["10d"], ("params", "llks", "llk")),
+          "10d: the ranks' parameters or llks differ")
+    d = ranks[0]["10d"]
+    diffs = par_diffs(d["params"], ref["10d"]["params"])
+    diffs["llk"] = abs(d["llk"] - ref["10d"]["llk"]) / abs(ref["10d"]["llk"])
+    report_diffs("parallel", f"10d: pattern route, {P_PATTERN} patterns detected collectively, "
+                 "sorted EM on each rank, 2 iterations vs one process", diffs, TOL_STREAM)
+
+    # 10e
+    for rank, res in enumerate(ranks):
+        e = res["10e"]
+        n_b = -(-(N_MIX // 2) // config_mix_rows())
+        want = launches_of(fullt=N_DENSE_ITERS * n_b, states=N_DENSE_ITERS, llk=n_b)
+        check(e["launches"] == want, f"10e rank {rank}: launches {e['launches']} != {want}")
+        check(e["reduces"]["calls"] == 2 * N_DENSE_ITERS,
+              f"10e rank {rank}: {e['reduces']} statistics all_reduces")
+        check(e["cluster_ok"], f"10e rank {rank}: infer_cluster rows not finite")
+        cd = rel_err(e["cluster"], ref["10e"]["cluster"][rank])
+        check(cd <= TOL_STREAM, f"10e rank {rank}: infer_cluster {cd:.3e}")
+    check(par_same(ranks[0]["10e"], ranks[1]["10e"], ("stacked", "weights", "llks")),
+          "10e: the ranks' mixtures differ")
+    e = ranks[0]["10e"]
+    diffs = {name: rel_err(x, y) for name, x, y in
+             zip(("means", "noises"), e["stacked"][1:], ref["10e"]["stacked"][1:])}
+    diffs["C C^T"] = rel_err(gram(e["stacked"][0]), gram(ref["10e"]["stacked"][0]))
+    diffs["weights"] = rel_err(e["weights"], ref["10e"]["weights"])
+    diffs["llks"] = max(abs(x - y) / abs(y) for x, y in zip(e["llks"], ref["10e"]["llks"]))
+    report_diffs("parallel", f"10e: mixture, {N_DENSE_ITERS} PPCAMixTrainer iterations vs one "
+                 "process (resp_max combined by MAX; transforms C itself "
+                 f"{rel_err(e['stacked'][0], ref['10e']['stacked'][0]):.3e}, smallest singular "
+                 f"value gap {sv_gap(ref['10e']['stacked'][0]):.3e})", diffs, TOL_STREAM)
+
+    # 10f
+    for rank, res in enumerate(ranks):
+        f = res["10f"]
+        want = launches_of(fullt=(N_STREAM_CHUNKS // 2) * blocks(N_MAIN // N_STREAM_CHUNKS),
+                           states=1)
+        check(f["launches"] == want, f"10f rank {rank}: launches {f['launches']} != {want}")
+        check(f["reduces"]["calls"] == 1, f"10f rank {rank}: {f['reduces']} statistics "
+              "all_reduces in one streamed pass, want 1")
+    check(par_same(ranks[0]["10f"], ranks[1]["10f"], ("params", "llk")),
+          "10f: the ranks' parameters differ")
+    f = ranks[0]["10f"]
+    diffs = par_diffs(f["params"], ref["10f"]["params"])
+    diffs["llk"] = abs(f["llk"] - ref["10f"]["llk"]) / abs(ref["10f"]["llk"])
+    report_diffs("parallel", f"10f: 2 ranks streaming 4 chunks each, one streamed iteration "
+                 f"({f['secs']:.4f} / {ranks[1]['10f']['secs']:.4f} s) vs the resident "
+                 "_em_step", diffs, TOL_STREAM)
+    return {part: ranks[0][part]["launches"] for part in PAR_PARTS}
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-child":
+        return parallel_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
@@ -1890,6 +2461,8 @@ def main() -> int:
     mix_launches, mix_rows = phase_mix(smi)
     torch.cuda.empty_cache()
     stream_launches = phase_stream(smi)
+    torch.cuda.empty_cache()
+    parallel_launches = phase_parallel(smi)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     entries = [(f"spd_estep_{want}", ESTEP_SOURCE[summary[want]["design"]], ESTEP_REPLACES, want,
@@ -1901,14 +2474,17 @@ def main() -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_us",
               "device_ms", "design", "B", "k")
     # each kernel at the main path's k, at phase 7's and at phase 8's shapes
-    # (launches from those runs), and its launches in phase 9's counted runs
+    # (launches from those runs), and its launches in phase 9's and phase
+    # 10's counted runs (phase 10: rank 0's)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], **{f: summary[key][f] for f in fields},
          f"at_k{WIDE_K}": {"launches": wide_launches[key], **{f: wide[key][f] for f in fields}},
          "at_mix": {"launches": mix_launches[key], **{f: mix_rows[key][f] for f in fields}},
          "at_stream": {"launches": sum(part[key] for part in stream_launches.values()),
-                       **{part: counts[key] for part, counts in stream_launches.items()}}}
+                       **{part: counts[key] for part, counts in stream_launches.items()}},
+         "at_parallel": {"launches": sum(part[key] for part in parallel_launches.values()),
+                         **{part: counts[key] for part, counts in parallel_launches.items()}}}
         for name, source, replaces, key, launches in entries
     ]}
     for entry in kernels_line["kernels"]:

@@ -9,8 +9,9 @@ posterior sampler's batched Cholesky factor (``csrc/spd_chol.cu``) are CUDA
 kernels written for Hopper, built with ``nvcc`` at first use; on CPU tensors
 their plain PyTorch versions run instead.  Datasets larger than the card
 train out of core through the streaming trainers (``streaming.py``); long
-DataFrames come in through the adapters (``adapters.py``).  This package
-imports neither JAX nor ``ppca_rs_tpu``.
+DataFrames come in through the adapters (``adapters.py``); jobs of many
+processes shard their data over a ``torch.distributed`` mesh
+(``parallel/``).  This package imports neither JAX nor ``ppca_rs_tpu``.
 """
 
 from .config import config

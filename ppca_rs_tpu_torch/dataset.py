@@ -11,11 +11,20 @@ JAX package uses, so a dataset dumped by either package loads in the other.
 pattern path (``ops/pattern_dedup.py``).  ``chunks``/``concat`` split and
 join datasets for out-of-core work (``streaming.py``); ``astype`` stores
 the values in another dtype, such as bfloat16.
+
+A sharded dataset (``parallel.shard_dataset``/``shard_dataset_local``)
+holds this rank's rows (and, on a mesh's model axis, its block of columns)
+and records its mesh, the global row count and the global D (:class:`Shard`):
+``len()`` and ``output_size()`` are global, and ``all_observed()`` and
+``empty_dimensions()`` were decided for all ranks together when it was
+built.  Its pattern table comes from the collective :meth:`detect_patterns`
+alone.  ``slice``, ``chunks``, ``numpy`` and ``dump`` work on the rank's own
+rows.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +100,15 @@ def _detect_patterns(mask: torch.Tensor, p_cap: int) -> Optional[Tuple[torch.Ten
     return pidx, _unpack_mask(uniq, d)
 
 
+class Shard(NamedTuple):
+    """Where a sharded dataset's tensors sit in the global one."""
+
+    mesh: object                # torch.distributed DeviceMesh ("data", "model")
+    n: int                      # rows over all ranks
+    d: int                      # output dimensions over all ranks
+    empty: Tuple[int, ...]      # dimensions masked in every row of every rank
+
+
 class Dataset:
     """A dense masked dataset: values (zero-filled where masked), an
     observed-mask and per-sample weights, all tensors on one device.
@@ -99,7 +117,7 @@ class Dataset:
     ``weights_dev``."""
 
     __slots__ = ("data", "mask", "weights_dev", "_all_observed", "_patterns",
-                 "_pattern_order")
+                 "_pattern_order", "_shard")
 
     def __init__(self, ndarray=None, weights=None, *, device=None, dtype=None):
         if ndarray is None:
@@ -121,6 +139,7 @@ class Dataset:
             self.weights_dev = torch.as_tensor(w, dtype=dtype, device=device)
         else:
             self.weights_dev = torch.ones(arr.shape[0], dtype=dtype, device=device)
+        self._shard = None
         self._clear_caches()
 
     def _clear_caches(self) -> None:
@@ -131,12 +150,14 @@ class Dataset:
 
     def _share_caches(self, new: "Dataset", device=None) -> "Dataset":
         """Give ``new``, which has this dataset's mask, the caches that
-        depend on the mask alone, moved to ``device`` if given."""
+        depend on the mask alone, moved to ``device`` if given, and this
+        dataset's place on its mesh."""
         def move(cached):
             if not cached or device is None:
                 return cached
             return tuple(x.to(device) if isinstance(x, torch.Tensor) else x for x in cached)
 
+        new._shard = self._shard
         new._all_observed = self._all_observed
         new._patterns = move(self._patterns)
         new._pattern_order = move(self._pattern_order)
@@ -164,6 +185,7 @@ class Dataset:
                 raise ValueError("weights length must match number of samples")
         obj = object.__new__(cls)
         obj.data, obj.mask, obj.weights_dev = data, mask, weights
+        obj._shard = None
         obj._clear_caches()
         return obj
 
@@ -202,7 +224,8 @@ class Dataset:
     # basic accessors
 
     def __len__(self) -> int:
-        return int(self.data.shape[0])
+        """Rows: over all ranks for a sharded dataset."""
+        return self._shard.n if self._shard is not None else int(self.data.shape[0])
 
     @property
     def weights(self) -> "_WeightsView":
@@ -228,7 +251,7 @@ class Dataset:
         (`dataset.rs:183-191`)."""
         if self.is_empty():
             return None
-        return int(self.data.shape[1])
+        return self._shard.d if self._shard is not None else int(self.data.shape[1])
 
     def all_observed(self) -> bool:
         """True when every entry is observed.  Cached."""
@@ -254,11 +277,19 @@ class Dataset:
         ``include_dense=True`` (the mixtures' table route) also returns the
         trivial single-pattern table ``(zeros(N), ones(1, D))`` for fully
         observed data; the default call leaves that case to the dense path
-        and caches nothing for it."""
+        and caches nothing for it.
+
+        A sharded dataset returns None, uncached, until the collective
+        :meth:`detect_patterns` has run; then its table."""
         if not config.use_pattern_dedup:
             return None
         if self._patterns is not None:
             return self._patterns or None
+        if self._shard is not None:
+            # host-local: ranks may reach this at different points, so it
+            # starts no collective; the table comes from detect_patterns(),
+            # and nothing is cached, so that a later call still runs
+            return None
         n = len(self)
         if self.is_empty() or n < 2 * config.pattern_min_ratio:
             self._patterns = False
@@ -272,6 +303,20 @@ class Dataset:
         self._patterns = _detect_patterns(self.mask, p_cap) or False
         return self._patterns or None
 
+    def detect_patterns(self, include_dense: bool = False):
+        """Run pattern detection now: :meth:`pattern_info`, and on a sharded
+        dataset a collective that every rank of its mesh calls at the same
+        point (before training).  The ranks exchange their distinct packed
+        masks and build one table, the single-process table of the global
+        rows; each maps its rows to it.  Later :meth:`pattern_info` calls
+        return it without communicating.  A model-axis mesh keeps the
+        general route (None, cached)."""
+        if self._shard is None:
+            return self.pattern_info(include_dense)
+        from .parallel.mesh import detect_patterns
+
+        return detect_patterns(self, include_dense)
+
     def pattern_order(self) -> Optional[Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]]:
         """Rows sorted by pattern, for the per-segment EM
         (ops/pattern_dedup.em_stats_sorted), or ``None`` when it does not
@@ -282,14 +327,15 @@ class Dataset:
         permutation, and the per-pattern row counts as a tuple of ints
         (segment p is rows ``[sum(counts[:p]), sum(counts[:p + 1]))``).
         None also when the segments are shorter than
-        ``config.pat_sorted_min_rows`` on average."""
+        ``config.pat_sorted_min_rows`` on average.  A sharded dataset sorts
+        its own rows against the global table."""
         if not config.use_pattern_dedup:
             return None
         if self._pattern_order is not None:
             return self._pattern_order or None
         info = self.pattern_info()
         if (info is None or self.data.nbytes > config.pat_sorted_max_bytes
-                or len(self) < info[1].shape[0] * config.pat_sorted_min_rows):
+                or self.data.shape[0] < info[1].shape[0] * config.pat_sorted_min_rows):
             self._pattern_order = False
             return None
         pidx, patterns = info
@@ -299,7 +345,10 @@ class Dataset:
         return self._pattern_order
 
     def empty_dimensions(self) -> List[int]:
-        """Dimensions masked in *every* sample (`dataset.rs:193-222`)."""
+        """Dimensions masked in *every* sample (`dataset.rs:193-222`), of
+        every rank for a sharded dataset."""
+        if self._shard is not None:
+            return list(self._shard.empty)
         if self.is_empty():
             return []
         observed = self.mask.any(dim=0).cpu().numpy()
@@ -345,7 +394,9 @@ class Dataset:
     # slicing
 
     def slice(self, start: int, stop: int) -> "Dataset":
-        stop = min(stop, len(self))
+        """Rows ``[start, stop)``; of a sharded dataset, of this rank's rows,
+        as a dataset of its own."""
+        stop = min(stop, int(self.data.shape[0]))
         new = Dataset.from_parts(
             self.data[start:stop], self.mask[start:stop], self.weights_dev[start:stop]
         )
@@ -356,8 +407,9 @@ class Dataset:
     def chunks(self, chunks: int) -> "DatasetChunks":
         """Iterator over ``chunks`` contiguous slices of stride ``ceil(len /
         chunks)``; the last may be shorter (`src/python_bindings.rs:110-118,
-        136-166`)."""
-        stride = -(-len(self) // chunks) if chunks > 0 else len(self)
+        136-166`).  Of a sharded dataset, this rank's rows."""
+        n = int(self.data.shape[0])
+        stride = -(-n // chunks) if chunks > 0 else n
         return DatasetChunks(self, max(stride, 1))
 
     @staticmethod
@@ -393,7 +445,7 @@ class DatasetChunks:
         return self
 
     def __next__(self) -> Dataset:
-        if self._position >= len(self._dataset):
+        if self._position >= self._dataset.data.shape[0]:
             raise StopIteration
         start = self._position
         self._position += self._stride

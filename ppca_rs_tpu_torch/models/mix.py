@@ -13,6 +13,11 @@ route.  Heterogeneous state sizes ride the same pass zero-padded to the
 largest k (:meth:`PPCAMix._stacked_params`).  The reference-shaped
 per-component loop (:meth:`PPCAMix._iterate_loop`) stays as the independent
 implementation the fused step is tested against.
+
+A sharded dataset (``parallel/``) takes ``parallel/api.py``'s mixture verbs:
+readouts give this rank's rows; the llk and the EM steps cover all rows
+and are the same on every rank.  Its table route needs
+``detect_patterns(include_dense=True)`` first.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from ..config import config
 from ..dataset import Dataset
 from ..ops import masked_linalg as ml
 from ..ops import mix_fused as mf
+from ..parallel import api
+from ..parallel.mesh import dataset_mesh
 from ..prior import Prior
 from ..utils.rng import ensure_generator
 from ..utils.serialization import dump_bytes, load_bytes
@@ -166,6 +173,8 @@ class PPCAMix:
         """(N, M) per-component per-sample log-likelihoods, one fused pass
         (the reference makes M, `mix.rs:283-288`)."""
         Cs, means, sigmas = self._stacked_params()
+        if dataset_mesh(dataset) is not None:
+            return api.mix_llks(Cs, means, sigmas, dataset, **self._route_args(dataset, Cs))
         return mf.mix_llks(Cs, means, sigmas, dataset.data, dataset.mask,
                            **self._route_args(dataset, Cs))
 
@@ -181,6 +190,8 @@ class PPCAMix:
         """Weighted total mixture log-likelihood (`mix.rs:162-174`)."""
         if dataset.is_empty():
             return 0.0
+        if dataset_mesh(dataset) is not None:
+            return float(api.row_sum(self.llks(dataset), dataset))
         return float((self.llks(dataset) * dataset.weights_dev).sum())
 
     def infer_cluster(self, dataset: Dataset) -> torch.Tensor:
@@ -234,8 +245,13 @@ class PPCAMix:
         reference makes M llk and M infer passes, `mix.rs:205-236`); each
         component's readout is sliced back to its own k."""
         Cs, means, sigmas = self._stacked_params()
-        log_post, states, covs = mf.mix_infer(Cs, means, sigmas, self._log_weights, dataset.data,
-                                              dataset.mask, **self._route_args(dataset, Cs))
+        if dataset_mesh(dataset) is not None:
+            log_post, states, covs = api.mix_infer(Cs, means, sigmas, self._log_weights, dataset,
+                                                   **self._route_args(dataset, Cs))
+        else:
+            log_post, states, covs = mf.mix_infer(Cs, means, sigmas, self._log_weights,
+                                                  dataset.data, dataset.mask,
+                                                  **self._route_args(dataset, Cs))
         inferred = [InferredMasked(m, states[i, :, :m.state_size],
                                    covs[i, :, :m.state_size, :m.state_size])
                     for i, m in enumerate(self._models)]
@@ -243,9 +259,15 @@ class PPCAMix:
 
     def _smooth_fused(self, dataset: Dataset, extrapolate: bool) -> Dataset:
         Cs, means, sigmas = self._stacked_params()
-        out = mf.mix_smooth(Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask,
-                            extrapolate=extrapolate, **self._route_args(dataset, Cs))
-        return Dataset.unmasked(out)
+        if dataset_mesh(dataset) is not None:
+            out = api.mix_smooth(Cs, means, sigmas, self._log_weights, dataset,
+                                 extrapolate=extrapolate, **self._route_args(dataset, Cs))
+        else:
+            out = mf.mix_smooth(Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask,
+                                extrapolate=extrapolate, **self._route_args(dataset, Cs))
+        new = Dataset.unmasked(out)
+        new._shard = dataset._shard
+        return new
 
     def smooth(self, dataset: Dataset) -> Dataset:
         """Posterior-weighted mixture of the component smoothings
@@ -276,27 +298,29 @@ class PPCAMix:
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
         params = self._stacked_params()
+        if dataset_mesh(dataset) is not None:
+            new, llk = api.mix_em_step(*params, self._log_weights, dataset,
+                                       _priors(prior, params[0]),
+                                       **self._route_args(dataset, params[0]))
+            return self._from_stacked(*new), llk
         stats = self._em_stats(dataset, *params)
         return self._finalize(*params, stats, prior), stats.llk
 
     def _em_stats(self, dataset: Dataset, Cs, means, sigmas) -> mf.MixEMStats:
-        """The fused EM statistics of ``dataset`` on its route, for the
-        stacked parameters ``Cs, means, sigmas`` of this mixture."""
-        route = self._route_args(dataset, Cs)
-        args = (Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask)
-        if route["pidx"] is None:
-            return mf.mix_em_stats(*args, dataset.weights_dev, block_size=route["block_size"])
-        return mf.mix_em_stats_pat(*args, route["pidx"], route["patterns"],
-                                   dataset.weights_dev, block_size=route["block_size"])
+        """The fused EM statistics of ``dataset``'s rows on its route, for
+        the stacked parameters ``Cs, means, sigmas`` of this mixture."""
+        return mf.mix_em_stats(Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask,
+                               dataset.weights_dev, **self._route_args(dataset, Cs))
 
     def _finalize(self, Cs, means, sigmas, stats: mf.MixEMStats,
                   prior: Optional[Prior]) -> "PPCAMix":
-        """The M-step from the statistics; each new transform is sliced back
-        to its component's k."""
-        tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(Cs.dtype, Cs.device)
-        new_Cs, new_means, new_sigmas, new_lw = mf.mix_em_finalize(
-            Cs, means, sigmas, stats, transformation_precision=tprec,
-            noise_prior=noise_prior, mean_prior=mean_prior)
+        """The M-step from the statistics."""
+        return self._from_stacked(*mf.mix_em_finalize(Cs, means, sigmas, stats,
+                                                      **_priors(prior, Cs)))
+
+    def _from_stacked(self, new_Cs, new_means, new_sigmas, new_lw) -> "PPCAMix":
+        """The mixture of the new stacked parameters; each new transform is
+        sliced back to its component's k."""
         models = [PPCAModel._from_params(new_Cs[i, :, :m.state_size], new_means[i], new_sigmas[i])
                   for i, m in enumerate(self._models)]
         return PPCAMix(models, new_lw)
@@ -310,7 +334,10 @@ class PPCAMix:
         """The reference-shaped per-component loop (`mix.rs:281-337`): the
         responsibilities, then M reweighted single-model EM steps
         (:meth:`PPCAModel.iterate_with_prior`, each on its own route).  The
-        independent implementation the fused step is tested against."""
+        independent implementation the fused step is tested against;
+        unsharded datasets only."""
+        if dataset_mesh(dataset) is not None:
+            raise ValueError("_iterate_loop takes an unsharded dataset")
         prior = prior or Prior()
         joint = self._component_llks(dataset) + self._log_weights
         llk = float((torch.logsumexp(joint, -1) * dataset.weights_dev).sum())
@@ -344,6 +371,11 @@ class PPCAMix:
     def to_canonical(self) -> "PPCAMix":
         """:meth:`PPCAModel.to_canonical` of every component (`mix.rs:340-346`)."""
         return PPCAMix([m.to_canonical() for m in self._models], self._log_weights)
+
+
+def _priors(prior: Optional[Prior], like: torch.Tensor) -> dict:
+    tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(like.dtype, like.device)
+    return dict(transformation_precision=tprec, noise_prior=noise_prior, mean_prior=mean_prior)
 
 
 class InferredMaskedMix:

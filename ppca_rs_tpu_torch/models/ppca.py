@@ -7,16 +7,19 @@ Port of ``ppca_rs_tpu/models/ppca.py`` (itself a rebuild of
     y = C x + mu + eps       # observed, D dims
     eps ~ N(0, sigma^2 I_D)  # isotropic noise
 
-Each dataset takes one of three routes (:func:`_route`): fully observed data
-the dense path (``ops/dense_fast``), structured missingness the pattern path
-(``ops/pattern_dedup``), everything else the general masked path
+Each dataset takes one of three routes (``models/routes.py``): fully
+observed data the dense path (``ops/dense_fast``), structured missingness the
+pattern path (``ops/pattern_dedup``), everything else the general masked path
 (``ops/masked_linalg``).  Computations run on the device of the model's
-parameters, which must match the dataset's.
+parameters, which must match the dataset's.  A sharded dataset
+(``parallel/``) takes the sharded verbs of ``parallel/api.py``: readouts
+give this rank's rows, the llk and the EM steps cover all rows and are the
+same on every rank, and every rank must call them at the same point.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,13 +27,14 @@ from torch import nn
 
 from ..config import config
 from ..dataset import Dataset
-from ..ops import dense_fast as df
 from ..ops import kernels
 from ..ops import masked_linalg as ml
-from ..ops import pattern_dedup as pd
+from ..parallel import api
+from ..parallel.mesh import dataset_mesh
 from ..prior import Prior
 from ..utils.rng import ensure_generator
 from ..utils.serialization import dump_bytes, load_bytes
+from . import routes
 
 
 def _as_vector(arr, name: str) -> np.ndarray:
@@ -47,27 +51,7 @@ def _as_vector(arr, name: str) -> np.ndarray:
     return a
 
 
-class _Route(NamedTuple):
-    """How a dataset's computations run: ``kind`` is "dense", "pattern" or
-    "masked"; a pattern route carries ``(pidx, patterns)`` and, when the
-    sorted copy is available, ``(data_sorted, perm, counts)``."""
-
-    kind: str
-    pattern: Optional[tuple] = None
-    order: Optional[tuple] = None
-
-
-def _route(dataset: Dataset) -> _Route:
-    """Dense if every entry is observed; the pattern path if the masks
-    repeat (``Dataset.pattern_info``), with the per-segment EM when
-    ``Dataset.pattern_order`` is available; the masked path otherwise
-    (`ppca_rs_tpu/models/ppca.py:_impl_and_block`, single device)."""
-    if dataset.all_observed():
-        return _Route("dense")
-    pattern = dataset.pattern_info()
-    if pattern is not None:
-        return _Route("pattern", pattern, dataset.pattern_order())
-    return _Route("masked")
+_route = routes.route
 
 
 class PPCAModel(nn.Module):
@@ -116,7 +100,8 @@ class PPCAModel(nn.Module):
     def init(state_size: int, dataset: Dataset,
              generator: Optional[torch.Generator] = None) -> "PPCAModel":
         """Random untrained model: C ~ N(0,1) with empty-dimension rows
-        zeroed, sigma = 1, mu = 0 (`ppca_model.rs:51-70`)."""
+        zeroed, sigma = 1, mu = 0 (`ppca_model.rs:51-70`).  On a sharded
+        dataset every rank calls it, and every rank gets rank 0's draw."""
         if dataset.is_empty():
             raise ValueError("dataset must not be empty")
         D = dataset.output_size()
@@ -128,6 +113,8 @@ class PPCAModel(nn.Module):
         if empty:
             C[torch.as_tensor(empty, device=device)] = 0.0
         mean = torch.zeros(D, dtype=dtype, device=device)
+        if dataset_mesh(dataset) is not None:
+            api.replicate([C])
         return PPCAModel._from_params(C, mean, torch.ones((), dtype=dtype, device=device))
 
     # ------------------------------------------------------------------ #
@@ -197,9 +184,12 @@ class PPCAModel(nn.Module):
         return self.transform, self.mean, self.isotropic_noise
 
     def llk(self, dataset: Dataset) -> float:
-        """Weighted total log-likelihood (`ppca_model.rs:142-149`)."""
+        """Weighted total log-likelihood (`ppca_model.rs:142-149`); of all
+        ranks' rows for a sharded dataset."""
         if dataset.is_empty():
             return 0.0
+        if dataset_mesh(dataset) is not None:
+            return float(api.llk(*self._params(), dataset, block_size=config.block_size))
         return float((self.llks(dataset) * dataset.weights_dev).sum())
 
     def llks(self, dataset: Dataset) -> torch.Tensor:
@@ -208,13 +198,10 @@ class PPCAModel(nn.Module):
 
     def _readout(self, verb: str, dataset: Dataset):
         """``verb`` ("llks", "states" or "infer") of the dataset's route."""
-        route, bs = _route(dataset), config.block_size
-        args = (*self._params(), dataset.data)
-        if route.kind == "dense":
-            return getattr(df, verb)(*args, block_size=bs)
-        if route.kind == "pattern":
-            return getattr(pd, verb)(*args, dataset.mask, *route.pattern, block_size=bs)
-        return getattr(ml, verb)(*args, dataset.mask, block_size=bs)
+        if dataset_mesh(dataset) is not None:
+            return api.readout(verb, *self._params(), dataset, block_size=config.block_size)
+        return routes.readout(verb, routes.route(dataset), *self._params(), dataset,
+                              config.block_size)
 
     # ------------------------------------------------------------------ #
     # sampling (ppca_model.rs:164-191)
@@ -257,19 +244,30 @@ class PPCAModel(nn.Module):
     def infer(self, dataset: Dataset) -> "InferredMasked":
         return InferredMasked(self, *self._readout("infer", dataset))
 
-    def _smoothed(self, dataset: Dataset) -> torch.Tensor:
-        return self._readout("states", dataset) @ self.transform.T + self.mean
+    def _smoothed(self, dataset: Dataset, extrapolate: bool) -> Dataset:
+        """The smoothed (or extrapolated) values, with the dataset's weights
+        and place on its mesh: a sharded dataset's are this rank's rows and
+        columns."""
+        if dataset_mesh(dataset) is not None:
+            out = api.smooth(*self._params(), dataset, block_size=config.block_size,
+                             extrapolate=extrapolate)
+        else:
+            out = self._readout("states", dataset) @ self.transform.T + self.mean
+            if extrapolate:
+                out = torch.where(dataset.mask, dataset.data, out)
+        new = Dataset.unmasked(out, dataset.weights_dev)
+        new._shard = dataset._shard
+        return new
 
     def smooth(self, dataset: Dataset) -> Dataset:
         """De-noise observed values and fill missing ones
         (`ppca_model.rs:231-244`); preserves dataset weights."""
-        return Dataset.unmasked(self._smoothed(dataset), dataset.weights_dev)
+        return self._smoothed(dataset, extrapolate=False)
 
     def extrapolate(self, dataset: Dataset) -> Dataset:
         """Fill missing values, keeping observed ones untouched
         (`ppca_model.rs:248-261`); preserves dataset weights."""
-        out = torch.where(dataset.mask, dataset.data, self._smoothed(dataset))
-        return Dataset.unmasked(out, dataset.weights_dev)
+        return self._smoothed(dataset, extrapolate=True)
 
     # ------------------------------------------------------------------ #
     # EM (ppca_model.rs:263-393)
@@ -295,23 +293,12 @@ class PPCAModel(nn.Module):
         tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(C.dtype, C.device)
         priors = dict(transformation_precision=tprec, noise_prior=noise_prior,
                       mean_prior=mean_prior)
-        route, bs = _route(dataset), config.block_size
-        weights = dataset.weights_dev
-        if route.kind == "dense":
-            stats = df.em_stats(C, mean, sigma, dataset.data, weights, block_size=bs)
-            new = df.em_finalize(C, mean, sigma, stats, **priors)
-        else:
-            if route.kind == "masked":
-                stats = ml.em_stats(C, mean, sigma, dataset.data, dataset.mask, weights,
-                                    block_size=bs)
-            elif route.order is not None:
-                data_sorted, perm, counts = route.order
-                stats = pd.em_stats_sorted(C, mean, sigma, data_sorted, weights[perm],
-                                           route.pattern[1], counts, block_size=bs)
-            else:
-                stats = pd.em_stats(C, mean, sigma, dataset.data, dataset.mask,
-                                    *route.pattern, weights, block_size=bs)
-            new = ml.em_finalize(C, mean, sigma, stats, **priors)
+        if dataset_mesh(dataset) is not None:
+            new, llk = api.em_step(C, mean, sigma, dataset, priors, block_size=config.block_size)
+            return PPCAModel._from_params(*new), llk
+        way = routes.route(dataset)
+        stats = routes.em_stats(way, C, mean, sigma, dataset, config.block_size)
+        new = routes.em_finalize(way, C, mean, sigma, stats, priors)
         return PPCAModel._from_params(*new), stats.llk
 
     def _iterate_with_llk(self, dataset: Dataset, prior: Optional[Prior]) -> Tuple["PPCAModel", float]:
@@ -323,7 +310,9 @@ class PPCAModel(nn.Module):
                   prior: Optional[Prior] = None) -> Tuple["PPCAModel", torch.Tensor]:
         """``n_iters`` (MAP-)EM iterations.  Returns ``(model, llks)`` with
         ``llks[i]`` the log-likelihood of the model *before* iteration ``i``;
-        nothing is copied to the host between iterations."""
+        nothing is copied to the host between iterations.  A sharded
+        dataset's steps each end in their collectives, as in a loop of
+        :meth:`iterate`."""
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
         model, llks = self, []

@@ -1,0 +1,80 @@
+"""How a dataset's computations run: the dense, pattern or masked route.
+
+Each dataset takes one of three routes (:func:`route`): fully observed data
+the dense path (``ops/dense_fast``), structured missingness the pattern path
+(``ops/pattern_dedup``), everything else the general masked path
+(``ops/masked_linalg``) (`ppca_rs_tpu/models/ppca.py:_impl_and_block`).
+The functions below call the route's readouts, EM statistics and M-step
+with the parameters they are given; a sharded dataset's verbs
+(``parallel/api.py``) pass the rank's block of columns and the model
+process group, which the pattern route never gets (a sharded dataset finds
+patterns on the data axis only).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+from ..dataset import Dataset
+from ..ops import dense_fast as df
+from ..ops import masked_linalg as ml
+from ..ops import pattern_dedup as pd
+
+
+class Route(NamedTuple):
+    """``kind`` is "dense", "pattern" or "masked"; a pattern route carries
+    ``(pidx, patterns)`` and, when the sorted copy is available,
+    ``(data_sorted, perm, counts)``."""
+
+    kind: str
+    pattern: Optional[tuple] = None
+    order: Optional[tuple] = None
+
+
+def route(dataset: Dataset) -> Route:
+    """Dense if every entry is observed; the pattern path if the masks
+    repeat (``Dataset.pattern_info``), with the per-segment EM when
+    ``Dataset.pattern_order`` is available; the masked path otherwise."""
+    if dataset.all_observed():
+        return Route("dense")
+    pattern = dataset.pattern_info()
+    if pattern is not None:
+        return Route("pattern", pattern, dataset.pattern_order())
+    return Route("masked")
+
+
+def readout(verb: str, way: Route, C, mean, sigma, dataset: Dataset, block_size: int,
+            group=None):
+    """``verb`` ("llks", "states" or "infer") of the dataset's rows on route
+    ``way``."""
+    args = (C, mean, sigma, dataset.data)
+    if way.kind == "dense":
+        return getattr(df, verb)(*args, block_size=block_size, group=group)
+    if way.kind == "pattern":
+        return getattr(pd, verb)(*args, dataset.mask, *way.pattern, block_size=block_size)
+    return getattr(ml, verb)(*args, dataset.mask, block_size=block_size, group=group)
+
+
+def em_stats(way: Route, C, mean, sigma, dataset: Dataset, block_size: int, group=None):
+    """The EM statistics of the dataset's rows on route ``way``
+    (``DenseEMStats`` on the dense route, ``EMStats`` otherwise)."""
+    weights = dataset.weights_dev
+    if way.kind == "dense":
+        return df.em_stats(C, mean, sigma, dataset.data, weights, block_size=block_size,
+                           group=group)
+    if way.kind == "masked":
+        return ml.em_stats(C, mean, sigma, dataset.data, dataset.mask, weights,
+                           block_size=block_size, group=group)
+    if way.order is not None:
+        data_sorted, perm, counts = way.order
+        return pd.em_stats_sorted(C, mean, sigma, data_sorted, weights[perm], way.pattern[1],
+                                  counts, block_size=block_size)
+    return pd.em_stats(C, mean, sigma, dataset.data, dataset.mask, *way.pattern, weights,
+                       block_size=block_size)
+
+
+def em_finalize(way: Route, C, mean, sigma, stats, priors: dict, group=None):
+    """The M-step of route ``way`` from its statistics: ``(new_C, new_mean,
+    new_sigma)``, the rank's rows with a model ``group``."""
+    finalize = df.em_finalize if way.kind == "dense" else ml.em_finalize
+    return finalize(C, mean, sigma, stats, **priors, group=group)

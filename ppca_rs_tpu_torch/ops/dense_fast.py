@@ -17,6 +17,12 @@ No kernel runs here (nor in the JAX package's dense path).  Semantically
 identical to the masked path with an all-True mask.  Rows are processed in
 blocks by a plain loop, so temporaries are O(block * D); zero-weight rows
 are neutral in every reduction.
+
+With a model process ``group`` (``parallel/``), ``C``, the mean and the data
+are this rank's block of the D columns, as in ``masked_linalg``: the
+shared Gram ``C^T C``, each block's projections and |r|^2 are summed over
+the group, ``cross`` and ``total_dev`` stay D_loc-local, and the M-step
+returns this rank's rows.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .kernels import LN_2PI
-from .masked_linalg import _blocks, _cat, _compute_dtype
+from .masked_linalg import _blocks, _cat, _compute_dtype, all_reduce_sum, gather_blocks, group_size
 
 
 class DensePosterior(NamedTuple):
@@ -36,62 +42,67 @@ class DensePosterior(NamedTuple):
     Sigma: torch.Tensor   # (k, k) = sigma^2 M^{-1}
 
 
-def dense_posterior(C, sigma) -> DensePosterior:
-    """The one shared k x k factorization."""
+def dense_posterior(C, sigma, group=None) -> DensePosterior:
+    """The one shared k x k factorization (the Gram summed over the model
+    ``group`` if given)."""
     k = C.shape[1]
     sigma2 = sigma * sigma
     eye = torch.eye(k, dtype=C.dtype, device=C.device)
-    M = C.T @ C + sigma2 * eye
+    (G,) = all_reduce_sum([C.T @ C], group)
+    M = G + sigma2 * eye
     L = torch.linalg.cholesky(M)
     Minv = torch.cholesky_solve(eye, L)
     logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
     return DensePosterior(M=M, Minv=Minv, logdet=logdet, Sigma=sigma2 * Minv)
 
 
-def _centered_products(C, mean, datab):
-    """b = (Y - mu) C and rowwise |Y - mu|^2, written against the centred
-    values: the expanded |Y|^2 - 2 Y.mu + |mu|^2 form cancels in float32
-    whenever |mu| is large against the residual spread."""
+def _centered_products(C, mean, datab, group=None):
+    """``(R, b, |R|^2)`` with R = Y - mu, b = R C (b and |R|^2 summed over
+    the model ``group`` if given), written against the centred values: the
+    expanded |Y|^2 - 2 Y.mu + |mu|^2 form cancels in float32 whenever |mu|
+    is large against the residual spread."""
     R = datab - mean
-    return R @ C, (R * R).sum(-1)
+    b, rnorm = all_reduce_sum((R @ C, (R * R).sum(-1)), group)
+    return R, b, rnorm
 
 
-def _d_obs(data, C):
-    """D in the compute dtype, never the storage dtype (a low-precision
-    d_obs would drag LN_2PI * d_obs down with it)."""
-    return torch.tensor(data.shape[1], dtype=_compute_dtype(data, C), device=data.device)
+def _d_obs(data, C, group=None):
+    """D (all the group's columns) in the compute dtype, never the storage
+    dtype (a low-precision d_obs would drag LN_2PI * d_obs down with it)."""
+    return torch.tensor(data.shape[1] * group_size(group), dtype=_compute_dtype(data, C),
+                        device=data.device)
 
 
-def llks(C, mean, sigma, data, *, block_size: int) -> torch.Tensor:
+def llks(C, mean, sigma, data, *, block_size: int, group=None) -> torch.Tensor:
     """Per-sample log-likelihood: one shared log-det and a quadratic form
     through the shared M^{-1}."""
     k = C.shape[1]
     dtype = _compute_dtype(data, C)
-    post = dense_posterior(C, sigma)
-    d_obs = _d_obs(data, C)
+    post = dense_posterior(C, sigma, group)
+    d_obs = _d_obs(data, C, group)
     logdet = post.logdet + 2.0 * torch.log(sigma) * (d_obs - k)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
-        b, rnorm = _centered_products(C, mean, data[lo:hi].to(dtype))
+        _, b, rnorm = _centered_products(C, mean, data[lo:hi].to(dtype), group)
         quad = (rnorm - ((b @ post.Minv) * b).sum(-1)) / (sigma * sigma)
         out.append(-0.5 * (quad + logdet + LN_2PI * d_obs))
     return _cat(out, data, dtype)
 
 
-def states(C, mean, sigma, data, *, block_size: int) -> torch.Tensor:
+def states(C, mean, sigma, data, *, block_size: int, group=None) -> torch.Tensor:
     """Posterior state means, (N, k)."""
     dtype = _compute_dtype(data, C)
-    post = dense_posterior(C, sigma)
-    out = [_centered_products(C, mean, data[lo:hi].to(dtype))[0] @ post.Minv
+    post = dense_posterior(C, sigma, group)
+    out = [_centered_products(C, mean, data[lo:hi].to(dtype), group)[1] @ post.Minv
            for lo, hi in _blocks(data.shape[0], block_size)]
     return _cat(out, data, dtype, C.shape[1])
 
 
-def infer(C, mean, sigma, data, *, block_size: int):
+def infer(C, mean, sigma, data, *, block_size: int, group=None):
     """``(states (N, k), covs (N, k, k))``; the covariances are one shared
     matrix broadcast over the rows (a view, not contiguous)."""
-    s = states(C, mean, sigma, data, block_size=block_size)
-    Sigma = dense_posterior(C, sigma).Sigma
+    s = states(C, mean, sigma, data, block_size=block_size, group=group)
+    Sigma = dense_posterior(C, sigma, group).Sigma
     return s, Sigma.expand(data.shape[0], *Sigma.shape)
 
 
@@ -109,7 +120,7 @@ class DenseEMStats(NamedTuple):
     llk: torch.Tensor           # scalar
 
 
-def em_stats(C, mean, sigma, data, weights, *, block_size: int) -> DenseEMStats:
+def em_stats(C, mean, sigma, data, weights, *, block_size: int, group=None) -> DenseEMStats:
     """Dense EM statistics, blocked over N.  No residual (B, D) array:
 
         |dev|^2   = |R|^2 - b.s - sigma^2 |s|^2   (M s = b, G = M - sigma^2 I)
@@ -118,8 +129,8 @@ def em_stats(C, mean, sigma, data, weights, *, block_size: int) -> DenseEMStats:
     D, k = C.shape
     dtype = _compute_dtype(data, C)
     sigma2 = sigma * sigma
-    post = dense_posterior(C, sigma)
-    d_obs = _d_obs(data, C)
+    post = dense_posterior(C, sigma, group)
+    d_obs = _d_obs(data, C, group)
     logdet_obs = post.logdet + 2.0 * torch.log(sigma) * (d_obs - k)
     G = post.M - sigma2 * torch.eye(k, dtype=dtype, device=C.device)   # C^T C
     cross = torch.zeros((D, k), dtype=dtype, device=data.device)
@@ -130,8 +141,7 @@ def em_stats(C, mean, sigma, data, weights, *, block_size: int) -> DenseEMStats:
     w_sum, dev_sq, llk = zero, zero, zero
     for lo, hi in _blocks(data.shape[0], block_size):
         w = weights[lo:hi].to(dtype)
-        R = data[lo:hi].to(dtype) - mean
-        b = R @ C
+        R, b, rnorm = _centered_products(C, mean, data[lo:hi].to(dtype), group)
         s = b @ post.Minv
         sw = s * w[:, None]
         cross += R.T @ sw
@@ -139,7 +149,6 @@ def em_stats(C, mean, sigma, data, weights, *, block_size: int) -> DenseEMStats:
         wR += w @ R
         sw_sum += sw.sum(0)
         w_sum = w_sum + w.sum()
-        rnorm = (R * R).sum(-1)
         bs = (b * s).sum(-1)
         # clamp: the cancellation can dip epsilon-negative in float32 when
         # the model explains the data almost exactly (|dev|^2 ~ 0); a
@@ -159,10 +168,11 @@ def em_stats(C, mean, sigma, data, weights, *, block_size: int) -> DenseEMStats:
 
 
 def em_finalize(C, mean, sigma, stats: DenseEMStats, *, transformation_precision,
-                noise_prior=None, mean_prior=None):
+                noise_prior=None, mean_prior=None, group=None):
     """Dense M-step: ONE (k, k) solve with D right-hand sides replaces the D
     per-row solves; the noise and mean updates use the scalar observation
-    count.  Returns ``(new_C, new_mean, new_sigma)``."""
+    count.  Returns ``(new_C, new_mean, new_sigma)``; with a model
+    ``group``, this rank's rows of the transform and the mean."""
     D, k = C.shape
     dtype = C.dtype
     A = stats.S_common + transformation_precision * torch.eye(k, dtype=dtype, device=C.device)
@@ -170,7 +180,7 @@ def em_finalize(C, mean, sigma, stats: DenseEMStats, *, transformation_precision
     new_C = torch.where(torch.isfinite(sol).all(), sol, C)
 
     sq = stats.square_error + stats.dev_sq
-    n_obs = stats.w_sum * D
+    n_obs = stats.w_sum * (D * group_size(group))
     if noise_prior is not None:
         alpha, beta = noise_prior
         sigma2_new = (sq / 2.0 + beta) / (n_obs / 2.0 + alpha + 1.0)
@@ -184,9 +194,12 @@ def em_finalize(C, mean, sigma, stats: DenseEMStats, *, transformation_precision
                            0.0) + mean
     if mean_prior is not None:
         prior_mean, prior_precision = mean_prior
+        full_mean = new_mean if group is None else gather_blocks([(new_mean, 0)], group)[0]
         data_precision = stats.w_sum / sigma2_new
         total_precision = prior_precision + data_precision * torch.eye(
             prior_precision.shape[0], dtype=dtype, device=C.device)
-        numerator = prior_precision @ prior_mean + data_precision * new_mean
+        numerator = prior_precision @ prior_mean + data_precision * full_mean
         new_mean = torch.linalg.solve(total_precision, numerator)
+        if group is not None:
+            new_mean = new_mean.narrow(0, torch.distributed.get_rank(group) * D, D)
     return new_C, new_mean, torch.sqrt(sigma2_new)

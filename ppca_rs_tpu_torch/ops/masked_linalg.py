@@ -19,15 +19,59 @@ observed rows of ``C``:
 Everything is blocked over N by a plain loop over row slices (the last block
 is simply shorter), so peak memory is O(block * (D + k^2)).  An all-masked,
 zero-weight row is neutral in every reduction.
+
+On a mesh's model axis (``parallel/``) a rank holds a block of D_loc of
+the D columns and the matching rows of ``C`` and the mean; the functions
+then take that process ``group``.  Per block, the Gram, the projections,
+|r|^2 and the observed counts are summed over the group in one all_reduce
+before the kernel (the JAX package's ``_psum`` sites), so the kernel's
+outputs, ``llk``, ``square_error`` and ``dev_sq`` come out the same on every
+rank of the group; ``cross``, ``S``, ``total_dev`` and ``totals`` stay
+D_loc-local.  Without a group nothing is reduced.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from . import kernels
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> list:
+    """The tensors summed over the process ``group`` by ONE all_reduce of
+    one flat buffer (they share a dtype and a device); the tensors
+    themselves when ``group`` is None."""
+    if group is None:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [part.view(t.shape) for part, t in zip(parts, tensors)]
+
+
+def gather_blocks(parts: Sequence[Tuple[torch.Tensor, int]], group) -> list:
+    """Full tensors from the blocks the ranks of ``group`` hold: for each
+    ``(x, dim)`` pair, rank r holds block r of ``dim``.  Each rank writes
+    its block into a zero-filled full buffer and one all_reduce sums them
+    (exact: every entry has one non-zero term); gloo gathers no CUDA
+    tensors, an all_reduce works on every backend."""
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    full = []
+    for x, dim in parts:
+        shape = list(x.shape)
+        n = shape[dim]
+        shape[dim] = n * size
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, rank * n, n).copy_(x)
+        full.append(buf)
+    return all_reduce_sum(full, group)
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def outer_flat(C: torch.Tensor) -> torch.Tensor:
@@ -47,17 +91,16 @@ class BlockPosterior(NamedTuple):
     out: tuple             # spd_estep outputs for the requested want
 
 
-def block_posterior(C, CC, mean, sigma, data, mask_f, want: str) -> BlockPosterior:
+def block_posterior(C, CC, mean, sigma, data, mask_f, want: str, group=None) -> BlockPosterior:
     """The E-step of one block (`ppca_model.rs:195-208`, batched): the
-    matmul prep, then the SPD kernel's ``want`` variant."""
+    matmul prep, summed over the model ``group`` if given, then the SPD
+    kernel's ``want`` variant."""
     k = C.shape[1]
     n = data.shape[0]
     R = mask_f * (data - mean)
-    b = R @ C
-    G = (mask_f @ CC).reshape(n, k, k)
-    rnorm = (R * R).sum(-1)
-    d_obs = mask_f.sum(-1)
-    out = kernels.spd_estep(sigma, G, b, rnorm, d_obs, want=want)
+    b, G, rnorm, d_obs = all_reduce_sum((R @ C, mask_f @ CC, (R * R).sum(-1), mask_f.sum(-1)),
+                                        group)
+    out = kernels.spd_estep(sigma, G.reshape(n, k, k), b, rnorm, d_obs, want=want)
     return BlockPosterior(R, b, rnorm, d_obs, out)
 
 
@@ -70,19 +113,19 @@ def _compute_dtype(data: torch.Tensor, C: torch.Tensor) -> torch.dtype:
     return torch.promote_types(torch.promote_types(data.dtype, torch.float32), C.dtype)
 
 
-def llks(C, mean, sigma, data, mask, *, block_size: int) -> torch.Tensor:
+def llks(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.Tensor:
     """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
     dtype = _compute_dtype(data, C)
     CC = outer_flat(C)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
         post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                               mask[lo:hi].to(dtype), "llk")
+                               mask[lo:hi].to(dtype), "llk", group)
         out.append(post.out[0])
     return _cat(out, data, dtype)
 
 
-def infer(C, mean, sigma, data, mask, *, block_size: int):
+def infer(C, mean, sigma, data, mask, *, block_size: int, group=None):
     """Posterior states and covariances ``(states (N,k), covs (N,k,k))``
     (`ppca_model.rs:221-227`)."""
     dtype = _compute_dtype(data, C)
@@ -90,14 +133,14 @@ def infer(C, mean, sigma, data, mask, *, block_size: int):
     states_, covs = [], []
     for lo, hi in _blocks(data.shape[0], block_size):
         post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                               mask[lo:hi].to(dtype), "infer")
+                               mask[lo:hi].to(dtype), "infer", group)
         states_.append(post.out[0])
         covs.append(post.out[1])
     k = C.shape[1]
     return _cat(states_, data, dtype, k), _cat(covs, data, dtype, k, k)
 
 
-def states(C, mean, sigma, data, mask, *, block_size: int) -> torch.Tensor:
+def states(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.Tensor:
     """Posterior state means only, (N, k) — the path behind smooth and
     extrapolate (`ppca_model.rs:231-261`)."""
     dtype = _compute_dtype(data, C)
@@ -105,7 +148,7 @@ def states(C, mean, sigma, data, mask, *, block_size: int) -> torch.Tensor:
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
         post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                               mask[lo:hi].to(dtype), "states")
+                               mask[lo:hi].to(dtype), "states", group)
         out.append(post.out[0])
     return _cat(out, data, dtype, C.shape[1])
 
@@ -129,10 +172,13 @@ class EMStats(NamedTuple):
     llk: torch.Tensor           # scalar   weighted llk of the *current* model
 
 
-def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int) -> EMStats:
+def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None) -> EMStats:
     """One pass over the data: E-step posteriors and every M-step sufficient
     statistic (`ppca_model.rs:277-358`), plus the weighted log-likelihood of
-    the current model.  Nothing is copied to the host."""
+    the current model.  Nothing is copied to the host.  With a model
+    ``group`` the D-indexed statistics are those of this rank's columns;
+    ``square_error``, ``dev_sq`` and ``llk`` come from the group-summed
+    E-step inputs, so they are the whole rows' already."""
     D, k = C.shape
     dtype = _compute_dtype(data, C)
     CC = outer_flat(C)
@@ -146,7 +192,8 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int) -> EMStats
     for lo, hi in _blocks(data.shape[0], block_size):
         mask_f = mask[lo:hi].to(dtype)
         w = weights[lo:hi].to(dtype)
-        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype), mask_f, "fullt")
+        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype), mask_f, "fullt",
+                               group)
         s, SM, llk_b, sq_b = post.out
         sw = s * w[:, None]
         cross += post.R.T @ sw
@@ -197,14 +244,19 @@ def symmetric_from_lower(S_sq: torch.Tensor) -> torch.Tensor:
 
 def em_finalize(C, mean, sigma, stats: EMStats, *, transformation_precision,
                 noise_prior: Optional[tuple] = None, mean_prior: Optional[tuple] = None,
-                transform_rows: Optional[torch.Tensor] = None):
+                transform_rows: Optional[torch.Tensor] = None, group=None):
     """M-step parameter updates from the sufficient statistics
     (`ppca_model.rs:294-393`).  Returns ``(new_C, new_mean, new_sigma)``.
 
     ``transform_rows`` (D, k), when given, are the row solves already done
     by the caller (the mixture M-step solves every component's rows in one
     launch, ``mix_fused.mix_em_finalize``); they take the same
-    keep-old-row fallback."""
+    keep-old-row fallback.
+
+    With a model ``group``, ``C``, ``mean`` and the D-indexed statistics
+    are this rank's block of rows, and so are the new transform and mean
+    it returns; the observation count is summed over the group, and a mean
+    prior sees the whole mean (gathered)."""
     D, k = C.shape
 
     # --- transform rows, keeping the old row where the solve is non-finite
@@ -219,7 +271,7 @@ def em_finalize(C, mean, sigma, stats: EMStats, *, transformation_precision,
 
     # --- isotropic noise (ppca_model.rs:360-371)
     sq = stats.square_error + stats.dev_sq
-    n_obs = stats.totals.sum()
+    (n_obs,) = all_reduce_sum([stats.totals.sum()], group)
     if noise_prior is not None:
         alpha, beta = noise_prior
         # inverse-gamma MAP mode: (sq/2 + beta) / (n/2 + alpha + 1)
@@ -235,10 +287,15 @@ def em_finalize(C, mean, sigma, stats: EMStats, *, transformation_precision,
     ) + mean
     if mean_prior is not None:
         prior_mean, prior_precision = mean_prior
+        totals, full_mean = stats.totals, new_mean
+        if group is not None:
+            totals, full_mean = gather_blocks([(totals, 0), (new_mean, 0)], group)
         # precision-weighted combine solved directly (prior.rs:97-110)
-        data_precision_diag = stats.totals / sigma2_new
+        data_precision_diag = totals / sigma2_new
         total_precision = prior_precision + torch.diag(data_precision_diag)
-        numerator = prior_precision @ prior_mean + data_precision_diag * new_mean
+        numerator = prior_precision @ prior_mean + data_precision_diag * full_mean
         new_mean = torch.linalg.solve(total_precision, numerator)
+        if group is not None:
+            new_mean = new_mean.narrow(0, dist.get_rank(group) * D, D)
 
     return new_C, new_mean, torch.sqrt(sigma2_new)

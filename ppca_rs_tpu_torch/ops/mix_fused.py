@@ -28,6 +28,13 @@ factorization to an M x P table (:func:`compute_mix_tables`, the ``full``
 kernel variant).  Heterogeneous state sizes arrive zero-padded to the
 largest k (``models/mix.py``); padded latent dimensions are exactly inert.
 Rows are blocked by plain loops over row slices.
+
+The general route takes an optional model process ``group`` (``parallel/``),
+as ``masked_linalg`` does: the stacked transforms, means and data are this
+rank's block of the D columns, each block's Grams, projections, |r|^2 and
+observed counts are summed over the group before the kernel (one
+all_reduce), and the D-indexed statistics and the M-step's rows stay
+local.  The table route runs on the data axis only.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch
 from ..config import config
 from . import kernels
 from . import masked_linalg as ml
-from .masked_linalg import _blocks, _cat, _compute_dtype
+from .masked_linalg import _blocks, _cat, _compute_dtype, all_reduce_sum
 from .pattern_dedup import PatternTables
 
 
@@ -94,6 +101,17 @@ def _projections(Cs, center: _Center, datab, mask_f):
     return md0, b, rnorm
 
 
+def _general_inputs(Cs, CCs, center: _Center, datab, mask_f, group):
+    """``(md0, G (M, B, k*k), b, rnorm, d_obs)`` of one block of the general
+    route: :func:`_projections`, the Gram ``mask @ CC_m`` (already in the
+    kernel's component-major order) and the observed counts, the last four
+    summed over the model ``group`` in one all_reduce if given."""
+    md0, b, rnorm = _projections(Cs, center, datab, mask_f)
+    G, b, rnorm, d_obs = all_reduce_sum((torch.matmul(mask_f, CCs), b, rnorm, mask_f.sum(-1)),
+                                        group)
+    return md0, G, b, rnorm, d_obs
+
+
 def _residual(means, datab, mask_f):
     """The per-component masked residuals ``mask * (y - mu_m)``, (M, B, D)."""
     return mask_f * (datab - means[:, None, :])
@@ -136,16 +154,17 @@ def _weighted_S(mask_f, SM, resp):
     return torch.bmm(mask_f.T.expand(M, -1, -1), SMw)
 
 
-def _block_post(Cs, CCs, means, sigmas, datab, mask_f, want: str):
+def _block_post(Cs, CCs, means, sigmas, datab, mask_f, want: str, group=None):
     """Per-component posteriors of one block with the residual
     materialized: ``(R (M, B, D), (llks, s, mat, sq))``."""
     R = _residual(means, datab, mask_f)
-    out = _estep(sigmas, torch.matmul(mask_f, CCs), torch.bmm(R, Cs), (R * R).sum(-1),
-                 mask_f.sum(-1), want)
-    return R, out
+    G, b, rnorm, d_obs = all_reduce_sum(
+        (torch.matmul(mask_f, CCs), torch.bmm(R, Cs), (R * R).sum(-1), mask_f.sum(-1)), group)
+    return R, _estep(sigmas, G, b, rnorm, d_obs, want)
 
 
-def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f, w) -> MixEMStats:
+def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f, w,
+                    group=None) -> MixEMStats:
     """One block of the fused EM with no (M, B, D) temporary: projections
     from :func:`_projections`, the Gram ``mask @ CC_m`` (M, B, k*k) as one
     batched matmul (already in the kernel's component-major order), and the
@@ -157,8 +176,8 @@ def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f
     :func:`_block_mix`, which is immune)."""
     M, D, _ = Cs.shape
     _, dm, _ = center
-    md0, b, rnorm = _projections(Cs, center, datab, mask_f)
-    llks, s, SM, sq_b = _estep(sigmas, torch.matmul(mask_f, CCs), b, rnorm, mask_f.sum(-1), "fullt")
+    md0, G, b, rnorm, d_obs = _general_inputs(Cs, CCs, center, datab, mask_f, group)
+    llks, s, SM, sq_b = _estep(sigmas, G, b, rnorm, d_obs, "fullt")
     resp, llk = _responsibilities(llks, log_weights, w)
     srw = s * resp[..., None]
     c2 = torch.bmm(mask_f.T.expand(M, -1, -1), srw)            # (M, D, k) mask^T (s resp)
@@ -180,17 +199,19 @@ def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f
     )
 
 
-def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w) -> MixEMStats:
+def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w, group=None) -> MixEMStats:
     """One block of the fused EM with the (M, B, D) residual and deviation
-    materialized (``config.mix_exact_rnorm``)."""
-    R, (llks, s, SM, sq_b) = _block_post(Cs, CCs, means, sigmas, datab, mask_f, "fullt")
+    materialized (``config.mix_exact_rnorm``).  The deviation is this
+    rank's columns, so its squared norm is summed over the model group."""
+    R, (llks, s, SM, sq_b) = _block_post(Cs, CCs, means, sigmas, datab, mask_f, "fullt", group)
     resp, llk = _responsibilities(llks, log_weights, w)
     dev = mask_f * (datab - torch.bmm(s, Cs.mT) - means[:, None, :])   # (M, B, D)
+    (dev_sq,) = all_reduce_sum([(resp * (dev * dev).sum(-1)).sum(-1)], group)
     return MixEMStats(
         cross=torch.bmm(R.mT, s * resp[..., None]),
         S=_weighted_S(mask_f, SM, resp),
         square_error=(resp * sq_b).sum(-1),
-        dev_sq=(resp * (dev * dev).sum(-1)).sum(-1),
+        dev_sq=dev_sq,
         total_dev=torch.bmm(resp[:, None, :], dev).squeeze(1),
         totals=resp @ mask_f,
         resp_sum=resp.sum(-1),
@@ -200,11 +221,15 @@ def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w) -> MixEMSt
 
 
 def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
-                 block_size: int) -> MixEMStats:
-    """One fused pass over non-empty data: every component's EM
-    statistics, the responsibilities, the mixture llk and the new-weight
-    numerators.  ``block_size`` rows of data make M * block_size kernel
-    samples."""
+                 block_size: int, pidx=None, patterns=None, group=None) -> MixEMStats:
+    """One fused pass over the data: every component's EM statistics, the
+    responsibilities, the mixture llk and the new-weight numerators.
+    ``block_size`` rows of data make M * block_size kernel samples.  With
+    ``pidx``/``patterns``, the table route (:func:`mix_em_stats_pat`).
+    No rows give zero statistics (a rank of a mesh may hold none)."""
+    if pidx is not None:
+        return mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
+                                weights, block_size=block_size)
     dtype = _compute_dtype(data, Cs)
     CCs = ml.outer_flat(Cs)
     center = None if config.mix_exact_rnorm else _center_prep(Cs, means)
@@ -212,10 +237,15 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
     for lo, hi in _blocks(data.shape[0], block_size):
         datab, mask_f, w = data[lo:hi].to(dtype), mask[lo:hi].to(dtype), weights[lo:hi].to(dtype)
         if center is None:
-            new = _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w)
+            new = _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w, group)
         else:
-            new = _block_mix_fast(Cs, CCs, center, sigmas, log_weights, datab, mask_f, w)
+            new = _block_mix_fast(Cs, CCs, center, sigmas, log_weights, datab, mask_f, w, group)
         acc = _accumulate(acc, new)
+    if acc is None:
+        M, D, k = Cs.shape
+        opts = dict(dtype=dtype, device=data.device)
+        acc = MixEMStats(*(torch.zeros(shape, **opts) for shape in (
+            (M, D, k), (M, D, k * k), (M,), (M,), (M, D), (M, D), (M,), (M,), ())))
     return acc
 
 
@@ -337,7 +367,7 @@ def mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
 
 
 def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *, transformation_precision,
-                    noise_prior=None, mean_prior=None):
+                    noise_prior=None, mean_prior=None, group=None):
     """Per-component M-step (``masked_linalg.em_finalize``) plus the new
     mixture log-weights (`mix.rs:324-335`).  Returns ``(new_Cs, new_means,
     new_sigmas, new_log_weights)``.
@@ -348,7 +378,8 @@ def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *, transformation_prec
     triangle, so a singular row (an empty dimension with lambda = 0) goes
     non-finite alone and keeps its old row.  A dead component (resp_max =
     0: every responsibility underflowed) keeps its parameters and gets
-    log-weight -inf."""
+    log-weight -inf.  With a model ``group``, the new transforms and means
+    are this rank's rows (``masked_linalg.em_finalize``)."""
     M, D, k = Cs.shape
     alive = stats.resp_max > 0
     inv_scale = torch.where(alive, 1.0 / torch.where(alive, stats.resp_max, 1.0), 0.0)
@@ -360,7 +391,8 @@ def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *, transformation_prec
     new = [ml.em_finalize(Cs[m], means[m], sigmas[m],
                           ml.EMStats(*(x[m] for x in scaled), llk=zero),
                           transformation_precision=transformation_precision,
-                          noise_prior=noise_prior, mean_prior=mean_prior, transform_rows=rows[m])
+                          noise_prior=noise_prior, mean_prior=mean_prior, transform_rows=rows[m],
+                          group=group)
            for m in range(M)]
     new_Cs, new_means, new_sigmas = (torch.stack(parts) for parts in zip(*new))
     new_Cs = torch.where(alive[:, None, None], new_Cs, Cs)
@@ -374,15 +406,16 @@ def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *, transformation_prec
 # readouts
 
 
-def _block_llks_kernel(Cs, CCs, center: _Center, sigmas, datab, mask_f, want: str):
+def _block_llks_kernel(Cs, CCs, center: _Center, sigmas, datab, mask_f, want: str, group=None):
     """llk / states / infer of one block of the general route: the Gram and
     the projections of all components, then one kernel launch.  Returns
     ``(llks (M, B), s (M, B, k), Sigma (M, B, k, k), sq)`` as :func:`_estep`."""
-    _, b, rnorm = _projections(Cs, center, datab, mask_f)
-    return _estep(sigmas, torch.matmul(mask_f, CCs), b, rnorm, mask_f.sum(-1), want)
+    _, G, b, rnorm, d_obs = _general_inputs(Cs, CCs, center, datab, mask_f, group)
+    return _estep(sigmas, G, b, rnorm, d_obs, want)
 
 
-def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, pidx, patterns):
+def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, pidx, patterns,
+                    group=None):
     """Per block: ``(llks (M, B), s (M, B, k), Sigma (M, B, k, k))`` from the
     kernel's ``want`` variant (general route) or the tables (``pidx``)."""
     dtype = _compute_dtype(data, Cs)
@@ -394,7 +427,8 @@ def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, p
     for lo, hi in _blocks(data.shape[0], block_size):
         datab, mask_f = data[lo:hi].to(dtype), mask[lo:hi].to(dtype)
         if pidx is None:
-            llks, s, Sig, _ = _block_llks_kernel(Cs, CCs, center, sigmas, datab, mask_f, want)
+            llks, s, Sig, _ = _block_llks_kernel(Cs, CCs, center, sigmas, datab, mask_f, want,
+                                                 group)
         else:
             llks, s, Sig, _, _, _ = _block_post_pat(Cs, means, sigmas, tables, datab, mask_f,
                                                     pidx[lo:hi], center)
@@ -402,16 +436,17 @@ def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, p
 
 
 def mix_llks(Cs, means, sigmas, data, mask, *, block_size: int, pidx=None,
-             patterns=None) -> torch.Tensor:
+             patterns=None, group=None) -> torch.Tensor:
     """(N, M) per-component per-sample log-likelihoods in ONE pass (the
     reference makes M, `mix.rs:137-159`)."""
     out = [llks.T for _, _, llks, _, _ in
-           _readout_blocks(Cs, means, sigmas, data, mask, "llk", block_size, pidx, patterns)]
+           _readout_blocks(Cs, means, sigmas, data, mask, "llk", block_size, pidx, patterns,
+                           group)]
     return _cat(out, data, _compute_dtype(data, Cs), Cs.shape[0])
 
 
 def mix_infer(Cs, means, sigmas, log_weights, data, mask, *, block_size: int, pidx=None,
-              patterns=None):
+              patterns=None, group=None):
     """``(log_post (N, M), states (M, N, k), covs (M, N, k, k))`` in ONE pass
     (the reference makes M llk and M infer passes, `mix.rs:205-236`).  The
     covariances come from the ``infer`` variant (sigma^2 M^{-1} directly)
@@ -420,7 +455,7 @@ def mix_infer(Cs, means, sigmas, log_weights, data, mask, *, block_size: int, pi
     dtype = _compute_dtype(data, Cs)
     llks, states, covs = [], [], []
     for _, _, l_b, s_b, c_b in _readout_blocks(Cs, means, sigmas, data, mask, "infer",
-                                               block_size, pidx, patterns):
+                                               block_size, pidx, patterns, group):
         llks.append(l_b.T)
         states.append(s_b)
         covs.append(c_b)
@@ -433,7 +468,7 @@ def mix_infer(Cs, means, sigmas, log_weights, data, mask, *, block_size: int, pi
 
 
 def mix_smooth(Cs, means, sigmas, log_weights, data, mask, *, block_size: int,
-               extrapolate: bool = False, pidx=None, patterns=None) -> torch.Tensor:
+               extrapolate: bool = False, pidx=None, patterns=None, group=None) -> torch.Tensor:
     """Posterior-weighted smoothing (`mix.rs:239-251`), or with
     ``extrapolate=True`` extrapolation (`mix.rs:253-265`), in one pass: per
     block the posterior weights fold into the states, so the M-component
@@ -442,7 +477,7 @@ def mix_smooth(Cs, means, sigmas, log_weights, data, mask, *, block_size: int,
     C_flat = Cs.mT.reshape(M * k, D)
     out = []
     for datab, maskb, llks, s, _ in _readout_blocks(Cs, means, sigmas, data, mask, "states",
-                                                    block_size, pidx, patterns):
+                                                    block_size, pidx, patterns, group):
         post = torch.softmax(llks + log_weights[:, None], 0)                  # (M, B)
         ws = (post[..., None] * s).transpose(0, 1).reshape(datab.shape[0], M * k)
         sm = ws @ C_flat + post.T @ means

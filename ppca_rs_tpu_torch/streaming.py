@@ -31,7 +31,15 @@ decided on the device the first time and recorded on the host chunk, so a
 chunk passed again is not examined again.  ``prefetch`` bounds how far the
 host runs ahead of the device: after enqueueing the statistics of chunk i
 it waits for those of chunk i - prefetch to finish (:func:`_accumulate`).
-The data-axis-sharded chunks of the JAX package wait for ``parallel/``.
+
+Across ranks (``parallel/``): with a ``mesh``, each rank streams its own
+chunks -- plain datasets, or data-axis-sharded ones, whose mesh is used
+when none is given -- and computes their statistics locally; the pass's
+statistics and row count are summed over the mesh's data axis once, after
+the rank's last chunk (``parallel.api.reduce_stats``; a mixture's
+``combine_mix_stats``), so ranks may stream different numbers of chunks.
+Model-axis chunks are refused: their D-indexed statistics would be
+column-local.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from .ops import dense_fast as df
 from .ops import masked_linalg as ml
 from .ops import mix_fused as mf
 from .ops import pattern_dedup as pd
+from .parallel import api
+from .parallel.mesh import MODEL_AXIS, axis_size, dataset_mesh
 from .prior import Prior
 from .trainer import Metric, MetricsCallback, _train
 
@@ -84,6 +94,7 @@ class _Transfer:
         for t in moved:
             t.record_stream(compute)
         new = Dataset.from_parts(*moved[:3])
+        new._shard = ds._shard
         new._all_observed = ds._all_observed
         new._patterns = tuple(moved[3:]) if patterns else ds._patterns
         return new
@@ -116,7 +127,8 @@ def _keep_route(src: Dataset, ds: Dataset) -> None:
 def _accumulate(chunks: Sequence[ChunkLike], device: torch.device, stats_fn, add_fn,
                 prefetch: int):
     """The statistics of every chunk, computed on ``device`` one chunk at
-    a time and summed by ``add_fn``.  Returns ``(total, n_samples)``.
+    a time and summed by ``add_fn``.  Returns ``(total, n_samples)``, the
+    rows of this rank's chunks.
 
     A chunk this loop brings in (a callable's result, or a dataset copied
     to the device) holds device memory until its statistics are computed.
@@ -136,7 +148,7 @@ def _accumulate(chunks: Sequence[ChunkLike], device: torch.device, stats_fn, add
     for chunk in chunks:
         src = _resolve(chunk)
         ds = transfer(src)
-        n_samples += len(ds)
+        n_samples += int(ds.data.shape[0])
         stats = stats_fn(ds)
         _keep_route(src, ds)
         total = stats if total is None else add_fn(total, stats)
@@ -161,9 +173,38 @@ def _dense_to_masked_stats(st: df.DenseEMStats) -> ml.EMStats:
                       st.square_error, st.dev_sq, st.total_dev, st.w_sum.expand(D), st.llk)
 
 
+def _data_axis_only(mesh):
+    """``mesh``, refused when it has a model axis: the D-indexed statistics
+    of a column block are no statistics of the whole rows."""
+    if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1:
+        raise ValueError(
+            "streaming chunks may be data-axis sharded only (model-axis "
+            "sharding keeps D-indexed statistics device-local)"
+        )
+    return mesh
+
+
+def _chunk_mesh(ds: Dataset, seen: list):
+    """Record a sharded chunk's mesh in ``seen``; refuse model-axis chunks."""
+    mesh = _data_axis_only(dataset_mesh(ds))
+    if mesh is not None:
+        seen.append(mesh)
+
+
+def _pass_total(total, n: int, mesh, seen: list, reduce_fn):
+    """The pass's statistics and row count over the data axis of ``mesh``
+    (or of the chunks' mesh): one statistics all_reduce after the last
+    chunk, and one of the row count."""
+    mesh = mesh if mesh is not None else (seen[0] if seen else None)
+    if mesh is None:
+        return total, n
+    return reduce_fn(total, mesh), api.count_rows(n, mesh)
+
+
 def _chunk_stats(model: PPCAModel, ds: Dataset) -> ml.EMStats:
-    """EM statistics of one chunk on its route (fully observed: the dense
-    pass; repeating masks: the pattern tables; otherwise the masked pass)."""
+    """EM statistics of one chunk's rows on its route (fully observed: the
+    dense pass; repeating masks: the pattern tables; otherwise the masked
+    pass)."""
     args, bs = model._params(), config.block_size
     if ds.all_observed():
         return _dense_to_masked_stats(df.em_stats(*args, ds.data, ds.weights_dev, block_size=bs))
@@ -178,44 +219,61 @@ def _stats_add(a: ml.EMStats, b: ml.EMStats) -> ml.EMStats:
 
 
 def _step(model: PPCAModel, chunks: Sequence[ChunkLike], prior: Optional[Prior],
-          prefetch: int):
+          prefetch: int, mesh=None):
     """One streamed EM iteration: ``(new model, llk of model as a 0-dim
-    tensor, number of samples)``."""
+    tensor, number of samples)``, over all ranks with a mesh."""
     C, mean, sigma = model._params()
     tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(C.dtype, C.device)
-    total, n = _accumulate(chunks, C.device, lambda ds: _chunk_stats(model, ds), _stats_add,
-                           prefetch)
+    _data_axis_only(mesh)
+    seen: list = []
+
+    def stats(ds):
+        _chunk_mesh(ds, seen)
+        return _chunk_stats(model, ds)
+
+    total, n = _accumulate(chunks, C.device, stats, _stats_add, prefetch)
+    total, n = _pass_total(total, n, mesh, seen, api.reduce_stats)
     new = ml.em_finalize(C, mean, sigma, total, transformation_precision=tprec,
                          noise_prior=noise_prior, mean_prior=mean_prior)
     return PPCAModel._from_params(*new), total.llk, n
 
 
 def iterate_streamed(model: PPCAModel, chunks: Sequence[ChunkLike],
-                     prior: Optional[Prior] = None, prefetch: int = 1):
+                     prior: Optional[Prior] = None, prefetch: int = 1, mesh=None):
     """One EM iteration over a stream of chunks.  Returns ``(new_model,
     llk)``, llk the total log-likelihood of ``model`` over all chunks: the
     values of ``model._iterate_with_llk`` on the concatenated dataset.
-    ``prefetch`` bounds the chunks in flight (:func:`_accumulate`)."""
-    new, llk, _ = _step(model, chunks, prior, prefetch)
+    ``prefetch`` bounds the chunks in flight (:func:`_accumulate`).  With
+    ``mesh`` (or data-axis-sharded chunks), this rank's chunks are one part
+    of the stream, and every rank of the mesh calls it."""
+    new, llk, _ = _step(model, chunks, prior, prefetch, mesh)
     return new, float(llk)
 
 
 def _mix_step(mix: PPCAMix, chunks: Sequence[ChunkLike], prior: Optional[Prior],
-              prefetch: int):
+              prefetch: int, mesh=None):
     """One streamed fused mixture EM iteration: ``(new mixture, llk, number
     of samples)``."""
     params = mix._stacked_params()
-    total, n = _accumulate(chunks, mix.device, lambda ds: mix._em_stats(ds, *params),
-                           mf._accumulate, prefetch)
+    _data_axis_only(mesh)
+    seen: list = []
+
+    def stats(ds):
+        _chunk_mesh(ds, seen)
+        return mix._em_stats(ds, *params)
+
+    total, n = _accumulate(chunks, mix.device, stats, mf._accumulate, prefetch)
+    total, n = _pass_total(total, n, mesh, seen, api.combine_mix_stats)
     return mix._finalize(*params, total, prior), total.llk, n
 
 
 def iterate_mix_streamed(mix: PPCAMix, chunks: Sequence[ChunkLike],
-                         prior: Optional[Prior] = None, prefetch: int = 1):
+                         prior: Optional[Prior] = None, prefetch: int = 1, mesh=None):
     """One fused mixture EM iteration over a stream of chunks: the values of
     ``mix._iterate_with_llk`` on the concatenated dataset.  Chunks may be
-    resident or lazy callables, mixed freely."""
-    new, llk, _ = _mix_step(mix, chunks, prior, prefetch)
+    resident or lazy callables, mixed freely; ``mesh`` as in
+    :func:`iterate_streamed`."""
+    new, llk, _ = _mix_step(mix, chunks, prior, prefetch, mesh)
     return new, float(llk)
 
 
@@ -224,14 +282,25 @@ def _first_chunk(chunks: List[ChunkLike]) -> Dataset:
     return _resolve(chunks[0]).to(config.resolve_device())
 
 
+def _initialized(make, chunks: List[ChunkLike], mesh):
+    """A model or mixture from ``make(first chunk)``; with a mesh, every
+    rank gets rank 0's (its chunks differ from the other ranks')."""
+    first = _first_chunk(chunks)
+    model = make(first)
+    if mesh is not None and dataset_mesh(first) is None:
+        models = model.models if isinstance(model, PPCAMix) else [model]
+        api.replicate([m.transform for m in models])
+    return model
+
+
 def _train_streamed(model, step_fn, chunks, prior, n_iters, metric, quiet, callback, label,
-                    profile_dir, checkpoint_path, checkpoint_every, prefetch):
+                    profile_dir, checkpoint_path, checkpoint_every, prefetch, mesh):
     """The shared trainer loop (``trainer._train``) over streamed steps; the
     number of samples is counted by the first pass, with no extra I/O."""
     counted: List[int] = []
 
     def step(m):
-        new, llk, n = step_fn(m, chunks, prior, prefetch)
+        new, llk, n = step_fn(m, chunks, prior, prefetch, mesh)
         counted[:] = [n]
         return new, llk
 
@@ -242,10 +311,12 @@ def _train_streamed(model, step_fn, chunks, prior, n_iters, metric, quiet, callb
 class StreamingPPCATrainer:
     """Train a PPCA model over chunks that need never be on the device
     together.  API of :class:`ppca_rs_tpu_torch.PPCATrainer`, plus
-    ``prefetch``."""
+    ``prefetch``; with ``mesh``, ``chunks`` are this rank's part of the
+    stream (:func:`iterate_streamed`)."""
 
-    def __init__(self, chunks: Sequence[ChunkLike]):
+    def __init__(self, chunks: Sequence[ChunkLike], mesh=None):
         self.chunks = list(chunks)
+        self.mesh = mesh
         if not self.chunks:
             raise ValueError("need at least one chunk")
 
@@ -269,20 +340,21 @@ class StreamingPPCATrainer:
         on ``config.device``.  ``prefetch``: chunks the host may bring in
         ahead of the one the device computes (1: at most two on the device
         at once; 0: one)."""
-        model = start if start is not None else PPCAModel.init(
-            state_size, _first_chunk(self.chunks), generator=generator)
+        model = start if start is not None else _initialized(
+            lambda ds: PPCAModel.init(state_size, ds, generator=generator), self.chunks, self.mesh)
         return _train_streamed(model, _step, self.chunks, prior, n_iters, metric, quiet,
                                callback, "Masked PPCA", profile_dir, checkpoint_path,
-                               checkpoint_every, prefetch)
+                               checkpoint_every, prefetch, self.mesh)
 
 
 class StreamingPPCAMixTrainer:
     """Train a PPCA mixture over chunks that need never be on the device
     together.  API of :class:`ppca_rs_tpu_torch.PPCAMixTrainer`, plus
-    ``prefetch``."""
+    ``prefetch`` and ``mesh`` (:class:`StreamingPPCATrainer`)."""
 
-    def __init__(self, chunks: Sequence[ChunkLike]):
+    def __init__(self, chunks: Sequence[ChunkLike], mesh=None):
         self.chunks = list(chunks)
+        self.mesh = mesh
         if not self.chunks:
             raise ValueError("need at least one chunk")
 
@@ -304,8 +376,9 @@ class StreamingPPCAMixTrainer:
         prefetch: int = 1,
     ) -> PPCAMix:
         """See :meth:`StreamingPPCATrainer.train`."""
-        mix = start if start is not None else PPCAMix.init(
-            n_models, state_size, _first_chunk(self.chunks), generator=generator)
+        mix = start if start is not None else _initialized(
+            lambda ds: PPCAMix.init(n_models, state_size, ds, generator=generator), self.chunks,
+            self.mesh)
         return _train_streamed(mix, _mix_step, self.chunks, prior, n_iters, metric, quiet,
                                callback, "Masked PPCA mix", profile_dir, checkpoint_path,
-                               checkpoint_every, prefetch)
+                               checkpoint_every, prefetch, self.mesh)
