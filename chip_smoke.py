@@ -5,25 +5,27 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and runs ten
+It builds the CUDA kernels from the sources in the checkout and runs eleven
 phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
 2. every spd_estep kernel variant and spd_chol against its plain PyTorch
-   version at B=8192, k in {2, 13, 24, 50, 64, 99, 128, 160} (the
-   register-tile designs up to the tile limit the library reports, the
-   one-block-per-sample designs above it; each k prints which serves each
-   kernel), in float64 and float32, on inputs with all-masked
-   (spd_estep) or non-SPD and identity (spd_chol) samples and NaN-prefilled
-   outputs; a negative-definite sample that goes non-finite alone; a sigma
-   per sample against scalar-sigma launches; the M-step row solve at
-   lambda=0 with a singular row; requests above the shared-memory ceiling
-   must raise.  Each float32 kernel is timed by launches into preallocated
+   version at k in {2, 13, 24, 50, 64, 99, 128, 160, 192, 256, 384, 512}
+   (B=8192 up to k=256, one single-model block's rows above: 512), the
+   register-tile designs up to the tile limits the library reports, the
+   panel design above them (each k prints which design serves each kernel
+   and the panel design's CTAs per multiprocessor), in float64 and
+   float32, on inputs with all-masked (spd_estep) or non-SPD and identity
+   (spd_chol) samples and NaN-prefilled outputs; a negative-definite sample
+   that goes non-finite alone; a sigma per sample against scalar-sigma
+   launches; the M-step row solve at lambda=0 with a singular row at k=13
+   and k=256.  Each float32 kernel is timed by launches into preallocated
    outputs (CUDA events around 30 back-to-back launches, in turns with the
    plain version) and by its device time read by name from a torch.profiler
    window, beside its bound; spd_chol also beside torch.linalg.cholesky_ex,
    which the port never calls; ``full`` also at B=32 and ``states`` at
-   B=1024, the pattern tables' and the row solve's shapes;
+   B=1024, the pattern tables' and the row solve's shapes; fullt also in
+   float64 at k in {96, 128, 160};
 3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
    missing at random, N=1,048,576 float32 rows made on the card from a
    seed (pattern detection must demote them), five trainer iterations,
@@ -46,9 +48,9 @@ phases; any failed check raises and the script exits non-zero:
    D=1024, N=262,144 float32 rows, 50% missing at random, five trainer
    iterations, ``model.llk``, the posterior sampler on 8,192 rows with a
    check of its draws' moments, the launch counts of that run (every
-   spd_estep variant but ``full``, and spd_chol, with the design serving
-   each), a profile of one more EM iteration, and the phase-4 check on
-   4,096 rows;
+   spd_estep variant but ``full``, and spd_chol, each checked to be served
+   by the register-tile design), a profile of one more EM iteration, and
+   the phase-4 check on 4,096 rows;
 8. PPCA mixtures at bench_suite.py's mixture configuration: N=200,000,
    D=512, k=32, M=8 components, 80% observed at random, made on the card;
    five ``PPCAMixTrainer`` iterations (the general masked route: ``fullt``
@@ -92,9 +94,27 @@ phases; any failed check raises and the script exits non-zero:
    (f) 4 of 9a's pinned chunks streamed on each rank, one statistics
    all_reduce per pass.  A job of one NCCL rank through ``initialize()``'s
    default backend runs (b): ``iterate`` on a 1x1 mesh equals ``_em_step``
-   bit for bit.
+   bit for bit;
+11. state sizes past the register tiles (``[large-k]`` lines), each with
+   exact launch counts and the design serving each kernel: (a)
+   bench_suite.py's k=256 row, D=1024, N=131,072 float32 rows 50% missing
+   at random, three ``PPCATrainer`` iterations (2,048-row blocks),
+   ``model.llk``, infer, smooth and extrapolate on 8,192 rows, the sampler
+   on 2,048 rows with the moment check, a profile of one more iteration,
+   and card vs CPU float64 on 256 rows; (e) the pattern route at k=256
+   (``full`` on 8 tables) against the general route on 32,768 rows; (b)
+   the k=512 row, N=32,768 (512-row blocks): two iterations,
+   ``model.llk``, the sampler on 512 rows, card vs CPU on 64 rows; (c)
+   float64 on the card at k=96 over 4,096 rows, one EM step against the
+   CPU in float64 within 1e-8; (d) a mixture of state sizes (192, 160) at
+   D=512 over 16,384 rows, two ``PPCAMixTrainer`` iterations, one fused EM
+   step against the per-component loop (1e-4), ``infer_cluster``'s
+   posteriors against the components' own llks (1e-3), and one EM step,
+   the llks and ``infer_cluster`` on 256 rows, card vs CPU float64 (1e-3).
 
-The line before the last is the JSON kernel summary; the last line is
+The line before the last is the JSON kernel summary (the register-tile
+kernels on the main path, then the panel design's kernels on phase 11's
+path); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
 """
@@ -115,35 +135,48 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 #: spd_estep's sources by design (``kernels.design``): the register tile and
-#: the one-block-per-sample body with the C entry points.
+#: the panel design above it.
 ESTEP_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_estep_tile.cuh",
-                "block": "ppca_rs_tpu_torch/csrc/spd_estep.cu"}
+                "panel": "ppca_rs_tpu_torch/csrc/spd_panel.cuh"}
 ESTEP_REPLACES = "ppca_rs_tpu/ops/kernels.py:501"  # spd_estep -> pl.pallas_call, body _make_kernel :176
 CHOL_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_chol_tile.cuh",
-               "block": "ppca_rs_tpu_torch/csrc/spd_chol.cu"}
+               "panel": "ppca_rs_tpu_torch/csrc/spd_panel.cuh"}
 CHOL_REPLACES = "ppca_rs_tpu/ops/kernels.py:663"   # spd_chol -> pl.pallas_call :727
 
 BATCH = 8192
 #: State sizes of the kernel checks: every register tile (8, 16, 32, 64,
-#: 128), k a multiple of 4 (16-byte accesses) and not, and the block
-#: designs above the tile limit.
-KS = (2, 13, 24, 50, 64, 99, 128, 160)
+#: 128), k a multiple of 4 (16-byte accesses) and not, and the panel design
+#: above the tile limits (float64 E-step: above 64), ragged and not, up to
+#: bench_suite.py's largest state size.
+KS = (2, 13, 24, 50, 64, 99, 128, 160, 192, 256, 384, 512)
+#: Up to this k the checks take BATCH samples; above it the rows of one
+#: single-model block (``config.block_rows``), so the plain version fits.
+FULL_BATCH_MAX_K = 256
 #: The state sizes whose times go into the kernels line: the main path's,
-#: and phase 7's.
+#: phase 7's, and the panel design's.
 TIMED_K = 64
 WIDE_K = 128
+PANEL_KS = (160, 256, 512)
+#: float64 state sizes at which fullt is also timed (the panel design
+#: serves float64 above k=64).
+F64_TIMED_KS = (96, 128, 160)
 SIGMA = 0.7
 #: Noise levels cycled over the batch in the per-sample sigma check.
 SIGMA_LEVELS = (0.4, 0.7, 1.0, 1.3)
 #: The sample made negative definite in the spd_estep not-PD check.
 NOT_PD = 5
-#: Kernel launches per CUDA-event window; the slower plain versions take fewer.
+#: Kernel launches per CUDA-event window; the slower plain versions take
+#: fewer, and so do kernels above WIDE_K, which take milliseconds each.
 KERNEL_REPS = 30
+PANEL_REPS = 10
 PLAIN_REPS = 5
 #: Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
-#: memory bytes/s, and float32 FLOP/s outside the tensor cores.
+#: memory bytes/s, float32 FLOP/s outside the tensor cores, and float64
+#: FLOP/s on the tensor cores (FP64 MMA, full IEEE float64; twice the 34
+#: TFLOP/s outside them), the fastest the card does either type.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 67e12
 #: float64 kernel vs plain float64: only rounding-order differences.
 TOL_F64 = 1e-10
 #: float32 kernel vs plain float64 on the same inputs, relative to each
@@ -230,6 +263,35 @@ N_PAR_ROWS_READ = 8192
 N_MODEL_AXIS = 65_536
 PAR_REDUCE_REPS = 5
 PAR_TIMEOUT = 600
+#: Phase 11: bench_suite.py's masked rows past the register tiles (D=1024,
+#: 50% missing at random): k=256 on N_LK256 rows (readouts on
+#: N_LK_READOUT, the sampler on N_LK_SAMPLER, card vs CPU on N_LK_CPU) and
+#: k=512 on N_LK512 rows (sampler N_LK512_SAMPLER, card vs CPU
+#: N_LK512_CPU); float64 on the card at K_LK64 over N_LK64 rows, against
+#: the CPU in float64 within TOL_F64_CARD_VS_CPU (the two sum in other
+#: orders); the pattern route at k=256 over N_LK_PATTERN rows of
+#: P_LK_PATTERN masks; a mixture of state sizes K_HMIX at D_HMIX over
+#: N_HMIX rows (card vs CPU on N_HMIX_CPU).
+N_LK256 = 131_072
+N_LK_READOUT = 8192
+N_LK_SAMPLER = 2048
+N_LK_CPU = 256
+N_LK512 = 32_768
+N_LK512_SAMPLER = 512
+N_LK512_CPU = 64
+K_LK64 = 96
+N_LK64 = 4096
+TOL_F64_CARD_VS_CPU = 1e-8
+N_LK_PATTERN = 32_768
+P_LK_PATTERN = 8
+K_HMIX = (192, 160)
+D_HMIX = 512
+N_HMIX = 16_384
+N_HMIX_CPU = 256
+#: 11d's posterior probabilities, fused vs from the components' own float32
+#: llks: row llks of 10^3-10^4 carry 10^-4-10^-3 of float32 rounding into
+#: the log-odds, which a posterior passes on at up to a quarter of it.
+TOL_POSTERIOR = 1e-3
 SEED = 20261016
 
 
@@ -300,20 +362,35 @@ def kernel_inputs(B: int, k: int, gen):
     return dict(G=G, b=R @ C, rnorm=(R * R).sum(-1), d_obs=mask.sum(-1)), empty
 
 
-#: torch.profiler kernel names -> the kernel they time: an spd_estep
-#: variant by its ``want`` template argument (the last one), or spd_chol
-#: (either design).
+#: torch.profiler kernel names -> the kernel they time and its element
+#: type: an spd_estep variant by its ``want`` template argument (the
+#: register tile's last one; the panel design's 0-4), or spd_chol (its
+#: register tile, or the panel design's want 5).
 _KERNEL_NAME = re.compile(
-    r"spd_(?:estep(?:_tile)?_kernel<float, (?:\d+, )*(\d)>|chol(?:_tile)?_kernel<float(?:, \d+)?>)")
+    r"spd_(?:estep_tile_kernel<(float|double), \d+, (\d)>"
+    r"|panel_kernel<(float|double), (\d)>|chol_tile_kernel<(float|double), \d+>)")
 
 
-def profiled_ms(launchers: dict, reps: int) -> dict:
+def kernel_of(name: str):
+    """(kernel, "float" or "double") of a device kernel's name, or None."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    m = _KERNEL_NAME.search(name)
+    if m is None:
+        return None
+    if m.group(1):
+        return kernels.WANTS[int(m.group(2))], m.group(1)
+    if m.group(3):
+        code = int(m.group(4))
+        return ("chol" if code == 5 else kernels.WANTS[code]), m.group(3)
+    return "chol", m.group(5)
+
+
+def profiled_ms(launchers: dict, reps: int, dtype=torch.float32) -> dict:
     """Device time per launch of each kernel, read by name from one
     torch.profiler window in which each launcher runs ``reps`` times; None
     for a kernel that the profiler shows no device time for."""
     from torch.profiler import ProfilerActivity, profile
-
-    from ppca_rs_tpu_torch.ops import kernels
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -321,22 +398,26 @@ def profiled_ms(launchers: dict, reps: int) -> dict:
             for _ in range(reps):
                 fn()
         torch.cuda.synchronize()
+    ctype = "float" if dtype == torch.float32 else "double"
     found = {}
     for evt in prof.key_averages():
-        m = _KERNEL_NAME.search(evt.key)
+        which = kernel_of(evt.key)
         total_us = getattr(evt, "device_time_total", 0)
-        if m and total_us > 0 and evt.count > 0:
-            name = "chol" if m.group(1) is None else kernels.WANTS[int(m.group(1))]
-            found[name] = total_us / evt.count / 1e3
+        if which and which[1] == ctype and total_us > 0 and evt.count > 0:
+            found[which[0]] = total_us / evt.count / 1e3
     return {name: found.get(name) for name in launchers}
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     """(ms, "bytes" or "operations"): the least time the card could take
     for this work at its published peaks."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def peak_flops(dtype) -> float:
+    return PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_F64_FLOPS
 
 
 def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1):
@@ -363,43 +444,59 @@ def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1):
     return elems * itemsize, B * flops
 
 
+def design_note(k: int, kernel: str, dtype) -> str:
+    """The design serving k, with the panel design's CTAs per multiprocessor."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    d = kernels.design(k, kernel, dtype)
+    if d == "panel":
+        return f"panel design, {kernels.PANEL_CTAS_PER_SM} CTAs per SM"
+    return f"{d} design"
+
+
+def kernel_reps(k: int) -> int:
+    return KERNEL_REPS if k <= WIDE_K else PANEL_REPS
+
+
 def time_estep(k: int, x, wants, sigma=None) -> dict:
-    """float32 times of the spd_estep variants ``wants`` on the inputs
-    ``x``: kernel launches into preallocated outputs with sigma already on
-    the card (``sigma``: one for the batch or one per sample; SIGMA if not
-    given), KERNEL_REPS back to back between CUDA events, in turns with
-    the plain version (plain, kernel, kernel, plain); then each kernel's
-    device time by name from one profiler window; beside them the bound."""
+    """Times of the spd_estep variants ``wants`` on the inputs ``x`` (in
+    their dtype): kernel launches into preallocated outputs (and scratch)
+    with sigma already on the card (``sigma``: one for the batch or one per
+    sample; SIGMA if not given), kernel_reps(k) back to back between CUDA
+    events, in turns with the plain version (plain, kernel, kernel, plain);
+    then each kernel's device time by name from one profiler window; beside
+    them the bound."""
     from ppca_rs_tpu_torch.ops import kernels
 
     G, b, rn, do = x["G"], x["b"], x["rnorm"], x["d_obs"]
-    B = G.shape[0]
-    sig = torch.full((1,), SIGMA, dtype=torch.float32, device="cuda") if sigma is None else sigma
+    B, dtype = G.shape[0], G.dtype
+    reps = kernel_reps(k)
+    sig = torch.full((1,), SIGMA, dtype=dtype, device="cuda") if sigma is None else sigma
     rows, launchers = {}, {}
     for want in wants:
-        if k > kernels.max_k(want, torch.float32):
-            continue
         outs = kernels.empty_outputs(want, B, k, G)
-        kern = functools.partial(kernels.launch, want, sig, G, b, rn, do, outs)
+        scratch = kernels.empty_scratch(want, B, k, G)
+        kern = functools.partial(kernels.launch, want, sig, G, b, rn, do, outs, scratch)
         plain = functools.partial(kernels.spd_estep_reference, sig, G, b, rn, do, want)
-        p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, KERNEL_REPS),
-                          cuda_ms(kern, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS))
+        p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, reps),
+                          cuda_ms(kern, reps), cuda_ms(plain, PLAIN_REPS))
         launchers[want] = kern
         rows[want] = dict(events=(k1, k2), plains=(p1, p2))
-    device = profiled_ms(launchers, KERNEL_REPS)
+    device = profiled_ms(launchers, reps, dtype)
     out = {}
     for want, r in rows.items():
         (k1, k2), (p1, p2) = r["events"], r["plains"]
-        b_ms, by = bound(*estep_work(want, B, k, 4, sig.numel()))
+        b_ms, by = bound(*estep_work(want, B, k, dtype.itemsize, sig.numel()), peak_flops(dtype))
         dev = device[want]
-        print(f"[time] {want} k={k} B={B} float32{', sigma per sample' if sig.numel() > 1 else ''}, "
-              f"{kernels.design(k)} design: kernel "
-              f"{k1:.4f}/{k2:.4f} ms (events, {KERNEL_REPS} launches), "
+        print(f"[time] {want} k={k} B={B} {str(dtype)[6:]}"
+              f"{', sigma per sample' if sig.numel() > 1 else ''}, "
+              f"{design_note(k, 'estep', dtype)}: kernel "
+              f"{k1:.4f}/{k2:.4f} ms (events, {reps} launches), "
               f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
               f"plain {p1:.4f}/{p2:.4f} ms; bound {b_ms * 1e3:.2f} us ({by})")
         out[want] = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
                          bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by, library_ms=None,
-                         design=kernels.design(k), B=B, k=k)
+                         design=kernels.design(k, "estep", dtype), B=B, k=k)
     return out
 
 
@@ -417,8 +514,6 @@ def check_not_pd(k: int, dtype, tol: float, gen) -> None:
     good = torch.ones(B, dtype=torch.bool, device="cuda")
     good[NOT_PD] = False
     for want in kernels.WANTS:
-        if k > kernels.max_k(want, dtype):
-            continue
         outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
                      for sh in kernels.output_shapes(want, B, k))
         kernels.launch(want, SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], outs)
@@ -446,8 +541,6 @@ def check_per_sample_sigma(k: int, dtype, x) -> None:
     which = torch.arange(B, device="cuda") % len(SIGMA_LEVELS)
     per_sample = levels[which].contiguous()
     for want in kernels.WANTS:
-        if k > kernels.max_k(want, dtype):
-            continue
         got = kernels.spd_estep(per_sample, G, b, rn, do, want=want)
         for i in range(len(SIGMA_LEVELS)):
             scalar = kernels.spd_estep(levels[i:i + 1], G, b, rn, do, want=want)
@@ -455,37 +548,78 @@ def check_per_sample_sigma(k: int, dtype, x) -> None:
             for g, s in zip(got, scalar):
                 check(torch.equal(g[rows], s[rows]),
                       f"per-sample sigma {want} k={k} {dtype}: differs from the scalar launch")
+            del scalar
+        del got
     print(f"[kernels] k={k} {str(dtype).replace('torch.', '')}: per-sample sigma "
           f"({len(SIGMA_LEVELS)} levels over B={B}) equals the scalar-sigma launches bit for bit")
 
 
+def batch_for(k: int) -> int:
+    """Samples of the kernel checks at state size k: BATCH up to
+    FULL_BATCH_MAX_K, above it the rows of one single-model block."""
+    from ppca_rs_tpu_torch import config
+
+    return BATCH if k <= FULL_BATCH_MAX_K else config.block_rows(k, 4)
+
+
+def check_row_solve(gen, k: int) -> None:
+    """M-step row solve (S[d] + lambda I) c_d = cross[d] at lambda = 0 over
+    D=1024 rows, with one singular row (an empty dimension): that row alone
+    goes non-finite, for the keep-old-row fallback."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    D, bad = 1024, 5
+    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
+        V = torch.randn(D, k, 2 * k, generator=gen, dtype=torch.float64, device="cuda")
+        S = V @ V.mT / (2 * k) + 0.05 * torch.eye(k, dtype=torch.float64, device="cuda")
+        del V
+        cross = torch.randn(D, k, generator=gen, dtype=torch.float64, device="cuda")
+        S[bad] = 0.0
+        cross[bad] = 0.0
+        zeros = torch.zeros(D, dtype=dtype, device="cuda")
+        S, cross = S.to(dtype), cross.to(dtype)
+        outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
+                     for sh in kernels.output_shapes("states", D, k))
+        kernels.launch("states", 0.0, S, cross, zeros, zeros, outs)
+        torch.cuda.synchronize()
+        sol = outs[0]
+        good = torch.ones(D, dtype=torch.bool, device="cuda")
+        good[bad] = False
+        want = torch.linalg.solve(S[good].double(), cross[good].double().unsqueeze(-1)).squeeze(-1)
+        check(not bool(torch.isfinite(sol[bad]).all()), "row solve: singular row came back finite")
+        check(bool(torch.isfinite(sol[good]).all()), "row solve: a regular row is non-finite")
+        err = rel_err(sol[good], want)
+        check(err <= tol, f"row solve k={k} {dtype}: relative error {err:.3e} above {tol}")
+        print(f"[kernels] row solve lambda=0 k={k} D={D} {str(dtype).replace('torch.', '')}, "
+              f"{kernels.design(k, 'estep', dtype)} design: singular row non-finite only; "
+              f"max rel err {err:.3e} (tol {tol:g})")
+        del S, cross, outs, want
+
+
 def phase_kernels():
+    """Phase 2.  Returns the float32 kernel rows at TIMED_K (summary), at
+    WIDE_K (wide), at each of PANEL_KS (panel), and the float64 fullt rows
+    at F64_TIMED_KS."""
     from ppca_rs_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    summary, errors, wide = {}, {}, {}
+    summary, errors, wide, panel = {}, {}, {}, {}
     for k in KS:
-        print(f"[kernels] k={k}: served by the "
-              + ", ".join(f"{kernels.design(k, kern, dt)} design ({name} {str(dt)[6:]})"
+        B = batch_for(k)
+        print(f"[kernels] k={k} B={B}: served by the "
+              + ", ".join(f"{design_note(k, kern, dt)} "
+                          f"({name} {str(dt)[6:]})"
                           for kern, name in (("estep", "spd_estep"), ("chol", "spd_chol"))
                           for dt in (torch.float32, torch.float64)))
-        inputs64, empty = kernel_inputs(BATCH, k, gen)
+        inputs64, empty = kernel_inputs(B, k, gen)
         for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
             x = {n: t.to(dtype).contiguous() for n, t in inputs64.items()}
             # the plain version in float64 on exactly the kernel's inputs
             x64 = {n: t.double() for n, t in x.items()}
             for want in kernels.WANTS:
                 tag = f"{want} k={k} {str(dtype).replace('torch.', '')}"
-                if k > kernels.max_k(want, dtype):
-                    try:
-                        kernels.spd_estep(SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], want=want)
-                    except ValueError as e:
-                        print(f"[kernels] {tag}: refused above the ceiling "
-                              f"(max k {kernels.max_k(want, dtype)}): {e}")
-                        continue
-                    raise RuntimeError(f"{tag}: launched above the shared-memory ceiling")
                 outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
-                             for sh in kernels.output_shapes(want, BATCH, k))
+                             for sh in kernels.output_shapes(want, B, k))
                 kernels.launch(want, SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], outs)
                 torch.cuda.synchronize()
                 ref = kernels.spd_estep_reference(SIGMA, x64["G"], x64["b"], x64["rnorm"],
@@ -507,14 +641,17 @@ def phase_kernels():
                           f"{tag}: all-masked covariance != I")
                 print(f"[kernels] {tag}: max rel err {max(errs):.3e} (tol {tol:g}), "
                       f"max abs err {abs_err:.3e}")
-                if dtype == torch.float32 and k in (TIMED_K, WIDE_K):
+                if dtype == torch.float32 and k in (TIMED_K, WIDE_K) + PANEL_KS:
                     errors[want, k] = abs_err
+                del outs, ref
             check_not_pd(k, dtype, tol, gen)
             check_per_sample_sigma(k, dtype, x)
             if dtype == torch.float32:
                 timed = time_estep(k, x, kernels.WANTS)
                 if k == WIDE_K:
                     wide.update(timed)
+                if k in PANEL_KS:
+                    panel[k] = timed
                 if k == TIMED_K:
                     summary.update(timed)
                     # the shapes the main path also gives: the pattern
@@ -529,57 +666,28 @@ def phase_kernels():
         del inputs64
         torch.cuda.empty_cache()
 
-    # M-step row solve (S[d] + lambda I) c_d = cross[d] at lambda = 0, k = 13,
-    # with one singular row (an empty dimension): that row alone goes
-    # non-finite, for the keep-old-row fallback.
-    D, k, bad = 1024, 13, 5
-    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
-        V = torch.randn(D, k, 2 * k, generator=gen, dtype=torch.float64, device="cuda")
-        S = V @ V.mT / (2 * k) + 0.05 * torch.eye(k, dtype=torch.float64, device="cuda")
-        cross = torch.randn(D, k, generator=gen, dtype=torch.float64, device="cuda")
-        S[bad] = 0.0
-        cross[bad] = 0.0
-        zeros = torch.zeros(D, dtype=dtype, device="cuda")
-        S, cross = S.to(dtype), cross.to(dtype)
-        outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
-                     for sh in kernels.output_shapes("states", D, k))
-        kernels.launch("states", 0.0, S, cross, zeros, zeros, outs)
-        torch.cuda.synchronize()
-        sol = outs[0]
-        good = torch.ones(D, dtype=torch.bool, device="cuda")
-        good[bad] = False
-        want = torch.linalg.solve(S[good].double(), cross[good].double().unsqueeze(-1)).squeeze(-1)
-        check(not bool(torch.isfinite(sol[bad]).all()), "row solve: singular row came back finite")
-        check(bool(torch.isfinite(sol[good]).all()), "row solve: a regular row is non-finite")
-        err = rel_err(sol[good], want)
-        check(err <= tol, f"row solve {dtype}: relative error {err:.3e} above {tol}")
-        print(f"[kernels] row solve lambda=0 k={k} D={D} {str(dtype).replace('torch.', '')}: "
-              f"singular row non-finite only; max rel err {err:.3e} (tol {tol:g})")
-
-    for dtype in (torch.float32, torch.float64):
-        for want in kernels.WANTS:
-            k = kernels.max_k(want, dtype) + 1
-            G = torch.zeros(1, k, k, dtype=dtype, device="cuda")
-            z = torch.zeros(1, dtype=dtype, device="cuda")
-            try:
-                kernels.spd_estep(1.0, G, torch.zeros(1, k, dtype=dtype, device="cuda"), z, z, want=want)
-            except ValueError:
-                continue
-            raise RuntimeError(f"{want} {dtype}: k={k} above the ceiling was not refused")
-    print("[kernels] every variant refuses k above its shared-memory ceiling "
-          + ", ".join(f"{w}: f32 {kernels.max_k(w, torch.float32)}, f64 {kernels.max_k(w, torch.float64)}"
-                      for w in kernels.WANTS))
-    check_chol(gen, summary, wide)
-    chol, fullt = wide["chol"], wide["fullt"]
-    print(f"[kernels] k={WIDE_K} B={BATCH} float32 ({chol['design']} design): chol "
-          f"{chol['ms']:.4f} ms vs torch.linalg.cholesky_ex {chol['library_ms']:.4f} ms "
-          f"({'faster' if chol['ms'] < chol['library_ms'] else 'NOT faster'}); fullt "
-          f"{fullt['ms']:.4f} ms vs its plain version {fullt['plain_ms']:.4f} ms "
-          f"({'faster' if fullt['ms'] < fullt['plain_ms'] else 'NOT faster'}) (CUDA events)")
+    f64 = {}
+    for k in F64_TIMED_KS:
+        inputs64, _ = kernel_inputs(BATCH, k, gen)
+        f64[k] = time_estep(k, inputs64, ("fullt",))["fullt"]
+        del inputs64
+        torch.cuda.empty_cache()
+    for k in (13, 256):
+        check_row_solve(gen, k)
+    check_chol(gen, summary, wide, panel)
+    for k, rows in [(WIDE_K, wide)] + [(k, panel[k]) for k in PANEL_KS]:
+        chol, fullt = rows["chol"], rows["fullt"]
+        print(f"[kernels] k={k} B={fullt['B']} float32 ({fullt['design']} design): chol "
+              f"{chol['ms']:.4f} ms vs torch.linalg.cholesky_ex {chol['library_ms']:.4f} ms "
+              f"({'faster' if chol['ms'] < chol['library_ms'] else 'NOT faster'}); fullt "
+              f"{fullt['ms']:.4f} ms vs its plain version {fullt['plain_ms']:.4f} ms "
+              f"({'faster' if fullt['ms'] < fullt['plain_ms'] else 'NOT faster'}) (CUDA events)")
     for want in kernels.WANTS:
         summary[want]["max_abs_err"] = errors[want, TIMED_K]
         wide[want]["max_abs_err"] = errors[want, WIDE_K]
-    return summary, wide
+        for k in PANEL_KS:
+            panel[k][want]["max_abs_err"] = errors[want, k]
+    return summary, wide, panel, f64
 
 
 #: spd_chol inputs: this sample is made negative definite, this one the identity.
@@ -594,17 +702,18 @@ def time_chol(M, L) -> dict:
     from ppca_rs_tpu_torch.ops import kernels
 
     B, k, _ = M.shape
+    reps = kernel_reps(k)
     kern = functools.partial(kernels.launch_chol, M, L)
     plain = functools.partial(kernels.spd_chol_reference, M)
     library = functools.partial(torch.linalg.cholesky_ex, M)
-    p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, KERNEL_REPS),
-                      cuda_ms(kern, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS))
+    p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, reps),
+                      cuda_ms(kern, reps), cuda_ms(plain, PLAIN_REPS))
     l1, l2 = cuda_ms(library, PLAIN_REPS), cuda_ms(library, PLAIN_REPS)
-    dev = profiled_ms({"chol": kern}, KERNEL_REPS)["chol"]
+    dev = profiled_ms({"chol": kern}, reps)["chol"]
     b_ms, by = bound(B * (k * (k + 1) // 2 + k * k) * 4, B * k ** 3 / 3)
     design = kernels.design(k, "chol", M.dtype)
-    print(f"[time] chol k={k} B={B} float32, {design} design: kernel {k1:.4f}/{k2:.4f} ms "
-          f"(events, {KERNEL_REPS} launches), "
+    print(f"[time] chol k={k} B={B} float32, {design_note(k, 'chol', M.dtype)}: kernel "
+          f"{k1:.4f}/{k2:.4f} ms (events, {reps} launches), "
           f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
           f"plain {p1:.4f}/{p2:.4f} ms; torch.linalg.cholesky_ex {l1:.4f}/{l2:.4f} ms; "
           f"bound {b_ms * 1e3:.2f} us ({by})")
@@ -613,7 +722,7 @@ def time_chol(M, L) -> dict:
                 B=B, k=k)
 
 
-def check_chol(gen, summary, wide) -> None:
+def check_chol(gen, summary, wide, panel) -> None:
     """spd_chol against its plain version: a non-SPD sample goes non-finite
     alone, the identity factors to itself, and every element above the
     diagonal is written as 0.  Timed beside its plain version and beside
@@ -621,17 +730,18 @@ def check_chol(gen, summary, wide) -> None:
     from ppca_rs_tpu_torch.ops import kernels
 
     for k in KS:
+        B = batch_for(k)
         f64 = dict(dtype=torch.float64, device="cuda")
-        V = torch.randn(BATCH, k, 2 * k, generator=gen, **f64)
+        V = torch.randn(B, k, 2 * k, generator=gen, **f64)
         eye = torch.eye(k, **f64)
         M64 = V @ V.mT / (2 * k) + 0.1 * eye
         del V
         M64[NOT_SPD] = -M64[NOT_SPD]
         M64[IDENTITY] = eye
-        good = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+        good = torch.ones(B, dtype=torch.bool, device="cuda")
         good[NOT_SPD] = False
         for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
-            tag = f"chol k={k} {str(dtype).replace('torch.', '')}, {kernels.design(k, 'chol', dtype)} design"
+            tag = f"chol k={k} B={B} {str(dtype).replace('torch.', '')}, {kernels.design(k, 'chol', dtype)} design"
             M = M64.to(dtype).contiguous()
             L = torch.full_like(M, math.nan)
             kernels.launch_chol(M, L)
@@ -654,18 +764,11 @@ def check_chol(gen, summary, wide) -> None:
                     summary["chol"] = row
                 if k == WIDE_K:
                     wide["chol"] = row
+                if k in PANEL_KS:
+                    panel[k]["chol"] = row
             del M, L, ref
         del M64
         torch.cuda.empty_cache()
-    for dtype in (torch.float32, torch.float64):
-        k = kernels.max_k("chol", dtype) + 1
-        try:
-            kernels.spd_chol(torch.eye(k, dtype=dtype, device="cuda").expand(1, k, k).contiguous())
-        except ValueError:
-            continue
-        raise RuntimeError(f"chol {dtype}: k={k} above the ceiling was not refused")
-    print(f"[kernels] chol refuses k above its shared-memory ceiling: "
-          f"f32 {kernels.max_k('chol', torch.float32)}, f64 {kernels.max_k('chol', torch.float64)}")
 
 
 # --------------------------------------------------------------------- #
@@ -675,7 +778,7 @@ def check_chol(gen, summary, wide) -> None:
 def make_main_dataset(n: int = N_MAIN, k: int = K_MAIN, seed: int = SEED + 1):
     """n x D_MAIN float32 rows of a rank-k PPCA model plus noise, 50% of
     the entries missing at random, generated on the card (n a multiple of
-    65,536)."""
+    65,536, or a power of two below it)."""
     from ppca_rs_tpu_torch import Dataset
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -684,7 +787,7 @@ def make_main_dataset(n: int = N_MAIN, k: int = K_MAIN, seed: int = SEED + 1):
     mean = torch.randn(D_MAIN, **opts)
     data = torch.empty(n, D_MAIN, device="cuda", dtype=torch.float32)
     mask = torch.empty(n, D_MAIN, device="cuda", dtype=torch.bool)
-    step = 1 << 16
+    step = min(1 << 16, n)
     for lo in range(0, n, step):
         z = torch.randn(step, k, **opts)
         y = z @ C.T + mean + 0.5 * torch.randn(step, D_MAIN, **opts)
@@ -694,10 +797,12 @@ def make_main_dataset(n: int = N_MAIN, k: int = K_MAIN, seed: int = SEED + 1):
     return Dataset.from_parts(data, mask)
 
 
-def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None):
-    """Five trainer iterations from a seeded init, timed per iteration, of
-    a PPCA model or, with ``n_models``, of a mixture of that many; the llk
-    must never decrease.  Returns (model, launches during it)."""
+def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None,
+          n_iters: int = N_ITERS, start=None):
+    """``n_iters`` trainer iterations from a seeded init (or from
+    ``start``), timed per iteration, of a PPCA model or, with ``n_models``,
+    of a mixture of that many; the llk must never decrease.  Returns
+    (model, launches during it)."""
     from ppca_rs_tpu_torch import PPCAMixTrainer, PPCATrainer
     from ppca_rs_tpu_torch.ops import kernels
 
@@ -713,7 +818,7 @@ def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    options = dict(state_size=k, n_iters=N_ITERS, quiet=True, callback=callback,
+    options = dict(state_size=k, n_iters=n_iters, quiet=True, callback=callback, start=start,
                    generator=torch.Generator(device="cuda").manual_seed(seed))
     if n_models is None:
         model = PPCATrainer(dataset).train(**options)
@@ -728,7 +833,7 @@ def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None
     print(f"[{tag}] launches during training: {launches}")
     print(f"[{tag}] seconds per EM iteration at N={len(dataset)}: "
           + ", ".join(f"{s:.4f}" for s in per_iter)
-          + f"; mean of iterations 2-{N_ITERS}: {sum(per_iter[1:]) / (N_ITERS - 1):.4f} s "
+          + f"; mean of iterations 2-{n_iters}: {sum(per_iter[1:]) / (n_iters - 1):.4f} s "
           f"({smi}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     t0 = time.perf_counter()
@@ -741,7 +846,7 @@ def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None
     return model, launches
 
 
-def check_readouts(tag: str, model, sub):
+def check_readouts(tag: str, model, sub, k: int = K_MAIN):
     """infer, the covariance diagonals, smooth and extrapolate on ``sub``:
     shapes, finiteness, and observed entries left alone.  Returns the
     InferredMasked."""
@@ -753,7 +858,7 @@ def check_readouts(tag: str, model, sub):
     smoothed = model.smooth(sub).data
     extrapolated = model.extrapolate(sub).data
     torch.cuda.synchronize()
-    shapes = {"states": (states, (n, K_MAIN)), "covariances": (covs, (n, K_MAIN, K_MAIN)),
+    shapes = {"states": (states, (n, k)), "covariances": (covs, (n, k, k)),
               "smoothed_cov_diag": (sd, (n, D_MAIN)), "extrapolated_cov_diag": (ed, (n, D_MAIN)),
               "smooth": (smoothed, (n, D_MAIN)), "extrapolate": (extrapolated, (n, D_MAIN))}
     for name, (t, shape) in shapes.items():
@@ -771,9 +876,10 @@ def check_readouts(tag: str, model, sub):
 
 def profile_iteration(tag: str, model, dataset, top: int = 0) -> None:
     """One EM step over ``dataset`` under torch.profiler: device time of the
-    spd_estep kernels, of the matmuls and of everything else, and the
-    device's idle share of the window (one stream, so kernels do not
-    overlap); with ``top``, also the ``top`` device kernels by time."""
+    SPD kernels (spd_estep's and spd_chol's designs), of the matmuls and of
+    everything else, and the device's idle share of the window (one stream,
+    so kernels do not overlap); with ``top``, also the ``top`` device
+    kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -782,13 +888,13 @@ def profile_iteration(tag: str, model, dataset, top: int = 0) -> None:
         model.iterate(dataset)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {"spd_estep": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"spd kernels": 0.0, "matmul": 0.0, "other": 0.0}
     kernels_by_time = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = evt.key.lower()
-        group = ("spd_estep" if "spd_estep" in name else
+        group = ("spd kernels" if "spd_" in name else
                  "matmul" if any(w in name for w in ("gemm", "xmma", "cutlass")) else "other")
         groups[group] += evt.self_device_time_total / 1e6
         kernels_by_time.append((evt.self_device_time_total / 1e6, evt.count, evt.key))
@@ -838,10 +944,11 @@ def phase_main(smi: str):
 # phase 4
 
 
-def card_vs_cpu(tag: str, model, sub, used, unused=()):
-    """One EM step and the per-sample llks of ``sub`` on the card in float32
-    against the port on the CPU in float64, which takes the same route.
-    The card run must launch the kernels in ``used`` and none in ``unused``."""
+def card_vs_cpu(tag: str, model, sub, used, unused=(), tol: float = TOL_CARD_VS_CPU):
+    """One EM step and the per-sample llks of ``sub`` on the card (in the
+    model's dtype) against the port on the CPU in float64, which takes the
+    same route, within ``tol``.  The card run must launch the kernels in
+    ``used`` and none in ``unused``."""
     from ppca_rs_tpu_torch import Dataset, PPCAModel
     from ppca_rs_tpu_torch.ops import kernels
 
@@ -869,12 +976,12 @@ def card_vs_cpu(tag: str, model, sub, used, unused=()):
         "isotropic_noise": rel_err(card.isotropic_noise.cpu().reshape(1), cpu.isotropic_noise.reshape(1)),
         "llks": rel_err(card_llks.cpu(), cpu_llks),
     }
-    print(f"[{tag}] {len(sub)} rows, one EM step + llks, card float32 vs CPU float64 "
-          f"({secs:.1f} s on the CPU): "
+    print(f"[{tag}] {len(sub)} rows, one EM step + llks, card {str(model.transform.dtype)[6:]} "
+          f"vs CPU float64 ({secs:.1f} s on the CPU): "
           + ", ".join(f"{n} {v:.3e}" for n, v in diffs.items())
-          + f" (max rel diff, tol {TOL_CARD_VS_CPU:g})")
+          + f" (max rel diff, tol {tol:g})")
     for name, v in diffs.items():
-        check(v <= TOL_CARD_VS_CPU, f"{tag} {name}: {v:.3e} above {TOL_CARD_VS_CPU}")
+        check(v <= tol, f"{tag} {name}: {v:.3e} above {tol}")
 
 
 # --------------------------------------------------------------------- #
@@ -2431,6 +2538,216 @@ def phase_parallel(smi: str) -> dict:
     return {part: ranks[0][part]["launches"] for part in PAR_PARTS}
 
 
+# --------------------------------------------------------------------- #
+# phase 11
+
+
+def check_launches(tag: str, launches: dict, want: dict, served: dict, dtype=torch.float32):
+    """Exact launch counts, printed with the design that served each kernel
+    launched (``served``: kernel -> k)."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    full = dict.fromkeys(kernels.KERNELS, 0)
+    full.update(want)
+    check(launches == full, f"{tag}: launches {launches} != {full}")
+    designs = {name: kernels.design(k, "chol" if name == "chol" else "estep", dtype)
+               for name, k in served.items() if full[name]}
+    print(f"[large-k] {tag}: launches {launches}; "
+          + ", ".join(f"{name} (k={served[name]}) by the {d} design" for name, d in designs.items()))
+    return designs
+
+
+def large_k_masked(smi: str, tag: str, k: int, n: int, n_iters: int, seed: int,
+                   n_readout: int, n_sampler: int, n_cpu: int, profile: bool) -> dict:
+    """11a/11b: bench_suite.py's masked row at state size k (D=1024, n
+    rows, 50% missing at random): training, model.llk, the readouts on
+    ``n_readout`` rows (none if 0), the sampler's moments on ``n_sampler``
+    rows, exact launch counts with the design of each kernel, a profile of
+    one more iteration, and card vs CPU on ``n_cpu`` rows.  Returns the
+    model and the launches."""
+    from ppca_rs_tpu_torch import config
+    from ppca_rs_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    dataset = make_main_dataset(n, k, seed)
+    torch.cuda.synchronize()
+    rows = config.block_rows(k, 4)
+    n_blocks = -(-n // rows)
+    print(f"[large-k] {tag}: dataset N={n} D={D_MAIN} k={k} float32, 50% missing at random, "
+          f"made in {time.perf_counter() - t0:.2f} s; {rows} rows a block ({n_blocks} blocks)")
+    check(dataset.pattern_info() is None, f"{tag}: random masks were taken for structured missingness")
+    model, train_launches = train(f"large-k {tag}", dataset, seed + 1, smi, k=k, n_iters=n_iters)
+    check_launches(f"{tag} training", train_launches,
+                   dict(fullt=n_iters * n_blocks, states=n_iters), dict(fullt=k, states=k))
+    n_sub = -(-n_readout // rows)
+    if n_readout:
+        check_readouts(f"large-k {tag}", model, dataset.slice(0, n_readout), k=k)
+    check_sampler_moments(f"large-k {tag}", model, dataset.slice(0, n_sampler))
+    launches = dict(kernels.LAUNCHES)
+    # readouts: infer, then smooth and extrapolate (states); the moment
+    # check: infer, the sampler's factor (chol) and smooth (states)
+    n_samp = -(-n_sampler // rows)
+    check_launches(f"{tag} training, model.llk, readouts and sampler", launches,
+                   dict(fullt=n_iters * n_blocks, states=n_iters + 2 * n_sub + n_samp, llk=n_blocks,
+                        infer=n_sub + n_samp, chol=1),
+                   dict(fullt=k, states=k, llk=k, infer=k, chol=k))
+    if profile:
+        profile_iteration(f"large-k {tag}", model, dataset)
+    card_vs_cpu(f"large-k {tag}", model, dataset.slice(0, n_cpu), used=("fullt", "llk"))
+    return model, launches
+
+
+def large_k_pattern(model, seed: int) -> dict:
+    """11e: one EM step of ``model`` on the pattern route (``full`` on the
+    P tables at the model's k) over N_LK_PATTERN rows whose masks are
+    P_LK_PATTERN Bernoulli(0.5) patterns, against the general route on the
+    same rows (TOL_STREAM).  Returns the launches of the pattern step."""
+    from ppca_rs_tpu_torch import Dataset, config
+    from ppca_rs_tpu_torch.models import routes
+    from ppca_rs_tpu_torch.ops import kernels
+
+    k = model.state_size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    patterns = torch.rand(P_LK_PATTERN, D_MAIN, generator=gen, device="cuda") < 0.5
+    mask = patterns[torch.randint(0, P_LK_PATTERN, (N_LK_PATTERN,), generator=gen, device="cuda")]
+    y = model.sample(N_LK_PATTERN, 0.0, generator=gen).data
+    dataset = Dataset.from_parts(torch.where(mask, y, torch.zeros_like(y)), mask)
+    check(routes.route(dataset).kind == "pattern", "11e: the rows did not take the pattern route")
+    kernels.reset_launch_counts()
+    pat, pat_llk = model._em_step(dataset, None)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches(f"11e pattern route, {P_LK_PATTERN} patterns", launches,
+                   dict(full=1, states=1), dict(full=k, states=k))
+    config.use_pattern_dedup = False
+    try:
+        check(routes.route(dataset).kind == "masked", "11e: use_pattern_dedup=False not honoured")
+        gen_model, gen_llk = model._em_step(dataset, None)
+    finally:
+        config.use_pattern_dedup = True
+    diffs = model_diffs(pat, gen_model)
+    diffs["llk"] = abs(float(pat_llk) - float(gen_llk)) / abs(float(gen_llk))
+    report_diffs("large-k", f"11e: k={k}, {N_LK_PATTERN} rows, one EM step, pattern route vs "
+                 "general route on the card", diffs, TOL_STREAM)
+    return launches
+
+
+def make_hetero_mix_dataset(seed: int):
+    """N_HMIX x D_HMIX float32 rows from a mixture of components with state
+    sizes K_HMIX (drawn uniformly), y = C_m z + mu_m + 0.3 eps, C_m ~
+    N(0, 1) / sqrt(k_m), mu_m ~ 3 N(0, 1), 50% missing at random."""
+    from ppca_rs_tpu_torch import Dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    opts = dict(generator=gen, device="cuda", dtype=torch.float32)
+    comp = torch.randint(0, len(K_HMIX), (N_HMIX,), generator=gen, device="cuda")
+    y = 0.3 * torch.randn(N_HMIX, D_HMIX, **opts)
+    for m, k in enumerate(K_HMIX):
+        rows = (comp == m).nonzero().squeeze(1)
+        C = torch.randn(D_HMIX, k, **opts) / math.sqrt(k)
+        z = torch.randn(len(rows), k, **opts)
+        y.index_add_(0, rows, z @ C.T + 3.0 * torch.randn(D_HMIX, **opts))
+    mask = torch.rand(N_HMIX, D_HMIX, generator=gen, device="cuda") >= 0.5
+    return Dataset.from_parts(torch.where(mask, y, torch.zeros_like(y)), mask)
+
+
+def large_k_mixture(smi: str, seed: int) -> dict:
+    """11d: a mixture with heterogeneous state sizes K_HMIX (padded to the
+    largest) trained for N_DENSE_ITERS PPCAMixTrainer iterations; one fused
+    EM step against the per-component loop (TOL_STREAM), infer_cluster
+    against the components' own llks (TOL_POSTERIOR), and one EM step, the
+    llks and infer_cluster on N_HMIX_CPU rows against the CPU in float64
+    (TOL_CARD_VS_CPU).  Returns the launches of training, model.llk and
+    infer_cluster."""
+    from ppca_rs_tpu_torch import Dataset, PPCAMix, PPCAModel, Prior, config
+    from ppca_rs_tpu_torch.ops import kernels
+
+    dataset = make_hetero_mix_dataset(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    start = PPCAMix([PPCAModel.init(k, dataset, generator=gen) for k in K_HMIX],
+                    torch.full((len(K_HMIX),), -math.log(len(K_HMIX)), device="cuda"))
+    kmax, M = max(K_HMIX), len(K_HMIX)
+    rows = config.mix_block_rows(M, kmax, 4)
+    n_blocks = -(-N_HMIX // rows)
+    print(f"[large-k] 11d: mixture of state sizes {K_HMIX} (padded to {kmax}), D={D_HMIX}, "
+          f"N={N_HMIX}: {rows} data rows a block, {M * rows} kernel samples a launch")
+    mix, _ = train("large-k 11d", dataset, seed + 2, smi, k=kmax, n_models=M,
+                   n_iters=N_DENSE_ITERS, start=start)
+    cluster = mix.infer_cluster(dataset)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # training; model.llk; infer_cluster (llk)
+    check_launches("11d training, model.llk and infer_cluster", launches,
+                   dict(fullt=N_DENSE_ITERS * n_blocks, states=N_DENSE_ITERS, llk=2 * n_blocks),
+                   dict(fullt=kmax, states=kmax, llk=kmax))
+    fused, fused_llk = mix._iterate_with_llk(dataset, Prior())
+    loop, loop_llk = mix._iterate_loop(dataset, Prior())
+    diffs = mix_diffs(fused, loop)
+    diffs["llk"] = abs(fused_llk - loop_llk) / abs(loop_llk)
+    own = torch.stack([m.llks(dataset) for m in mix.models], -1) + mix.log_weights
+    check(tuple(cluster.shape) == (N_HMIX, M) and bool(torch.isfinite(cluster).all()),
+          "11d: infer_cluster has the wrong shape or non-finite values")
+    report_diffs("large-k", "11d: one fused EM step vs the per-component loop (each component "
+                 "a single model at its own k)", diffs, TOL_STREAM)
+    cd = rel_err(cluster.exp(), torch.softmax(own, -1))
+    print(f"[large-k] 11d: infer_cluster's posteriors vs the components' own llks: max abs diff "
+          f"{cd:.3e} (tol {TOL_POSTERIOR:g})")
+    check(cd <= TOL_POSTERIOR, f"11d: infer_cluster {cd:.3e} above {TOL_POSTERIOR}")
+
+    # the independent reference: the port's plain path on the CPU in float64
+    sub = dataset.slice(0, N_HMIX_CPU)
+    host = mix_on_cpu64(mix)
+    sub_host = Dataset.from_parts(sub.data.cpu().double(), sub.mask.cpu(), sub.weights_dev.cpu().double())
+    card, card_llk = mix._iterate_with_llk(sub, Prior())
+    t0 = time.perf_counter()
+    cpu, cpu_llk = host._iterate_with_llk(sub_host, Prior())
+    diffs = mix_diffs(card, cpu)
+    diffs["llk"] = abs(card_llk - cpu_llk) / abs(cpu_llk)
+    diffs["llks"] = rel_err(mix.llks(sub).cpu(), host.llks(sub_host))
+    diffs["infer_cluster"] = rel_err(cluster[:N_HMIX_CPU].exp().cpu(), host.infer_cluster(sub_host).exp())
+    report_diffs("large-k", f"11d: {N_HMIX_CPU} rows, one EM step, llks and infer_cluster's "
+                 f"posteriors, card float32 vs CPU float64 ({time.perf_counter() - t0:.1f} s on "
+                 "the CPU)", diffs, TOL_CARD_VS_CPU)
+    return launches
+
+
+def phase_large_k(smi: str) -> dict:
+    """Phase 11: the masked route past the register tiles, at bench_suite.py's
+    k=256 and k=512 rows, the pattern route at k=256, float64 at k=96 on
+    the card, and a mixture with heterogeneous large state sizes.  Returns
+    the launches by part."""
+    from ppca_rs_tpu_torch import PPCAModel, config
+    from ppca_rs_tpu_torch.ops import kernels
+
+    out = {}
+    model, out["11a"] = large_k_masked(smi, "11a", 256, N_LK256, 3, SEED + 40, N_LK_READOUT,
+                                       N_LK_SAMPLER, N_LK_CPU, profile=True)
+    out["11e"] = large_k_pattern(model, SEED + 49)
+    del model
+    torch.cuda.empty_cache()
+    _, out["11b"] = large_k_masked(smi, "11b", 512, N_LK512, 2, SEED + 43, 0, N_LK512_SAMPLER,
+                                   N_LK512_CPU, profile=False)
+    torch.cuda.empty_cache()
+
+    # 11c: float64 on the card at a k that the float64 tile does not take
+    ds = make_main_dataset(N_LK64, K_LK64, SEED + 46).astype(torch.float64)
+    model = PPCAModel.init(K_LK64, ds, generator=torch.Generator(device="cuda").manual_seed(SEED + 47))
+    check(model.transform.dtype == torch.float64, "11c: the model is not float64")
+    kernels.reset_launch_counts()
+    model = model.iterate(ds)
+    card_vs_cpu("large-k 11c", model, ds, used=("fullt", "states", "llk"), tol=TOL_F64_CARD_VS_CPU)
+    out["11c"] = dict(kernels.LAUNCHES)
+    n_blocks = -(-N_LK64 // config.block_rows(K_LK64, 8))
+    check_launches("11c float64", out["11c"], dict(fullt=2 * n_blocks, states=2, llk=n_blocks),
+                   dict(fullt=K_LK64, states=K_LK64, llk=K_LK64), dtype=torch.float64)
+    del ds, model
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    out["11d"] = large_k_mixture(smi, SEED + 48)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-child":
         return parallel_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
@@ -2446,24 +2763,37 @@ def main() -> int:
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are enabled")
     t_start = time.perf_counter()
+    marks = []
+
+    def done(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
+        torch.cuda.empty_cache()
+
     smi = phase_card()
-    summary, wide = phase_kernels()
+    done("1")
+    summary, wide, panel, f64 = phase_kernels()
+    done("2")
     model, dataset, masked_launches = phase_main(smi)
     card_vs_cpu("card-vs-cpu", model, dataset.slice(0, N_CPU), used=("fullt", "llk"))
     del model, dataset
-    torch.cuda.empty_cache()
+    done("3-4")
     pattern_launches = phase_pattern(smi)
-    torch.cuda.empty_cache()
+    done("5")
     phase_dense(smi)
-    torch.cuda.empty_cache()
+    done("6")
     wide_launches = phase_wide(smi)
-    torch.cuda.empty_cache()
+    done("7")
     mix_launches, mix_rows = phase_mix(smi)
-    torch.cuda.empty_cache()
+    done("8")
     stream_launches = phase_stream(smi)
-    torch.cuda.empty_cache()
+    done("9")
     parallel_launches = phase_parallel(smi)
-    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    done("10")
+    large_launches = phase_large_k(smi)
+    done("11")
+    starts = [t_start] + [t for _, t in marks[:-1]]
+    print(f"[done] all phases passed in {marks[-1][1] - t_start:.1f} s ("
+          + ", ".join(f"phase {p} {t - t0:.1f} s" for (p, t), t0 in zip(marks, starts)) + ")")
 
     entries = [(f"spd_estep_{want}", ESTEP_SOURCE[summary[want]["design"]], ESTEP_REPLACES, want,
                 masked_launches) for want in ("fullt", "states", "llk", "infer")]
@@ -2487,8 +2817,26 @@ def main() -> int:
                          **{part: counts[key] for part, counts in parallel_launches.items()}}}
         for name, source, replaces, key, launches in entries
     ]}
+    # the panel design: each variant's kernel at PANEL_KS (B=BATCH up to
+    # FULL_BATCH_MAX_K, a block's rows above), launched on phase 11's path;
+    # fullt also in float64 at F64_TIMED_KS
+    ref_k = PANEL_KS[1]
+    for key in ("fullt", "states", "llk", "infer", "full", "chol"):
+        row = panel[ref_k][key]
+        entry = {"name": f"spd_panel_{key}", "route": "cuda",
+                 "source": "ppca_rs_tpu_torch/csrc/spd_panel.cuh",
+                 "replaces": CHOL_REPLACES if key == "chol" else ESTEP_REPLACES,
+                 "launches": sum(part[key] for part in large_launches.values()),
+                 **{f: row[f] for f in fields},
+                 "at_large_k": {part: counts[key] for part, counts in large_launches.items()},
+                 **{f"at_k{k}": {f: panel[k][key][f] for f in fields}
+                    for k in PANEL_KS if k != ref_k}}
+        if key == "fullt":
+            entry["at_f64"] = {f"k{k}": {f: f64[k][f] for f in fields if f in f64[k]}
+                               for k in F64_TIMED_KS}
+        kernels_line["kernels"].append(entry)
     for entry in kernels_line["kernels"]:
-        check(entry["launches"] > 0, f"{entry['name']} was not launched by the main path")
+        check(entry["launches"] > 0, f"{entry['name']} was not launched by its path")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

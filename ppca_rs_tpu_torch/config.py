@@ -89,6 +89,14 @@ class Config:
             rows //= 2
         return rows
 
+    def block_rows(self, k: int, itemsize: int) -> int:
+        """Rows per block of a single model's blocked loops: the mixture
+        rule with one component, so one (rows, k, k) tensor fits
+        MIX_BLOCK_MAX_BYTES.  In float32 k <= 128 keeps 8192 rows, k=256
+        takes 2048 and k=512 takes 512 (``ppca_rs_tpu/config.py``'s
+        ``block_size_for`` also shrinks blocks with k)."""
+        return self.mix_block_rows(1, k, itemsize)
+
     def resolve_device(self, device=None) -> torch.device:
         """The device for tensors built from host arrays: ``device`` if
         given, else :attr:`device`.  A CUDA device with no card raises:

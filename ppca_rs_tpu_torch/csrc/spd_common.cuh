@@ -1,7 +1,6 @@
 // Pieces shared by the package's per-sample SPD kernels (spd_estep.cu,
-// spd_estep_tile.cuh, spd_chol.cu, spd_chol_tile.cuh): the
-// one-block-per-sample thread-block shape, the device limits, the tile
-// limit and the type-generic math helpers.
+// spd_estep_tile.cuh, spd_chol.cu, spd_chol_tile.cuh, spd_panel.cuh): the
+// device limits, the tile limits and the type-generic math helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,25 +8,16 @@
 
 namespace ppca {
 
-// One thread block per sample, 256 threads as a 32 x 8 tile: x runs along a
-// matrix row (contiguous in shared memory), y over rows.
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kWarps = kThreads / 32;
-
-// Shared memory one block may use on Hopper (227 KB), and the devices a
-// process may drive, for the once-per-device kernel attributes.
-constexpr int kSmemLimitBytes = 232448;
+// The devices a process may drive, for the once-per-device lookups.
 constexpr int kMaxDevices = 64;
 
 // spd_estep and spd_chol serve k up to these limits with the register-tile
 // designs (spd_estep_tile.cuh, spd_chol_tile.cuh: tiles of 8 to 128) and
-// larger k with one block per sample (spd_estep.cu, spd_chol.cu); the entry
-// points spd_estep_tile_max_k and spd_chol_tile_max_k report them to the
-// wrapper.  The float64 E-step stays on the block design above k=64: its
-// KP=128 tile spills (ptxas for sm_90a: 255 registers and 216 bytes of
-// spill stores in fullt, infer and full).
+// larger k with the panel design (spd_panel.cuh); the entry points
+// spd_estep_tile_max_k and spd_chol_tile_max_k report them to the wrapper.
+// The float64 E-step takes the panel design above k=64: its KP=128 tile
+// spills (ptxas for sm_90a: 255 registers and 216 bytes of spill stores in
+// fullt, infer and full).
 template <typename T>
 constexpr int estep_tile_max_k() { return sizeof(T) == 4 ? 128 : 64; }
 template <typename T>
@@ -40,19 +30,6 @@ inline cudaError_t ensure_device(int device) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  return err;
-}
-
-// Raises the dynamic shared-memory allowance of the kernel Kern to the whole
-// 227 KB, once per kernel and device rather than on every launch.  `device`
-// has passed ensure_device.
-template <auto Kern>
-cudaError_t allow_smem(int device) {
-  static bool allowed[kMaxDevices] = {};
-  if (allowed[device]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimitBytes);
-  if (err == cudaSuccess) allowed[device] = true;
   return err;
 }
 

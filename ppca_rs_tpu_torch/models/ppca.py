@@ -183,13 +183,20 @@ class PPCAModel(nn.Module):
     def _params(self):
         return self.transform, self.mean, self.isotropic_noise
 
+    def _block_rows(self, dataset: Dataset) -> int:
+        """Rows per block of the blocked loops over ``dataset``
+        (``config.block_rows``: fewer at large k)."""
+        itemsize = ml._compute_dtype(dataset.data, self.transform).itemsize
+        return config.block_rows(self.state_size, itemsize)
+
     def llk(self, dataset: Dataset) -> float:
         """Weighted total log-likelihood (`ppca_model.rs:142-149`); of all
         ranks' rows for a sharded dataset."""
         if dataset.is_empty():
             return 0.0
         if dataset_mesh(dataset) is not None:
-            return float(api.llk(*self._params(), dataset, block_size=config.block_size))
+            return float(api.llk(*self._params(), dataset,
+                                 block_size=self._block_rows(dataset)))
         return float((self.llks(dataset) * dataset.weights_dev).sum())
 
     def llks(self, dataset: Dataset) -> torch.Tensor:
@@ -199,9 +206,10 @@ class PPCAModel(nn.Module):
     def _readout(self, verb: str, dataset: Dataset):
         """``verb`` ("llks", "states" or "infer") of the dataset's route."""
         if dataset_mesh(dataset) is not None:
-            return api.readout(verb, *self._params(), dataset, block_size=config.block_size)
+            return api.readout(verb, *self._params(), dataset,
+                               block_size=self._block_rows(dataset))
         return routes.readout(verb, routes.route(dataset), *self._params(), dataset,
-                              config.block_size)
+                              self._block_rows(dataset))
 
     # ------------------------------------------------------------------ #
     # sampling (ppca_model.rs:164-191)
@@ -249,7 +257,7 @@ class PPCAModel(nn.Module):
         and place on its mesh: a sharded dataset's are this rank's rows and
         columns."""
         if dataset_mesh(dataset) is not None:
-            out = api.smooth(*self._params(), dataset, block_size=config.block_size,
+            out = api.smooth(*self._params(), dataset, block_size=self._block_rows(dataset),
                              extrapolate=extrapolate)
         else:
             out = self._readout("states", dataset) @ self.transform.T + self.mean
@@ -294,10 +302,11 @@ class PPCAModel(nn.Module):
         priors = dict(transformation_precision=tprec, noise_prior=noise_prior,
                       mean_prior=mean_prior)
         if dataset_mesh(dataset) is not None:
-            new, llk = api.em_step(C, mean, sigma, dataset, priors, block_size=config.block_size)
+            new, llk = api.em_step(C, mean, sigma, dataset, priors,
+                                   block_size=self._block_rows(dataset))
             return PPCAModel._from_params(*new), llk
         way = routes.route(dataset)
-        stats = routes.em_stats(way, C, mean, sigma, dataset, config.block_size)
+        stats = routes.em_stats(way, C, mean, sigma, dataset, self._block_rows(dataset))
         new = routes.em_finalize(way, C, mean, sigma, stats, priors)
         return PPCAModel._from_params(*new), stats.llk
 

@@ -20,21 +20,23 @@ Layout is batch-major: ``G (B, k, k)``, ``b (B, k)``, ``rnorm, d_obs (B,)``;
 tensor) or one per sample (a tensor of B elements, as the mixtures stack
 their components on the batch axis).
 
-On a CUDA tensor the wrapper launches the kernel in ``csrc/spd_estep.cu``
-(the port of ``ppca_rs_tpu/ops/kernels.py:_make_kernel`` / ``spd_estep``) or
-raises: up to the tile limit the library reports (:func:`design`) the
-register-tile design of ``csrc/spd_estep_tile.cuh``, above it the
-one-block-per-sample design.  On
-a CPU tensor it runs :func:`spd_estep_reference`.  There is no other
-route.  An all-masked sample (``G = 0``, ``b = 0``, ``rnorm = d_obs =
-0``) is neutral: ``s = 0``, ``Sigma = I``, ``llk = 0``.  A sample whose M is
-not positive definite yields non-finite values for that sample only.
+On a CUDA tensor the wrapper launches the kernel behind
+``csrc/spd_estep.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:_make_kernel``
+/ ``spd_estep``) or raises: up to the tile limit the library reports
+(:func:`design`) the register-tile design of ``csrc/spd_estep_tile.cuh``,
+above it the panel design of ``csrc/spd_panel.cuh``, which takes any k
+device memory holds (``llk`` and ``states`` give it a scratch,
+:func:`scratch_shape`).  On a CPU tensor it runs
+:func:`spd_estep_reference`.  There is no other route.  An all-masked
+sample (``G = 0``, ``b = 0``, ``rnorm = d_obs = 0``) is neutral: ``s = 0``,
+``Sigma = I``, ``llk = 0``.  A sample whose M is not positive definite
+yields non-finite values for that sample only.
 
 :func:`spd_chol` is the batched lower Cholesky factor ``L (B, k, k)`` of SPD
-matrices ``M (B, k, k)`` behind the posterior sampler: the kernel in
+matrices ``M (B, k, k)`` behind the posterior sampler: the kernel behind
 ``csrc/spd_chol.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:spd_chol``)
 on CUDA tensors -- the register tile of ``csrc/spd_chol_tile.cuh`` up to
-the tile limit, one block per sample above it -- and
+the tile limit, the panel design above it -- and
 :func:`spd_chol_reference` on CPU tensors.
 """
 
@@ -54,9 +56,6 @@ _WANT_CODE = {"fullt": 0, "states": 1, "llk": 2, "infer": 3, "full": 4}
 #: Every kernel: the spd_estep variants and the Cholesky factor.
 KERNELS = WANTS + ("chol",)
 
-#: Shared memory one thread block may use on Hopper (sm_90).
-SMEM_LIMIT_BYTES = 232448
-
 #: Kernel launches per kernel, counted where the kernel is launched.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -66,41 +65,43 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def smem_bytes(want: str, k: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block.  spd_estep: M, plus W = L^{-1}
-    for the variants that form the inverse, plus three k-vectors and 32
-    slots.  chol: M with an odd row stride ``k | 1``, plus one k-vector."""
-    itemsize = dtype.itemsize
-    if want == "chol":
-        return (k * (k | 1) + k) * itemsize
-    n_buf = 2 if want in ("fullt", "full", "infer") else 1
-    return (n_buf * k * k + 3 * k + 32) * itemsize
-
-
-@functools.lru_cache(maxsize=None)
-def max_k(want: str, dtype: torch.dtype) -> int:
-    """Largest state size the kernel takes for this variant (or "chol")
-    and dtype: the largest k whose one-block-per-sample shared memory fits.
-    Cached: the wrapper asks on every launch."""
-    k = 1
-    while smem_bytes(want, k + 1, dtype) <= SMEM_LIMIT_BYTES:
-        k += 1
-    return k
-
-
 def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) -> str:
     """Which design serves state size k on the card for ``kernel``
     ("estep": every spd_estep variant; "chol": spd_chol) and ``dtype``:
-    "tile" (registers, a sample over one or more warps) or "block" (one
-    block per sample, shared memory), by the tile limit that the kernel
-    library reports for that kernel and element size."""
+    "tile" (registers, a sample over one or more warps) or "panel" (one
+    CTA a sample, the working matrix in device memory, any k), by the tile
+    limit that the kernel library reports for that kernel and element
+    size."""
     from . import _build
 
     if kernel not in ("estep", "chol"):
         raise ValueError(f"kernel must be 'estep' or 'chol', got {kernel!r}")
     lib = _build.load()
     limit = lib.spd_estep_tile_max_k if kernel == "estep" else lib.spd_chol_tile_max_k
-    return "tile" if k <= limit(dtype.itemsize) else "block"
+    return "tile" if k <= limit(dtype.itemsize) else "panel"
+
+
+#: CTAs a multiprocessor in the panel design's persistent grid, for every
+#: variant and dtype: the minimum its launch bounds fix (``kCtasPerSm`` in
+#: ``csrc/spd_panel.cuh``).
+PANEL_CTAS_PER_SM = 2
+
+
+def scratch_shape(want: str, B: int, k: int):
+    """The panel design's working storage for ``want``: (B, k+1, k) for
+    ``llk`` and ``states`` (the k x k working matrix and the right-hand
+    side), None for the variants that work in their own k x k output."""
+    _check_want(want)
+    return (B, k + 1, k) if want in ("llk", "states") else None
+
+
+def empty_scratch(want: str, B: int, k: int, like: torch.Tensor):
+    """Uninitialised scratch for a launch of ``want`` at (B, k) on the card,
+    or None where the design serving k takes none (the register tiles)."""
+    shape = scratch_shape(want, B, k)
+    if shape is None or design(k, "estep", like.dtype) == "tile":
+        return None
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
 def sigma_arg(sigma, B: int, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, int]:
@@ -211,10 +212,12 @@ def empty_outputs(want: str, B: int, k: int, like: torch.Tensor) -> Tuple[torch.
                  for sh in output_shapes(want, B, k))
 
 
-def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
+def launch(want: str, sigma, G, b, rnorm, d_obs, outs, scratch=None) -> None:
     """Launch the CUDA kernel into caller-provided outputs ``outs`` (as
-    returned by :func:`empty_outputs`) on the current stream.  Raises on
-    any input the kernel does not take and on a failed launch."""
+    returned by :func:`empty_outputs`) on the current stream.  The panel
+    design's scratch for ``llk`` and ``states`` (:func:`empty_scratch`) is
+    allocated here unless the caller passes it.  Raises on any input the
+    kernel does not take and on a failed launch."""
     from . import _build
 
     _check_want(want)
@@ -225,12 +228,8 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
         raise ValueError(f"the spd_estep kernel needs CUDA tensors, got {device}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the spd_estep kernel takes float32 or float64, got {dtype}")
-    if k < 1 or k > max_k(want, dtype):
-        raise ValueError(
-            f"state size k={k} is outside the spd_estep kernel's range for "
-            f"want={want!r} and {dtype}: 1 <= k <= {max_k(want, dtype)} "
-            f"({SMEM_LIMIT_BYTES} bytes of shared memory per block)"
-        )
+    if k < 1:
+        raise ValueError(f"the spd_estep kernel takes k >= 1, got k={k}")
     sigma, sigma_stride = sigma_arg(sigma, B, dtype, device)
     shapes = output_shapes(want, B, k)
     if len(outs) != len(shapes) or any(
@@ -238,7 +237,11 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
         for o, sh in zip(outs, shapes)
     ):
         raise ValueError(f"outputs for want={want!r} must have shapes {shapes}")
-    tensors = (sigma, G, b, rnorm, d_obs, *outs)
+    if scratch is None:
+        scratch = empty_scratch(want, B, k, G)
+    elif tuple(scratch.shape) != scratch_shape(want, B, k):
+        raise ValueError(f"scratch for want={want!r} must have shape {scratch_shape(want, B, k)}")
+    tensors = (sigma, G, b, rnorm, d_obs, *outs) + (() if scratch is None else (scratch,))
     for t in tensors:
         if t.dtype != dtype or t.device != device:
             raise ValueError("spd_estep tensors must share one dtype and device")
@@ -260,7 +263,7 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     index = device.index if device.index is not None else torch.cuda.current_device()
     err = fn(_WANT_CODE[want], index, ptr(sigma), sigma_stride, ptr(G), ptr(b), ptr(rnorm),
-             ptr(d_obs), ptr(s), ptr(m), ptr(llk), ptr(sq), B, k, stream)
+             ptr(d_obs), ptr(s), ptr(m), ptr(llk), ptr(sq), ptr(scratch), B, k, stream)
     if err != 0:
         raise RuntimeError(
             f"spd_estep kernel launch failed (want={want!r}, B={B}, k={k}): "
@@ -282,12 +285,8 @@ def launch_chol(M: torch.Tensor, L: torch.Tensor) -> None:
         raise ValueError(f"the spd_chol kernel needs CUDA tensors, got {device}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the spd_chol kernel takes float32 or float64, got {dtype}")
-    if k < 1 or k > max_k("chol", dtype):
-        raise ValueError(
-            f"state size k={k} is outside the spd_chol kernel's range for {dtype}: "
-            f"1 <= k <= {max_k('chol', dtype)} ({SMEM_LIMIT_BYTES} bytes of shared "
-            "memory per block)"
-        )
+    if k < 1:
+        raise ValueError(f"the spd_chol kernel takes k >= 1, got k={k}")
     if L.shape != M.shape or L.dtype != dtype or L.device != device:
         raise ValueError(f"L must be a {dtype} tensor of shape {tuple(M.shape)} on {device}")
     if not (M.is_contiguous() and L.is_contiguous()):

@@ -205,7 +205,7 @@ def _chunk_stats(model: PPCAModel, ds: Dataset) -> ml.EMStats:
     """EM statistics of one chunk's rows on its route (fully observed: the
     dense pass; repeating masks: the pattern tables; otherwise the masked
     pass)."""
-    args, bs = model._params(), config.block_size
+    args, bs = model._params(), model._block_rows(ds)
     if ds.all_observed():
         return _dense_to_masked_stats(df.em_stats(*args, ds.data, ds.weights_dev, block_size=bs))
     pat = ds.pattern_info()

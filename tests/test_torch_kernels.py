@@ -237,35 +237,6 @@ def test_wrapper_rejects_bad_inputs(rng):
         tk.launch_chol(G, torch.empty_like(G))
 
 
-def test_shared_memory_ceiling():
-    """k ceilings follow from 227 KB of shared memory per block: two k x k
-    buffers for fullt/full/infer, one for states/llk, one with an odd row
-    stride for chol."""
-    assert tk.max_k("fullt", torch.float32) == tk.max_k("infer", torch.float32) == 169
-    assert tk.max_k("full", torch.float32) == 169
-    assert tk.max_k("fullt", torch.float64) == tk.max_k("full", torch.float64) == 119
-    assert tk.max_k("states", torch.float32) == tk.max_k("llk", torch.float32) == 239
-    assert tk.max_k("chol", torch.float32) == 240
-    assert tk.max_k("chol", torch.float64) == 169
-    for want in tk.KERNELS:
-        for dtype in (torch.float32, torch.float64):
-            k = tk.max_k(want, dtype)
-            assert tk.smem_bytes(want, k, dtype) <= tk.SMEM_LIMIT_BYTES
-            assert tk.smem_bytes(want, k + 1, dtype) > tk.SMEM_LIMIT_BYTES
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("want", list(tk.KERNELS))
-def test_max_k_is_the_largest_k_that_fits(want, dtype):
-    """The cached ceiling is the one a scan of k gives, and asking again
-    returns the cached value."""
-    k = 1
-    while tk.smem_bytes(want, k + 1, dtype) <= tk.SMEM_LIMIT_BYTES:
-        k += 1
-    assert tk.max_k(want, dtype) == k
-    assert tk.max_k(want, dtype) == k and tk.max_k.cache_info().hits >= 1
-
-
 def test_sigma_given_on_the_device_is_used_as_it_is():
     """A sigma tensor of the kernel's dtype and device goes to the kernel
     without a copy (stride 0 for one value, 1 for one per sample); a Python
@@ -287,18 +258,18 @@ def test_sigma_given_on_the_device_is_used_as_it_is():
 
 def test_design_follows_the_tile_limit(monkeypatch):
     """k up to the tile limit that the kernel library reports, for each
-    kernel and element size, takes the register tile, larger k the block
+    kernel and element size, takes the register tile, larger k the panel
     design (a stand-in library here: the real one is built on the card)."""
     limits = {("estep", 4): 128, ("estep", 8): 64, ("chol", 4): 96, ("chol", 8): 48}
     lib = types.SimpleNamespace(spd_estep_tile_max_k=lambda size: limits["estep", size],
                                 spd_chol_tile_max_k=lambda size: limits["chol", size])
     monkeypatch.setattr(_build, "load", lambda: lib)
     assert tk.design(1) == tk.design(128) == "tile"     # estep, float32 by default
-    assert tk.design(129) == "block"
+    assert tk.design(129) == tk.design(4096) == "panel"
     for (kernel, size), limit in limits.items():
         dtype = torch.float32 if size == 4 else torch.float64
         assert tk.design(1, kernel, dtype) == tk.design(limit, kernel, dtype) == "tile"
-        assert tk.design(limit + 1, kernel, dtype) == "block"
+        assert tk.design(limit + 1, kernel, dtype) == "panel"
     with pytest.raises(ValueError, match="kernel"):
         tk.design(4, "full")
 
@@ -310,7 +281,8 @@ def test_build_command_and_source_key(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cu = [p.name for p in _build.sources() if p.suffix == ".cu"]
     assert cu == ["spd_chol.cu", "spd_chol_tile_f32.cu", "spd_chol_tile_f64.cu", "spd_estep.cu",
-                  "spd_estep_tile_f32.cu", "spd_estep_tile_f64.cu"]
+                  "spd_estep_tile_f32.cu", "spd_estep_tile_f64.cu", "spd_panel_f32.cu",
+                  "spd_panel_f64.cu"]
     for name in cu:
         cmd = _build.compile_command(_build.SOURCE_DIR / name, tmp_path / "a.o")
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
