@@ -5,8 +5,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout and runs eleven
-phases; any failed check raises and the script exits non-zero:
+It builds the CUDA kernels from the sources in the checkout and runs
+thirteen phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
 2. every spd_estep kernel variant and spd_chol against its plain PyTorch
@@ -75,9 +75,13 @@ phases; any failed check raises and the script exits non-zero:
    (e) the resident data stored in bfloat16 against float32, and a
    streamed training traced through ``profile_dir``; (c) phase 8's mixture
    from four host chunks, ``StreamingPPCAMixTrainer`` and
-   ``iterate_mix_streamed`` against ``PPCAMix._em_step`` (1e-4); (d) the
-   host packing times of ``Dataset()`` on a float64 array with NaN holes
-   and of ``DataFrameAdapter.from_pandas`` on a long frame;
+   ``iterate_mix_streamed`` against ``PPCAMix._em_step`` (1e-4); (d) host
+   packing: the native pass of ``Dataset()`` (``native/packing.py``)
+   against its plain numpy version on a float64 array with NaN holes, in
+   turns and bit for bit, the copy of its output to the card and
+   ``Dataset()`` whole; the adapters' native scatter against numpy fancy
+   assignment on a shuffled long frame, bit for bit, and
+   ``DataFrameAdapter.from_pandas`` whole;
 10. the sharded path (``[parallel]`` lines), in child processes of this
    script (``--parallel-child``) on this card, each held against a
    single-process run here from the same start (1e-4), the ranks against
@@ -110,11 +114,26 @@ phases; any failed check raises and the script exits non-zero:
    D=512 over 16,384 rows, two ``PPCAMixTrainer`` iterations, one fused EM
    step against the per-component loop (1e-4), ``infer_cluster``'s
    posteriors against the components' own llks (1e-3), and one EM step,
-   the llks and ``infer_cluster`` on 256 rows, card vs CPU float64 (1e-3).
+   the llks and ``infer_cluster`` on 256 rows, card vs CPU float64 (1e-3);
+12. a structured mixture (``[patmix]`` lines), the JAX package's
+   pattern-mixture measurement: M=8 components, k=64, D=1024, N=262,144
+   float32 rows from P=32 mask patterns (N / P = 8,192, the sorted EM's
+   gate): detection and the sorted copy, four ``PPCAMixTrainer``
+   iterations on the default route, the per-segment EM (``full`` on the
+   M x P tables and ``states`` in the M-step, counted exactly), a profile
+   of one more iteration, the per-segment EM against the table-grouped EM
+   on the same parameters at 8,192, 4,096, 2,048, 1,024 and 256 rows a segment
+   (times in turns; statistics and the EM step from them within 1e-4 at
+   the gate), the per-segment statistics of 512 sorted rows on the card in
+   float32 against the CPU in float64 (1e-3), and ``full`` and ``states``
+   at this phase's shapes against their plain versions, timed;
+13. the nine examples of ``examples/torch_port/`` on the card with
+   ``--device cuda`` in smoke mode, started together; each must exit 0.
 
 The line before the last is the JSON kernel summary (the register-tile
-kernels on the main path, then the panel design's kernels on phase 11's
-path); the last line is
+kernels on the main path, with phase 12's ``full`` and ``states`` under
+``at_patmix``, then the panel design's kernels on phase 11's path); the
+last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
 """
@@ -124,6 +143,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -292,6 +312,28 @@ N_HMIX_CPU = 256
 #: llks: row llks of 10^3-10^4 carry 10^-4-10^-3 of float32 rounding into
 #: the log-odds, which a posterior passes on at up to a quarter of it.
 TOL_POSTERIOR = 1e-3
+#: Phase 12: a structured mixture, the JAX package's pattern-mixture
+#: measurement (tools/em_microbench.py:49-63 --path patmix_sorted;
+#: ppca_rs_tpu/config.py:117-121): M_PATMIX components, P_PATMIX mask
+#: patterns (each observes each dimension with probability 0.5, rows pick
+#: one uniformly), D_PATMIX x K_PATMIX, N_PATMIX float32 rows: N / P =
+#: 8,192 rows a segment, exactly config.pat_sorted_min_rows.  PATMIX_ITERS
+#: trainer iterations; the two table-route EM forms timed against each
+#: other at PATMIX_SEGMENT_ROWS rows a segment (prefixes of the data),
+#: PATMIX_REPS calls each, in turns; card vs CPU float64 on N_PATMIX_CPU
+#: rows.  Sorted vs table-grouped statistics: TOL_STREAM (only the order of
+#: summation differs).
+N_PATMIX = 262_144
+D_PATMIX = 1024
+K_PATMIX = 64
+M_PATMIX = 8
+P_PATMIX = 32
+PATMIX_ITERS = 4
+PATMIX_SEGMENT_ROWS = (8192, 4096, 2048, 1024, 256)
+PATMIX_REPS = 3
+N_PATMIX_CPU = 512
+#: Phase 13: each example of examples/torch_port/ is killed after this.
+EXAMPLE_TIMEOUT = 300
 SEED = 20261016
 
 
@@ -1233,31 +1275,37 @@ def phase_wide(smi: str):
 # phase 8
 
 
-def make_mix_dataset(observed: float = MIX_OBSERVED, seed: int = SEED + 13):
-    """bench_suite.py's mixture data (row 4), made on the card: N_MIX rows,
-    each from one of M_MIX components drawn uniformly, y = C_m z + mu_m +
-    0.3 eps with C_m ~ N(0, 1) (D_MIX x K_MIX) and mu_m ~ 3 N(0, 1), each
-    entry observed with probability ``observed`` (1 gives a fully observed
-    copy of the same values)."""
+def make_mix_dataset(observed: float = MIX_OBSERVED, seed: int = SEED + 13, n: int = N_MIX,
+                     d: int = D_MIX, k: int = K_MIX, m_comp: int = M_MIX, patterns=None):
+    """bench_suite.py's mixture data (row 4), made on the card: n rows,
+    each from one of ``m_comp`` components drawn uniformly, y = C_m z + mu_m
+    + 0.3 eps with C_m ~ N(0, 1) (d x k) and mu_m ~ 3 N(0, 1), each entry
+    observed with probability ``observed`` (1 gives a fully observed copy
+    of the same values), or, with ``patterns`` (P, d), each row observed
+    as one of the P patterns drawn uniformly."""
     from ppca_rs_tpu_torch import Dataset
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     opts = dict(generator=gen, device="cuda", dtype=torch.float32)
-    Cs = torch.randn(M_MIX, D_MIX, K_MIX, **opts)
-    means = 3.0 * torch.randn(M_MIX, D_MIX, **opts)
-    comp = torch.randint(0, M_MIX, (N_MIX,), generator=gen, device="cuda")
-    data = torch.empty(N_MIX, D_MIX, device="cuda", dtype=torch.float32)
-    mask = torch.empty(N_MIX, D_MIX, device="cuda", dtype=torch.bool)
+    Cs = torch.randn(m_comp, d, k, **opts)
+    means = 3.0 * torch.randn(m_comp, d, **opts)
+    comp = torch.randint(0, m_comp, (n,), generator=gen, device="cuda")
+    data = torch.empty(n, d, device="cuda", dtype=torch.float32)
+    mask = torch.empty(n, d, device="cuda", dtype=torch.bool)
     step = 1 << 16
-    for lo in range(0, N_MIX, step):
-        hi = min(lo + step, N_MIX)
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
         c = comp[lo:hi]
-        z = torch.randn(hi - lo, K_MIX, **opts)
-        y = means[c] + 0.3 * torch.randn(hi - lo, D_MIX, **opts)
-        for m in range(M_MIX):
+        z = torch.randn(hi - lo, k, **opts)
+        y = means[c] + 0.3 * torch.randn(hi - lo, d, **opts)
+        for m in range(m_comp):
             rows = (c == m).nonzero().squeeze(1)
             y.index_add_(0, rows, z[rows] @ Cs[m].T)
-        seen = torch.rand(hi - lo, D_MIX, generator=gen, device="cuda") < observed
+        if patterns is None:
+            seen = torch.rand(hi - lo, d, generator=gen, device="cuda") < observed
+        else:
+            seen = patterns[torch.randint(0, patterns.shape[0], (hi - lo,), generator=gen,
+                                          device="cuda")]
         data[lo:hi] = torch.where(seen, y, torch.zeros_like(y))
         mask[lo:hi] = seen
     return Dataset.from_parts(data, mask)
@@ -1510,6 +1558,45 @@ def time_pattern_grouping(rows: int) -> None:
               f"{a1:.4f}/{a2:.4f} ms, one-hot matmul {o1:.4f}/{o2:.4f} ms")
 
 
+def row_solve_inputs(stats) -> dict:
+    """The M-step's row solve of a mixture's live components (a dead one's
+    statistics are 0), lambda = 0: ``spd_estep`` inputs of M x D rows."""
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+
+    k = stats.cross.shape[-1]
+    alive = stats.resp_max > 0
+    inv = 1.0 / stats.resp_max[alive]
+    S = ml.symmetric_from_lower((stats.S[alive] * inv[:, None, None]).reshape(-1, k, k))
+    cross = (stats.cross[alive] * inv[:, None, None]).reshape(-1, k)
+    zeros = torch.zeros(cross.shape[0], device="cuda")
+    return dict(G=S.contiguous(), b=cross.contiguous(), rnorm=zeros, d_obs=zeros)
+
+
+def check_estep_at(tag: str, want: str, inp: dict, sigma, k: int) -> float:
+    """One float32 launch of ``want`` on ``inp`` into NaN-prefilled outputs
+    against its plain version in float64 (TOL_F32 relative to each output's
+    largest magnitude; the row solve's states alone); returns the largest
+    absolute error."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    n = inp["G"].shape[0]
+    outs = tuple(torch.full(sh, math.nan, device="cuda") for sh in kernels.output_shapes(want, n, k))
+    kernels.launch(want, sigma, inp["G"], inp["b"], inp["rnorm"], inp["d_obs"], outs)
+    torch.cuda.synchronize()
+    ref = kernels.spd_estep_reference(sigma.double(), *(inp[n_].double() for n_ in
+                                                        ("G", "b", "rnorm", "d_obs")), want)
+    if want == "states":      # lambda = 0: the row solve reads the solution alone
+        outs, ref = outs[:1], ref[:1]
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          f"{tag} {want} B={n}: an output element was left unwritten or is non-finite")
+    err = max(rel_err(o, r) for o, r in zip(outs, ref))
+    abs_err = max(float((o.double() - r).abs().max()) for o, r in zip(outs, ref))
+    check(err <= TOL_F32, f"{tag} {want} B={n}: relative error {err:.3e} above {TOL_F32}")
+    print(f"[{tag}] kernel {want} k={k} B={n} float32: max rel err {err:.3e} (tol {TOL_F32:g}), "
+          f"max abs err {abs_err:.3e}")
+    return abs_err
+
+
 def check_mix_kernels(mix, dataset, sub) -> dict:
     """Every kernel at the shapes phase 8 gave it, against its plain
     version on NaN-prefilled outputs, and timed: fullt, llk and infer on
@@ -1533,38 +1620,16 @@ def check_mix_kernels(mix, dataset, sub) -> dict:
              rnorm=rnorm.reshape(B), d_obs=mask_f.sum(-1).repeat(M_MIX))
     sig = sigmas.repeat_interleave(rows)
 
-    # the row solve of the live components (a dead one's statistics are 0)
     stats = mf.mix_em_stats(Cs, means, sigmas, mix.log_weights, dataset.data, dataset.mask,
                             dataset.weights_dev, block_size=rows)
-    alive = stats.resp_max > 0
-    inv = 1.0 / stats.resp_max[alive]
-    S = ml.symmetric_from_lower((stats.S[alive] * inv[:, None, None]).reshape(-1, k, k))
-    cross = (stats.cross[alive] * inv[:, None, None]).reshape(-1, k)
-    zeros = torch.zeros(cross.shape[0], device="cuda")
-    x_states = dict(G=S.contiguous(), b=cross.contiguous(), rnorm=zeros, d_obs=zeros)
+    x_states = row_solve_inputs(stats)
     ones = torch.ones(1, D_MIX, device="cuda")
     x_full = dict(G=torch.matmul(ones, ml.outer_flat(Cs)).reshape(M_MIX, k, k),
                   b=torch.zeros(M_MIX, k, device="cuda"), rnorm=torch.zeros(M_MIX, device="cuda"),
                   d_obs=torch.full((M_MIX,), float(D_MIX), device="cuda"))
     cases = [("fullt", x, sig), ("llk", x, sig), ("infer", x, sig),
              ("states", x_states, torch.zeros(1, device="cuda")), ("full", x_full, sigmas)]
-    errors = {}
-    for want, inp, s in cases:
-        n = inp["G"].shape[0]
-        outs = tuple(torch.full(sh, math.nan, device="cuda") for sh in kernels.output_shapes(want, n, k))
-        kernels.launch(want, s, inp["G"], inp["b"], inp["rnorm"], inp["d_obs"], outs)
-        torch.cuda.synchronize()
-        ref = kernels.spd_estep_reference(s.double(), *(inp[n_].double() for n_ in
-                                                        ("G", "b", "rnorm", "d_obs")), want)
-        if want == "states":      # lambda = 0: the row solve reads the solution alone
-            outs, ref = outs[:1], ref[:1]
-        check(all(bool(torch.isfinite(o).all()) for o in outs),
-              f"mix {want} B={n}: an output element was left unwritten or is non-finite")
-        err = max(rel_err(o, r) for o, r in zip(outs, ref))
-        errors[want] = max(float((o.double() - r).abs().max()) for o, r in zip(outs, ref))
-        check(err <= TOL_F32, f"mix {want} B={n}: relative error {err:.3e} above {TOL_F32}")
-        print(f"[mix] kernel {want} k={k} B={n} float32: max rel err {err:.3e} (tol {TOL_F32:g}), "
-              f"max abs err {errors[want]:.3e}")
+    errors = {want: check_estep_at("mix", want, inp, s_, k) for want, inp, s_ in cases}
     which = torch.arange(B, device="cuda") // rows
     for want in ("fullt", "llk", "infer"):
         got = kernels.spd_estep(sig, x["G"], x["b"], x["rnorm"], x["d_obs"], want=want)
@@ -1891,20 +1956,61 @@ def config_mix_rows() -> int:
     return config.mix_block_rows(M_MIX, K_MIX, 4)
 
 
+def in_turns(a, b, reps: int = 1):
+    """Host seconds of ``a()`` and ``b()`` (each ending in a device sync),
+    in turns a, b, b, a: ((a1, a2), (b1, b2), a's last result, b's last)."""
+    times, results = {a: [], b: []}, {}
+    for fn in (a, b, b, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            results[fn] = fn()
+        torch.cuda.synchronize()
+        times[fn].append((time.perf_counter() - t0) / reps)
+    return tuple(times[a]), tuple(times[b]), results[a], results[b]
+
+
 def phase_packing(smi: str) -> None:
-    """9d: host packing: Dataset() from a float64 array with NaN holes (the
-    CPU's isfinite/where pass, then the copy to the card), and
-    DataFrameAdapter.from_pandas on a long frame."""
+    """9d: host packing.  The native pass of Dataset() (native/packing.py:
+    values in float32 and the mask in one multithreaded pass) against its
+    plain numpy version on a float64 array with NaN holes, in turns, bit
+    for bit; the copy of its output to the card; Dataset() whole, on the
+    CPU and to the card.  Then the DataFrame adapters' native scatter
+    against numpy fancy assignment on a shuffled long frame, bit for bit,
+    and DataFrameAdapter.from_pandas whole."""
     import numpy as np
     import pandas as pd
 
     from ppca_rs_tpu_torch import DataFrameAdapter, Dataset
+    from ppca_rs_tpu_torch.native import packing
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     x = torch.randn(N_PACK, D_MAIN, generator=gen, dtype=torch.float64, device="cuda")
     x[torch.rand(N_PACK, D_MAIN, generator=gen, device="cuda") < 0.5] = math.nan
     arr = x.cpu().numpy()
     del x
+    t0 = time.perf_counter()
+    packing.load()
+    print(f"[stream] 9d: packing library ready in {time.perf_counter() - t0:.2f} s; "
+          f"{os.cpu_count()} host cores")
+    gb = arr.nbytes / 1e9
+    (n1, n2), (p1, p2), (values, mask), (ref_values, ref_mask) = in_turns(
+        lambda: packing.mask_non_finite(arr, torch.float32),
+        lambda: packing.mask_non_finite_reference(arr, torch.float32))
+    same = (torch.equal(values.view(torch.int32), ref_values.view(torch.int32))
+            and torch.equal(mask, ref_mask))
+    check(same, "packing: the native pass differs from its plain version")
+    del ref_values, ref_mask
+    print(f"[stream] 9d: {N_PACK} x {D_MAIN} float64 with NaN holes ({arr.nbytes / 2**30:.2f} "
+          f"GiB) to float32 values and a mask: native {n1:.3f}/{n2:.3f} s "
+          f"({gb / n1:.2f}/{gb / n2:.2f} GB/s), plain numpy {p1:.3f}/{p2:.3f} s "
+          f"({gb / p1:.2f}/{gb / p2:.2f} GB/s); bit for bit equal")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = (values.to("cuda"), mask.to("cuda"))
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    del on_card, values, mask
     t0 = time.perf_counter()
     ds = Dataset(arr, device="cpu")
     t_host = time.perf_counter() - t0
@@ -1915,9 +2021,9 @@ def phase_packing(smi: str) -> None:
     t_card = time.perf_counter() - t0
     check(ds.mask.numpy().sum() == np.isfinite(arr).sum() and ds_card.device.type == "cuda",
           "packing: the mask does not match the finite entries")
-    print(f"[stream] 9d: Dataset() from a {N_PACK} x {D_MAIN} float64 array with NaN holes "
-          f"({arr.nbytes / 2**30:.2f} GiB): {t_host:.3f} s on the CPU "
-          f"({arr.nbytes / t_host / 1e9:.2f} GB/s), {t_card:.3f} s to the card")
+    print(f"[stream] 9d: the packed values and mask to the card (pageable) {t_copy:.3f} s; "
+          f"Dataset() {t_host:.3f} s on the CPU ({gb / t_host:.2f} GB/s), {t_card:.3f} s "
+          f"to the card ({gb / t_card:.2f} GB/s) ({smi})")
     del ds, ds_card, arr
 
     rng = np.random.default_rng(SEED)
@@ -1926,6 +2032,17 @@ def phase_packing(smi: str) -> None:
     df = pd.DataFrame({"sample": np.repeat(np.arange(PACK_SAMPLES), PACK_DIMS)[order],
                        "dim": np.tile(np.arange(PACK_DIMS), PACK_SAMPLES)[order],
                        "value": values[order]})
+    triplets = (df["sample"].to_numpy(), df["dim"].to_numpy(), df["value"].to_numpy(),
+                PACK_SAMPLES, PACK_DIMS)
+    (n1, n2), (p1, p2), dense, ref = in_turns(
+        lambda: packing.scatter_long_to_dense(*triplets),
+        lambda: packing.scatter_long_to_dense_reference(*triplets))
+    check(np.array_equal(dense.view(np.int64), ref.view(np.int64)),
+          "packing: the native scatter differs from numpy fancy assignment")
+    rows_m = len(df) / 1e6
+    print(f"[stream] 9d: scatter of {len(df)} long rows: native {n1:.3f}/{n2:.3f} s "
+          f"({rows_m / n1:.2f}/{rows_m / n2:.2f} M rows/s), numpy fancy assignment "
+          f"{p1:.3f}/{p2:.3f} s ({rows_m / p1:.2f}/{rows_m / p2:.2f} M rows/s); bit for bit equal")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     adapter = DataFrameAdapter.from_pandas(df, keys=["sample"], dimensions=["dim"], metric="value")
@@ -2748,6 +2865,207 @@ def phase_large_k(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 12: a structured mixture
+
+
+def sorted_rows(dataset, pidx, n_patterns: int):
+    """``(data_sorted, weights_sorted, counts)`` of ``dataset``'s rows
+    (``pidx`` their pattern indices), as ``Dataset.pattern_order`` sorts
+    them."""
+    perm = torch.argsort(pidx, stable=True)
+    counts = tuple(int(c) for c in torch.bincount(pidx, minlength=n_patterns).tolist())
+    return dataset.data.index_select(0, perm), dataset.weights_dev[perm], counts
+
+
+def stats_diffs(got, want) -> dict:
+    """Max relative differences of two MixEMStats, field by field."""
+    return {name: rel_err(getattr(got, name).cpu(), getattr(want, name).cpu())
+            for name in want._fields}
+
+
+def check_patmix_kernels(mix, stats, patterns) -> dict:
+    """The kernels phase 12 launches, at its shapes, against their plain
+    versions and timed: full on the M x P tables (sigma per sample) and
+    states on the M x D row solve of this mixture's statistics."""
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+
+    Cs, _, sigmas = mix._stacked_params()
+    M, _, k = Cs.shape
+    P = patterns.shape[0]
+    pf = patterns.float()
+    x_full = dict(G=torch.matmul(pf, ml.outer_flat(Cs)).reshape(M * P, k, k),
+                  b=torch.zeros(M * P, k, device="cuda"), rnorm=torch.zeros(M * P, device="cuda"),
+                  d_obs=pf.sum(-1).repeat(M))
+    sig = sigmas.repeat_interleave(P)
+    x_states = row_solve_inputs(stats)
+    zero = torch.zeros(1, device="cuda")
+    errors = {"full": check_estep_at("patmix", "full", x_full, sig, k),
+              "states": check_estep_at("patmix", "states", x_states, zero, k)}
+    timed = time_estep(k, x_full, ("full",), sigma=sig)
+    timed.update(time_estep(k, x_states, ("states",), sigma=zero))
+    for name, row in timed.items():
+        row["max_abs_err"] = errors[name]
+    return timed
+
+
+def phase_patmix(smi: str):
+    """Phase 12: a structured mixture on the default route, the per-segment
+    EM (``mix_fused.mix_em_stats_pat_sorted``): training with exact launch
+    counts, a profile, the per-segment EM against the table-grouped EM on
+    the same parameters at several segment lengths (times and agreement),
+    card vs CPU float64 on a few hundred sorted rows, and the kernels at
+    this phase's shapes.  Returns (launches of the training, kernel rows)."""
+    from ppca_rs_tpu_torch import config
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.ops import mix_fused as mf
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    patterns = torch.rand(P_PATMIX, D_PATMIX, generator=gen, device="cuda") < 0.5
+    dataset = make_mix_dataset(seed=SEED + 51, n=N_PATMIX, d=D_PATMIX, k=K_PATMIX,
+                               m_comp=M_PATMIX, patterns=patterns)
+    torch.cuda.synchronize()
+    print(f"[patmix] dataset N={N_PATMIX} D={D_PATMIX} k={K_PATMIX} M={M_PATMIX} "
+          f"{dataset.dtype}, {P_PATMIX} mask patterns, observed share "
+          f"{float(dataset.mask.float().mean()):.4f}, made in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    info = dataset.pattern_info()
+    order = dataset.pattern_order()
+    torch.cuda.synchronize()
+    check(info is not None and info[1].shape[0] == P_PATMIX,
+          f"patmix: detection found {None if info is None else info[1].shape[0]} patterns")
+    check(order is not None, "patmix: pattern_order() does not apply at the gate")
+    pidx, table = info
+    counts = order[2]
+    print(f"[patmix] detection and the sorted copy in {time.perf_counter() - t0:.3f} s: "
+          f"{len(counts)} segments of {min(counts)}-{max(counts)} rows "
+          f"(gate {config.pat_sorted_min_rows} a segment on average)")
+    rows = config.mix_block_rows(M_PATMIX, K_PATMIX, 4)
+
+    calls = {"sorted": 0, "table": 0}
+    inner = {"sorted": mf.mix_em_stats_pat_sorted, "table": mf.mix_em_stats_pat}
+
+    def counted(key):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return inner[key](*args, **kwargs)
+        return call
+
+    mf.mix_em_stats_pat_sorted, mf.mix_em_stats_pat = counted("sorted"), counted("table")
+    try:
+        mix, launches = train("patmix", dataset, SEED + 52, smi, k=K_PATMIX, n_models=M_PATMIX,
+                              n_iters=PATMIX_ITERS)
+    finally:
+        mf.mix_em_stats_pat_sorted, mf.mix_em_stats_pat = inner["sorted"], inner["table"]
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(full=PATMIX_ITERS, states=PATMIX_ITERS)
+    check(launches == want, f"patmix: training launches {launches} != {want}")
+    check(calls == {"sorted": PATMIX_ITERS, "table": 0},
+          f"patmix: training took the EM forms {calls}, not the per-segment EM alone")
+    print(f"[patmix] {rows} data rows a block; training ran the per-segment EM "
+          f"{calls['sorted']} times, the table-grouped EM {calls['table']} times")
+    profile_iteration("patmix", mix, dataset, top=8)
+
+    Cs, means, sigmas = mix._stacked_params()
+    lw = mix.log_weights
+    at_gate = None
+    for seg in PATMIX_SEGMENT_ROWS:
+        n = seg * P_PATMIX
+        sub = dataset if n == len(dataset) else dataset.slice(0, n)
+        pb = pidx[:n]
+        if sub is dataset:
+            data_s, w_s, cnt = order[0], dataset.weights_dev[order[1]], order[2]
+        else:
+            data_s, w_s, cnt = sorted_rows(sub, pb, P_PATMIX)
+        (s1, s2), (g1, g2), got, ref = in_turns(
+            lambda: mf.mix_em_stats_pat_sorted(Cs, means, sigmas, lw, data_s, w_s, table, cnt,
+                                               block_size=rows),
+            lambda: mf.mix_em_stats_pat(Cs, means, sigmas, lw, sub.data, sub.mask, pb, table,
+                                        sub.weights_dev, block_size=rows), PATMIX_REPS)
+        print(f"[patmix] EM statistics of N={n} ({seg} rows a segment): per segment "
+              f"{s1 * 1e3:.2f}/{s2 * 1e3:.2f} ms, table-grouped {g1 * 1e3:.2f}/{g2 * 1e3:.2f} ms "
+              f"({(g1 + g2) / (s1 + s2):.2f}x) ({smi})")
+        if sub is dataset:
+            at_gate = (got, ref)
+        del data_s, w_s, got, ref
+    got, ref = at_gate
+    diffs = stats_diffs(got, ref)
+    new_sorted = mix._finalize(Cs, means, sigmas, got, None)
+    new_table = mix._finalize(Cs, means, sigmas, ref, None)
+    step = mix_diffs(new_sorted, new_table)
+    report_diffs("patmix", f"the statistics at N={N_PATMIX}, per segment vs table-grouped",
+                 diffs, TOL_STREAM)
+    report_diffs("patmix", "the EM step from either form", step, TOL_STREAM)
+
+    sub = dataset.slice(0, N_PATMIX_CPU)
+    data_s, w_s, cnt = sorted_rows(sub, pidx[:N_PATMIX_CPU], P_PATMIX)
+    card = mf.mix_em_stats_pat_sorted(Cs, means, sigmas, lw, data_s, w_s, table, cnt,
+                                      block_size=rows)
+    host = [t.cpu().double() for t in (Cs, means, sigmas, lw, data_s, w_s)]
+    t0 = time.perf_counter()
+    cpu = mf.mix_em_stats_pat_sorted(*host[:4], host[4], host[5], table.cpu(), cnt,
+                                     block_size=rows)
+    report_diffs("patmix", f"{N_PATMIX_CPU} sorted rows ({sum(c > 0 for c in cnt)} segments), "
+                 f"the per-segment statistics, card float32 vs CPU float64 "
+                 f"({time.perf_counter() - t0:.1f} s on the CPU)", stats_diffs(card, cpu),
+                 TOL_CARD_VS_CPU)
+
+    kernel_rows = check_patmix_kernels(mix, ref, table)
+    return launches, kernel_rows
+
+
+# --------------------------------------------------------------------- #
+# phase 13: the examples
+
+
+def phase_examples() -> None:
+    """Phase 13: every script of examples/torch_port/ on the card with
+    ``--device cuda`` in smoke mode, all started together, each in its own
+    process group (sharded_training spawns its ranks) and killed after
+    EXAMPLE_TIMEOUT seconds; each must exit with 0."""
+    import signal
+    import tempfile
+
+    scripts = sorted((ROOT / "examples" / "torch_port").glob("*.py"))
+    check(len(scripts) == 9, f"examples/torch_port holds {len(scripts)} scripts, not 9")
+    env = dict(os.environ, PPCA_EXAMPLE_SMOKE="1", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = {}
+        for script in scripts:
+            log = open(Path(tmp) / f"{script.stem}.log", "w")
+            procs[script.name] = (subprocess.Popen(
+                [sys.executable, str(script), "--device", "cuda"], stdout=log,
+                stderr=subprocess.STDOUT, env=env, cwd=str(ROOT), start_new_session=True), log)
+        ended = {}
+        try:
+            for name, (proc, _) in procs.items():
+                try:
+                    proc.wait(timeout=max(1.0, t0 + EXAMPLE_TIMEOUT - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    pass
+                ended[name] = time.perf_counter() - t0
+        finally:
+            for proc, log in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+                log.close()
+        failed = []
+        for name, (proc, _) in procs.items():
+            text = (Path(tmp) / f"{Path(name).stem}.log").read_text()
+            last = text.strip().splitlines()[-1] if text.strip() else ""
+            print(f"[examples] {name}: exit code {proc.returncode}, done within "
+                  f"{ended[name]:.1f} s: {last[:160]}")
+            if proc.returncode != 0:
+                failed.append(f"{name} exited {proc.returncode}:\n{text[-3000:]}")
+        check(not failed, "examples failed:\n" + "\n".join(failed))
+    print(f"[examples] all {len(scripts)} examples passed on the card in smoke mode in "
+          f"{time.perf_counter() - t0:.1f} s, run together")
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-child":
         return parallel_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
@@ -2791,6 +3109,10 @@ def main() -> int:
     done("10")
     large_launches = phase_large_k(smi)
     done("11")
+    patmix_launches, patmix_rows = phase_patmix(smi)
+    done("12")
+    phase_examples()
+    done("13")
     starts = [t_start] + [t for _, t in marks[:-1]]
     print(f"[done] all phases passed in {marks[-1][1] - t_start:.1f} s ("
           + ", ".join(f"phase {p} {t - t0:.1f} s" for (p, t), t0 in zip(marks, starts)) + ")")
@@ -2804,8 +3126,9 @@ def main() -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_us",
               "device_ms", "design", "B", "k")
     # each kernel at the main path's k, at phase 7's and at phase 8's shapes
-    # (launches from those runs), and its launches in phase 9's and phase
-    # 10's counted runs (phase 10: rank 0's)
+    # (launches from those runs), its launches in phase 9's and phase 10's
+    # counted runs (phase 10: rank 0's), and the kernels of phase 12's path
+    # at its shapes
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], **{f: summary[key][f] for f in fields},
@@ -2814,7 +3137,10 @@ def main() -> int:
          "at_stream": {"launches": sum(part[key] for part in stream_launches.values()),
                        **{part: counts[key] for part, counts in stream_launches.items()}},
          "at_parallel": {"launches": sum(part[key] for part in parallel_launches.values()),
-                         **{part: counts[key] for part, counts in parallel_launches.items()}}}
+                         **{part: counts[key] for part, counts in parallel_launches.items()}},
+         **({"at_patmix": {"launches": patmix_launches[key],
+                           **{f: patmix_rows[key][f] for f in fields}}}
+            if key in patmix_rows else {})}
         for name, source, replaces, key, launches in entries
     ]}
     # the panel design: each variant's kernel at PANEL_KS (B=BATCH up to

@@ -8,8 +8,8 @@ becomes a dense NaN-filled ``(n_samples, n_dims)`` array, then a
 sample index tables and the inverse conversion back to a long frame.
 pandas and polars are both supported, each imported only when used.  Keys
 and dimensions are factorized to integer codes and every value is
-scattered at once (:func:`scatter_long_to_dense`); the JAX package's
-optional C++ packer is not carried over.
+scattered at once by the native packer
+(``native/packing.scatter_long_to_dense``).
 """
 
 from __future__ import annotations
@@ -20,17 +20,7 @@ from typing import Any, Dict, List, Literal, Optional
 import numpy as np
 
 from .dataset import Dataset
-
-
-def scatter_long_to_dense(sample_idx: np.ndarray, dim_idx: np.ndarray, values: np.ndarray,
-                          n_samples: int, n_dims: int) -> np.ndarray:
-    """Scatter long-format (sample, dim, value) triplets into a dense
-    NaN-filled (n_samples, n_dims) float64 array (the numpy branch of
-    ``ppca_rs_tpu/native/packing.py``)."""
-    out = np.full((n_samples, n_dims), np.nan, dtype=np.float64)
-    out[np.asarray(sample_idx, dtype=np.int64), np.asarray(dim_idx, dtype=np.int64)] = (
-        np.asarray(values, dtype=np.float64))
-    return out
+from .native.packing import scatter_long_to_dense
 
 
 def _dims_from_index(dimensions: Optional[List[str]], columns) -> List[str]:

@@ -65,6 +65,12 @@ class Config:
     #: grouped em_stats 65 vs 105 ms at N=1,000,000, P=32 (31,250 rows a
     #: segment), 104-132 vs 27 ms at N=262,144, P=256 (1,024 rows), and
     #: 763-833 vs 29-34 ms at P=2,048 (128 rows); the two cross near 8,192.
+    #: A mixture's grouped EM gathers a (M, rows, k, k) covariance per
+    #: block, so its sorted EM wins further down: at M=8, k=64, D=1024,
+    #: P=32 (chip_smoke.py phase 12; H100 80GB HBM3, 700 W) 62-96 vs 145-146
+    #: ms at 8,192 rows a segment, 41-58 vs 73-80 ms at 4,096, 32-56 vs 37
+    #: ms at 2,048, 33-48 vs 19-22 ms at 1,024: they cross between 2,048
+    #: and 4,096, below this gate, which both take (the JAX package's rule).
     pat_sorted_min_rows: int = 8192
 
     #: Compute the fused mixture EM's per-component residual norms from a

@@ -4,7 +4,8 @@ Port of the core of ``ppca_rs_tpu/dataset.py``: one dense zero-filled
 ``(N, D)`` value tensor, an ``(N, D)`` bool mask (True = observed) and an
 ``(N,)`` weight vector (default 1.0), all on one device.
 
-``Dataset(ndarray, weights=None)`` masks non-finite entries, ``numpy()``
+``Dataset(ndarray, weights=None)`` masks non-finite entries (one native
+pass on the host, ``native/packing.py``), ``numpy()``
 round-trips with NaN fill, ``dump``/``load``/pickle use the container the
 JAX package uses, so a dataset dumped by either package loads in the other.
 ``pattern_info``/``pattern_order`` detect structured missingness for the
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from .config import config
+from .native import packing
 from .utils.serialization import dump_bytes, load_bytes
 
 
@@ -128,10 +130,10 @@ class Dataset:
         device = config.resolve_device(device)
         dtype = dtype or config.dtype
         # Non-finite entries (NaN/inf) are masked out, mirroring
-        # MaskedSample::mask_non_finite (ppca/src/dataset.rs:19-22).
-        mask = np.isfinite(arr)
-        self.data = torch.as_tensor(np.where(mask, arr, 0.0), dtype=dtype, device=device)
-        self.mask = torch.as_tensor(mask, device=device)
+        # MaskedSample::mask_non_finite (ppca/src/dataset.rs:19-22), in one
+        # native pass on the host.
+        values, mask = packing.mask_non_finite(arr, dtype)
+        self.data, self.mask = values.to(device), mask.to(device)
         if weights is not None:
             w = np.asarray(weights, dtype=np.float64).reshape(-1)
             if w.shape[0] != arr.shape[0]:

@@ -9,8 +9,10 @@ Every N-sized computation is fused across components (``ops/mix_fused``):
 EM, the per-component llks, infer, smooth and extrapolate are each ONE pass
 over the data whatever M is.  A dataset whose masks repeat (or that is fully
 observed: one pattern) takes the table route, all others the general masked
-route.  Heterogeneous state sizes ride the same pass zero-padded to the
-largest k (:meth:`PPCAMix._stacked_params`).  The reference-shaped
+route; on the table route the EM runs per pattern segment when
+``Dataset.pattern_order`` gives the rows sorted by pattern (the JAX
+package's rule).  Heterogeneous state sizes ride the same pass zero-padded
+to the largest k (:meth:`PPCAMix._stacked_params`).  The reference-shaped
 per-component loop (:meth:`PPCAMix._iterate_loop`) stays as the independent
 implementation the fused step is tested against.
 
@@ -159,6 +161,20 @@ class PPCAMix:
         mixtures' dense route."""
         return dataset.pattern_info(include_dense=True)
 
+    def _sorted(self, dataset: Dataset):
+        """``(data_sorted, weights_sorted, counts)`` for the per-segment EM
+        (``mix_fused.mix_em_stats_pat_sorted``) when the table route applies
+        and ``Dataset.pattern_order`` gives the sorted copy, else None.  The
+        weights are sorted on every call: ``with_weights`` twins share the
+        sorted copy."""
+        if dataset.all_observed() or self._pattern(dataset) is None:
+            return None
+        order = dataset.pattern_order()
+        if order is None:
+            return None
+        data_sorted, perm, counts = order
+        return data_sorted, dataset.weights_dev[perm], counts
+
     def _block_rows(self, dataset: Dataset, Cs: torch.Tensor) -> int:
         itemsize = ml._compute_dtype(dataset.data, Cs).itemsize
         return config.mix_block_rows(len(self._models), Cs.shape[2], itemsize)
@@ -298,19 +314,22 @@ class PPCAMix:
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
         params = self._stacked_params()
+        order = self._sorted(dataset)
         if dataset_mesh(dataset) is not None:
             new, llk = api.mix_em_step(*params, self._log_weights, dataset,
                                        _priors(prior, params[0]),
-                                       **self._route_args(dataset, params[0]))
+                                       **self._route_args(dataset, params[0]), order=order)
             return self._from_stacked(*new), llk
-        stats = self._em_stats(dataset, *params)
+        stats = self._em_stats(dataset, *params, order=order)
         return self._finalize(*params, stats, prior), stats.llk
 
-    def _em_stats(self, dataset: Dataset, Cs, means, sigmas) -> mf.MixEMStats:
+    def _em_stats(self, dataset: Dataset, Cs, means, sigmas, order=None) -> mf.MixEMStats:
         """The fused EM statistics of ``dataset``'s rows on its route, for
-        the stacked parameters ``Cs, means, sigmas`` of this mixture."""
+        the stacked parameters ``Cs, means, sigmas`` of this mixture; per
+        pattern segment with ``order`` (:meth:`_sorted`), which streamed
+        chunks do not pass, as in the JAX package."""
         return mf.mix_em_stats(Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask,
-                               dataset.weights_dev, **self._route_args(dataset, Cs))
+                               dataset.weights_dev, **self._route_args(dataset, Cs), order=order)
 
     def _finalize(self, Cs, means, sigmas, stats: mf.MixEMStats,
                   prior: Optional[Prior]) -> "PPCAMix":

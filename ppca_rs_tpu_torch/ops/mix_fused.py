@@ -25,9 +25,13 @@ Two routes, as in the JAX package: the general masked route
 (:func:`mix_em_stats_pat` and the readouts with ``pidx``/``patterns``), where
 the P distinct mask patterns (one for fully observed data) reduce every
 factorization to an M x P table (:func:`compute_mix_tables`, the ``full``
-kernel variant).  Heterogeneous state sizes arrive zero-padded to the
-largest k (``models/mix.py``); padded latent dimensions are exactly inert.
-Rows are blocked by plain loops over row slices.
+kernel variant).  On the table route the EM statistics have two forms:
+table-grouped over rows in any order (:func:`mix_em_stats_pat`), and per
+segment over the rows sorted by pattern (:func:`mix_em_stats_pat_sorted`,
+``Dataset.pattern_order``), which gathers nothing per row.  Heterogeneous
+state sizes arrive zero-padded to the largest k (``models/mix.py``); padded
+latent dimensions are exactly inert.  Rows are blocked by plain loops over
+row slices.
 
 The general route takes an optional model process ``group`` (``parallel/``),
 as ``masked_linalg`` does: the stacked transforms, means and data are this
@@ -39,7 +43,7 @@ local.  The table route runs on the data axis only.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -221,12 +225,20 @@ def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w, group=None
 
 
 def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
-                 block_size: int, pidx=None, patterns=None, group=None) -> MixEMStats:
+                 block_size: int, pidx=None, patterns=None, order=None,
+                 group=None) -> MixEMStats:
     """One fused pass over the data: every component's EM statistics, the
     responsibilities, the mixture llk and the new-weight numerators.
     ``block_size`` rows of data make M * block_size kernel samples.  With
-    ``pidx``/``patterns``, the table route (:func:`mix_em_stats_pat`).
-    No rows give zero statistics (a rank of a mesh may hold none)."""
+    ``pidx``/``patterns``, the table route (:func:`mix_em_stats_pat`); with
+    ``order`` as well, ``(data_sorted, weights_sorted, counts)`` of the same
+    rows sorted by pattern (``Dataset.pattern_order``), its per-segment form
+    (:func:`mix_em_stats_pat_sorted`).  No rows give zero statistics (a
+    rank of a mesh may hold none)."""
+    if order is not None:
+        data_sorted, weights_sorted, counts = order
+        return mix_em_stats_pat_sorted(Cs, means, sigmas, log_weights, data_sorted,
+                                       weights_sorted, patterns, counts, block_size=block_size)
     if pidx is not None:
         return mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
                                 weights, block_size=block_size)
@@ -355,6 +367,91 @@ def mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
         square_error=square_error,
         dev_sq=dev_sq,
         total_dev=t1 - center.dm * totals - (Cs * c2).sum(-1),
+        totals=totals,
+        resp_sum=wsum.sum(-1),
+        resp_max=resp_max,
+        llk=llk,
+    )
+
+
+def mix_em_stats_pat_sorted(Cs, means, sigmas, log_weights, data_sorted, weights_sorted,
+                            patterns, counts: Sequence[int], *, block_size: int) -> MixEMStats:
+    """:func:`mix_em_stats_pat` over the rows sorted by pattern
+    (``Dataset.pattern_order``; ``counts[p]`` rows of pattern p, segment p
+    is rows ``[sum(counts[:p]), sum(counts[:p + 1]))``).
+
+    Inside a segment the mask is the constant row ``patterns[p]``, so no
+    mask is read and nothing is gathered per row: ``b = md0 @ Cflat -
+    bcorr[p]`` is one (B, D) x (D, M k) product and a (M, k) table row,
+    the states are one batched (M, B, k) x (M, k, k) product against the
+    segment's table column, the second-moment statistic is the plain
+    segment Gram ``(w s)^T s`` (2 k^2 operations a sample and component,
+    where the one-hot sums take 2 P k^2), and the data half of the cross
+    statistic is one (D, B) x (B, M k) product.  The mask halves and S are
+    assembled from the P-row sums as :func:`mix_em_stats_pat` does: an
+    exact regrouping of its sums.  A segment of no rows adds nothing."""
+    M, D, k = Cs.shape
+    n = data_sorted.shape[0]
+    dtype = _compute_dtype(data_sorted, Cs)
+    patterns_f = patterns.to(dtype)
+    P = patterns_f.shape[0]
+    if len(counts) != P or sum(counts) != n:
+        raise ValueError(f"counts {len(counts)}/{sum(counts)} do not partition "
+                         f"{P} patterns x {n} rows")
+    tables = compute_mix_tables(Cs, sigmas, patterns_f)
+    Sig4 = tables.Sigma.view(M, P, k, k)
+    mean0, dm, Cdm = _center_prep(Cs, means)
+    Cflat = Cs.permute(1, 0, 2).reshape(D, M * k)
+    bcorr = torch.einsum("pd,mdk->pmk", patterns_f, Cdm)         # (P, M, k) mask dm_m C_m
+    m2_tab = patterns_f @ (dm * dm).T                            # (P, M) mask . dm_m^2
+    sigma2 = sigmas * sigmas
+    exact_rnorm = config.mix_exact_rnorm
+    opts = dict(dtype=dtype, device=data_sorted.device)
+    c1 = torch.zeros((D, M * k), **opts)          # md0^T (w s), the data half of cross
+    Souter = torch.zeros((M, P, k, k), **opts)    # per pattern: sum w s s^T
+    wsum = torch.zeros((M, P), **opts)            # per pattern: sum w
+    psw = torch.zeros((M, P, k), **opts)          # per pattern: sum w s
+    t1 = torch.zeros((M, D), **opts)              # w @ md0
+    dev_sq, resp_max = torch.zeros(M, **opts), torch.zeros(M, **opts)
+    llk = torch.zeros((), **opts)
+    start = 0
+    for p, c in enumerate(counts):
+        m_p, Sp, bc_p = patterns_f[p], Sig4[:, p], bcorr[p][:, None, :]
+        for lo, hi in _blocks(c, block_size):
+            rows = slice(start + lo, start + hi)
+            B = hi - lo
+            y = data_sorted[rows].to(dtype)
+            md0 = m_p * (y - mean0)                                          # (B, D)
+            b = (md0 @ Cflat).view(B, M, k).transpose(0, 1) - bc_p           # (M, B, k)
+            s = torch.bmm(b, Sp) / sigma2[:, None, None]                     # Sp symmetric
+            if exact_rnorm:
+                R = m_p * (y - means[:, None, :])                            # (M, B, D)
+                rnorm = (R * R).sum(-1)
+            else:
+                rnorm = ((md0 * md0).sum(-1) - 2.0 * (dm @ md0.T)) + m2_tab[p][:, None]
+            bs = (b * s).sum(-1)                                             # (M, B)
+            llks = tables.pat_llk[:, p, None] - 0.5 * (rnorm - bs) / sigma2[:, None]
+            resp, llk_b = _responsibilities(llks, log_weights, weights_sorted[rows].to(dtype))
+            sw = s * resp[..., None]                                         # (M, B, k)
+            c1.addmm_(md0.T, sw.transpose(0, 1).reshape(B, M * k))
+            Souter[:, p] += torch.bmm(sw.mT, s)
+            psw[:, p] += sw.sum(1)
+            wsum[:, p] += resp.sum(1)
+            t1 += resp @ md0
+            # clamp: epsilon-negative in float32 iff |dev|^2 ~ 0 (see dense_fast)
+            dev = torch.clamp(rnorm - bs - sigma2[:, None] * (s * s).sum(-1), min=0.0)
+            dev_sq += (resp * dev).sum(-1)
+            resp_max = torch.maximum(resp_max, resp.amax(-1))
+            llk = llk + llk_b
+        start += c
+    c2 = torch.matmul(patterns_f.T, psw)                          # (M, D, k) mask^T (w s)
+    totals = wsum @ patterns_f                                    # (M, D)
+    return MixEMStats(
+        cross=c1.view(D, M, k).permute(1, 0, 2) - dm[:, :, None] * c2,
+        S=torch.matmul(patterns_f.T, Souter.view(M, P, k * k) + wsum[..., None] * tables.Sigma),
+        square_error=(wsum * tables.sq).sum(-1),
+        dev_sq=dev_sq,
+        total_dev=t1 - dm * totals - (Cs * c2).sum(-1),
         totals=totals,
         resp_sum=wsum.sum(-1),
         resp_max=resp_max,

@@ -207,13 +207,16 @@ def mix_smooth(Cs, means, sigmas, log_weights, dataset: Dataset, *, block_size: 
 
 
 def mix_em_step(Cs, means, sigmas, log_weights, dataset: Dataset, priors: dict, *,
-                block_size: int, pidx=None, patterns=None):
+                block_size: int, pidx=None, patterns=None, order=None):
     """One fused mixture EM step over all rows: ``((new_Cs, new_means,
-    new_sigmas, new_log_weights), llk)``, the same on every rank."""
+    new_sigmas, new_log_weights), llk)``, the same on every rank.  With
+    ``order`` (``(data_sorted, weights_sorted, counts)`` of this rank's rows
+    against the global table), the rank's statistics are summed per
+    pattern segment."""
     Cl, meanl, group = local_params(Cs, means, dataset)
     stats = mf.mix_em_stats(Cl, meanl, sigmas, log_weights, dataset.data, dataset.mask,
                             dataset.weights_dev, block_size=block_size, pidx=pidx,
-                            patterns=patterns, group=group)
+                            patterns=patterns, order=order, group=group)
     stats = combine_mix_stats(stats, dataset_mesh(dataset))
     new_Cs, new_means, new_sigmas, new_lw = mf.mix_em_finalize(Cl, meanl, sigmas, stats,
                                                                **priors, group=group)
