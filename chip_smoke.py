@@ -10,8 +10,9 @@ thirteen phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
 2. every spd_estep kernel variant and spd_chol against its plain PyTorch
-   version at k in {2, 13, 24, 50, 64, 99, 128, 160, 192, 256, 384, 512}
-   (B=8192 up to k=256, one single-model block's rows above: 512), the
+   version at k in {2, 13, 24, 50, 64, 99, 128, 131, 160, 192, 256, 257,
+   384, 512, 704} (B=8192 up to k=256, one single-model block's rows
+   above: 1024 at 257, 512 at 384 and 512, 256 at 704), the
    register-tile designs up to the tile limits the library reports, the
    panel design above them (each k prints which design serves each kernel
    and the panel design's CTAs per multiprocessor), in float64 and
@@ -167,8 +168,11 @@ BATCH = 8192
 #: State sizes of the kernel checks: every register tile (8, 16, 32, 64,
 #: 128), k a multiple of 4 (16-byte accesses) and not, and the panel design
 #: above the tile limits (float64 E-step: above 64), ragged and not, up to
-#: bench_suite.py's largest state size.
-KS = (2, 13, 24, 50, 64, 99, 128, 160, 192, 256, 384, 512)
+#: bench_suite.py's largest state size: 131 and 257 end in a ragged panel
+#: and a ragged tensor-core tile (not multiples of 32, 16 or 8) in float32
+#: and float64, and 704 stages its panel in chunks (more active rows than
+#: the panel design keeps in shared memory at once).
+KS = (2, 13, 24, 50, 64, 99, 128, 131, 160, 192, 256, 257, 384, 512, 704)
 #: Up to this k the checks take BATCH samples; above it the rows of one
 #: single-model block (``config.block_rows``), so the plain version fits.
 FULL_BATCH_MAX_K = 256

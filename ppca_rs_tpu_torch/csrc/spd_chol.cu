@@ -23,9 +23,10 @@
 //   a block below 128 lanes a sample.
 // * any larger k: the panel design of spd_panel.cuh (want 5), a right-looking
 //   blocked Cholesky worked in L itself: one CTA a sample, one warp factors
-//   each NB x NB pivot block in registers, the panel below it is solved
-//   against it, the trailing triangle takes a register-blocked product;
-//   the only limit on k is device memory.
+//   each NB x NB pivot block in registers, the panel below it, staged once
+//   in shared memory, is solved against it and the trailing triangle
+//   updated from it on the tensor cores; the only limit on k is device
+//   memory.
 // Each header states its design in full.  A sample whose M is not positive
 // definite gets a factor that is NaN on and below the diagonal, alone.
 // The C entry points return cudaGetLastError() and allocate nothing; they

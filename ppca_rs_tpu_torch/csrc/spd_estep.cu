@@ -40,8 +40,10 @@
 // * any larger k: the panel design, spd_panel.cuh (built in
 //   spd_panel_f32.cu and spd_panel_f64.cu): one CTA a sample, the working
 //   matrix in device memory, NB columns a step (a warp factors the pivot
-//   block, the trailing triangle takes a register-blocked product).  llk
-//   and states take a (B, k+1, k) scratch for it, `work`.
+//   block, the step's panel is staged once in shared memory, and the panel
+//   and trailing products run on the tensor cores: 3xTF32 in float, FP64
+//   MMA in double).  llk and states take a (B, k+1, k) scratch for it,
+//   `work`.
 // Each header states its design in full.
 //
 // In both, a singular or indefinite sample (e.g. an empty dimension at

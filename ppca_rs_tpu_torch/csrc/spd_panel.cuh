@@ -13,59 +13,75 @@
 // What bounds it on this card: a sample does ~k^3/6 FMAs for the factor
 // (chol, llk, states) and ~k^3/2 for the inverse (fullt, full, infer), and
 // moves ~2 k^2 bytes in float32 for llk/states (G's lower triangle in) and
-// ~6 k^2 for the others (SM, Sigma or L written whole); at the published
-// peaks (3.35 TB/s, 67 TFLOP/s) the two meet near k ~ 120 for the E-step
-// variants and k ~ 360 for chol, so in float32 operations bound every
-// E-step variant the design serves, and bytes bound chol below k ~ 360.
-// What the design does about it: the k^3 work is a register-blocked SIMT
-// product over staged operand tiles, and the serial chain is one step per
-// NB columns instead of one per column.
+// ~6 k^2 for the others (SM, Sigma or L written whole).  Nearly all of the
+// FMAs are in the products of each panel step, which run on the tensor
+// cores: in float32 as 3xTF32 (three TF32 products, 495/3 = 165 TFLOP/s
+// at the published peak), in float64 on FP64 MMA (67 TFLOP/s).  At those
+// rates bytes would bound every variant up to k ~ 300 in float32.  What
+// bounds the design on an H100 (PERF.md) is neither: it is the chain of
+// each step (staging, barriers, the pivot block where the look-ahead cannot
+// hide it) and the TF32 split made at each fragment load; the trailing
+// triangle's reads and writes through the L2 cache cost a few percent.
 //
 // The design:
 // * One CTA of 256 threads serves one sample at a time; a persistent grid
-//   of kCtasPerSm CTAs a multiprocessor walks the batch: 2, the occupancy
-//   that the launch bounds fix (128 registers a thread).  Cutting the
-//   grid so that the samples in flight keep their lower triangles in the
-//   L2 cache (one CTA a multiprocessor at k >= 384 in float32) made every
-//   variant 1.3-1.5x slower on an H100 at k=256-512: the steps' latency
-//   (warp 0 alone factors the pivot block, barriers) needs the second CTA
-//   more than the working matrix needs the L2.
+//   of kCtasPerSm = 2 CTAs a multiprocessor walks the batch (the launch
+//   bounds' minimum: 128 registers a thread).  Each CTA takes up to 90 KB
+//   of dynamic shared memory for the staged panel and ~18 KB of static, so
+//   two fit a multiprocessor.
 // * The working matrix lives in device memory, row-major with leading
 //   dimension k, lower triangle only: in the variant's own k x k output
 //   where there is one (SM for fullt/full, Sigma for infer, L for chol),
 //   else in a (B, k+1, k) scratch the wrapper allocates (llk, states; its
 //   last row holds the right-hand side).  The kernel allocates nothing.
 // * Panel steps of NB columns (32 in float, 16 in double), the last one
-//   ragged.  Step J, pivot block S = A[J][J]:
+//   ragged.  Step J, pivot block S = A[J][J], m active rows:
 //   (a) one warp factors S = L11 L11^T in registers (lane r holds row r:
 //       the column step of spd_chol_tile.cuh with shuffles) and inverts
-//       L11 into shared memory (lane c holds column c); log det S adds to
-//       log det M; the right-hand side's block x_J becomes z = L11^{-1} x_J
-//       (|z|^2 adds to b^T M^{-1} b); for the inverse variants the whole
-//       CTA then forms P = S^{-1} = L11^{-T} L11^{-1};
-//   (b) the active rows of the panel, 64 at a time staged through shared
-//       memory (4 threads a row), become V_i = U_i L11^{-T}, written back
-//       in place, and x_i -= V_i . z;
-//   (c) the active lower triangle takes A[i][l] -= V_i . V_l as a
-//       register-blocked SIMT product: 64 x 64 output tiles, 4 x 4 outputs a
-//       thread, both operand blocks staged through shared memory (27 KB in
-//       all, several CTAs a multiprocessor) and read with 16-byte loads;
-//   (d) the inverse variants then write A[i][J] = V_i L11^{-1} = U_i P and
-//       A[J][J] = -P.
-//   The factor variants (chol, llk, states) keep the rows below block J
-//   active: that is the right-looking blocked Cholesky, and block column J
-//   keeps L.  The inverse variants keep every row but block J's active:
-//   that is the blocked symmetric Gauss-Jordan sweep (the register tile's
-//   algorithm, NB columns at a time), which leaves -M^{-1} in the lower
-//   triangle and s = M^{-1} b in the right-hand side, in k^3/2 FMAs, the
-//   cost of potrf + trtri + lauum.  Rows above block J are stored as
-//   columns (A[i][J] = A[J][i] for i < J), and are staged transposed.
-// * Per step: one block barrier after (a), three per 64 panel rows in (b)
-//   and (d), two per 64 x 64 output tile in (c).
-// * Outputs: states back-substitutes L^T s = y by blocks; fullt/full/infer
-//   write SM = s s^T + sigma^2 M^{-1} (or Sigma) whole, each 32 x 32 tile
-//   of the lower triangle and its transpose through shared memory so that
-//   both stores are coalesced; chol writes zeros above the diagonal.
+//       L11 into shared memory, with its transpose (lane c holds column c);
+//       where step J - 1's (c) has kAheadTiles tiles or more, it does so
+//       during that (c), once it has updated the tile that holds S
+//       (look-ahead), else after step J - 1;
+//       log det S adds to log det M; the right-hand side's block x_J
+//       becomes z = L11^{-1} x_J (|z|^2 adds to b^T M^{-1} b); for the
+//       inverse variants the whole CTA then forms P = S^{-1} = L11^{-T}
+//       L11^{-1};
+//   (b) the active rows' panel entries U (m x NB, zero past nb) are staged
+//       into shared memory by cp.async, once, and become V = U L11^{-T}
+//       there: each warp multiplies 32-row blocks on the tensor cores;
+//       x_i -= V_i . z; chol and states write V back (block column J
+//       keeps L; chol writes L11 too, states L11^{-1} for its back
+//       substitution), llk keeps V in shared memory only;
+//   (c) the active lower triangle takes A[i][l] -= V_i . V_l: each warp owns
+//       32 x 32 output tiles, loads a tile's old values into its
+//       accumulators (loads first, stores last: a store through a generic
+//       pointer ahead of a later load makes it wait), multiplies both
+//       operands out of the one staged V, and writes the tile back; no
+//       block barrier between tiles; with the look-ahead warp 0 takes only
+//       the tile of the next pivot block and then factors it, the other
+//       tiles go round-robin to the other seven warps;
+//   (d) the inverse variants then write A[i][J] = V_i L11^{-1} = U_i P,
+//       again from the staged V, and A[J][J] = -P.
+//   The factor variants keep the rows below block J active: that is the
+//   right-looking blocked Cholesky, and block column J keeps L.  The
+//   inverse variants keep every row but block J's active: that is the
+//   blocked symmetric Gauss-Jordan sweep (the register tile's algorithm, NB
+//   columns at a time), which leaves -M^{-1} in the lower triangle and
+//   s = M^{-1} b in the right-hand side, in k^3/2 FMAs, the cost of potrf +
+//   trtri + lauum.  Rows above block J are stored as columns (A[i][J] =
+//   A[J][i] for i < J), and are staged transposed.
+// * Where V does not fit (more than 2 CH active rows: k above 672 in
+//   float, 592 in double), it is staged in chunks of CH rows: (b) and (d)
+//   chunk by chunk through device memory, (c) chunk pair by chunk pair
+//   through two buffers.  This keeps any k.
+// * Per step: two block barriers in (b), one at the end, and one more after
+//   the pivot block without the look-ahead; in chunks two more a chunk.
+// * Outputs: states back-substitutes L^T s = y by blocks, one product with
+//   L11^{-1} a block; fullt/full/infer write SM = s s^T + sigma^2 M^{-1}
+//   (or Sigma) whole, the 32 x 32 tiles of the lower triangle and their
+//   transposes through shared memory (as many of a tile row at once as the
+//   panel's buffer holds) so that both stores are coalesced; chol writes
+//   zeros above the diagonal.
 // * A pivot <= 0 or NaN (M not positive definite) sets a flag, and every
 //   output element of that sample is written NaN (chol: on and below the
 //   diagonal).  Nothing reduces across samples.
@@ -76,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include "spd_common.cuh"
+#include "spd_panel_mma.cuh"
 
 namespace ppca {
 namespace panel {
@@ -90,24 +107,56 @@ constexpr int kChol = 5;  // spd_chol: M in, L out
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCtasPerSm = 2;  // the launch bounds' minimum, and the grid's CTAs a multiprocessor
+constexpr int kIo = 8;  // elements a thread has in flight in the last write
+// The next pivot block is factored during a step's trailing update when the
+// update has at least this many tiles to hide it behind; with fewer, the
+// look-ahead made small steps slower on an H100 (float64 llk at k=96 by
+// 13%; PERF.md) and the block is factored after the step.
+constexpr int kAheadTiles = 8;
 constexpr double kLn2Pi = 1.8378770664093453;
 
 template <typename T>
 struct Shape {
   static constexpr int NB = sizeof(T) == 4 ? 32 : 16;  // panel width
-  static constexpr int MT = 64;                       // output tile of (c)
-  static constexpr int V = 16 / sizeof(T);            // elements of a 16-byte load
-  static constexpr int LDP = NB + V;                  // staged row stride, 16-byte aligned
-  static constexpr int OT = 32;                       // output tile of the final write
+  static constexpr int LDP = NB + 4;                   // staged row stride (see spd_panel_mma.cuh)
+  static constexpr int MT = 32;                        // output tile of (c), rows a warp block
+  static constexpr int V = 16 / sizeof(T);             // elements of a 16-byte copy
+  static constexpr int OT = 32;                        // output tile of the final write
+  // rows of a chunk where the whole panel does not fit: two chunks take
+  // 2 CH LDP elements, 92 KB in float and 90 KB in double
+  static constexpr int CH = sizeof(T) == 4 ? 320 : 288;
+};
+
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// The staging plan of a launch at state size k: rows of one buffer, and
+// whether the panel goes in chunks (two buffers) because the largest
+// active row count, k - NB, exceeds 2 CH.
+template <typename T>
+struct Plan {
+  int rows;
+  bool chunked;
+  __host__ __device__ explicit Plan(int k) {
+    const int m = k > Shape<T>::NB ? k - Shape<T>::NB : 0;
+    chunked = m > 2 * Shape<T>::CH;
+    rows = chunked ? Shape<T>::CH : round_up(m, Shape<T>::MT);
+  }
+  // dynamic shared memory: the buffers, or the final write's tile
+  __host__ __device__ size_t bytes() const {
+    const size_t panel = static_cast<size_t>(chunked ? 2 : 1) * rows * Shape<T>::LDP;
+    const size_t tile = static_cast<size_t>(Shape<T>::OT) * (Shape<T>::OT + 1);
+    return (panel > tile ? panel : tile) * sizeof(T);
+  }
 };
 
 template <typename T>
 struct alignas(16) Smem {
-  T a[Shape<T>::MT][Shape<T>::LDP];  // row operand of (c); scratch elsewhere
-  T b[Shape<T>::MT][Shape<T>::LDP];  // column operand of (c)
-  T l[Shape<T>::NB][Shape<T>::NB + 1];     // L11
-  T linv[Shape<T>::NB][Shape<T>::NB + 1];  // L11^{-1}
-  T dinv[Shape<T>::NB];                     // 1 / L11[c][c]
+  T l[Shape<T>::NB][Shape<T>::NB + 1];      // L11, pivot_block's own
+  T linv[Shape<T>::NB][Shape<T>::LDP];      // L11^{-1}, read in (a) and (b)
+  // L11^{-T} by step parity: (d) of step J reads its own while the pivot
+  // block of step J + 1 is factored
+  T linvt[2][Shape<T>::NB][Shape<T>::LDP];
+  T dinv[Shape<T>::NB];                    // 1 / L11[c][c]
   T z[Shape<T>::NB];
   T red[kWarps + 1];
   int bad;
@@ -142,14 +191,33 @@ struct Active {
   __device__ size_t at(int i, int t) const {
     return i < J0 ? static_cast<size_t>(J0 + t) * k + i : static_cast<size_t>(i) * k + J0 + t;
   }
+  // compressed rows below this one are stored as columns (inverse variants)
+  __device__ int column_rows() const { return inverse ? J0 : 0; }
 };
 
-// (a): warp 0 factors the pivot block, inverts L11 into s.linv and turns
-// x_J into z = L11^{-1} x_J (s.z); x_J becomes L11^{-T} z = P x_J (inverse
-// variants) or z (factor variants).  P itself is formed by the whole CTA
-// (pivot_inverse).
+// The step at column J0 of the sweep at state size k (nb = 0 past the last).
+template <typename T>
+__device__ Active step(int J0, int k, bool inverse) {
+  Active a;
+  a.J0 = J0;
+  a.k = k;
+  a.inverse = inverse;
+  a.nb = J0 < k ? min(Shape<T>::NB, k - J0) : 0;
+  a.m = a.nb == 0 ? 0 : inverse ? k - a.nb : k - J0 - a.nb;
+  return a;
+}
+
+// (a): warp 0 factors the pivot block, inverts L11 into s.linv and
+// s.linvt[par] and turns x_J into z = L11^{-1} x_J (s.z); x_J becomes
+// L11^{-T} z = P x_J (inverse variants) or z (factor variants).  P itself is formed by the
+// whole CTA (pivot_inverse).  Rows past nb are padded with the identity, so
+// L11^{-1} is the identity there and zero beside it.  Not inlined: one copy
+// of its code serves its call sites (the first block, ahead inside
+// panel_step, after a step); inlined, the kernel spilled in the trailing
+// update's loop and ran up to 40% slower on an H100 (PERF.md).
 template <typename T, int WANT>
-__device__ void pivot_block(T* W, T* x, const Active& act, Smem<T>& s, T& logdet, T& quad) {
+__device__ __noinline__ void pivot_block(T* W, T* x, const Active act, Smem<T>& s, int par,
+                                         T& logdet, T& quad) {
   constexpr int NB = Shape<T>::NB;
   constexpr bool kInverse = is_inverse(WANT);
   const int r = threadIdx.x & 31;
@@ -181,7 +249,7 @@ __device__ void pivot_block(T* W, T* x, const Active& act, Smem<T>& s, T& logdet
     for (int c = 0; c < NB; ++c) {
       const T v = c <= r ? a[c] : T(0);
       s.l[r][c] = v;
-      if (!kInverse && row_in && c <= r) W[static_cast<size_t>(J0 + r) * k + J0 + c] = v;
+      if (WANT == kChol && row_in && c <= r) W[static_cast<size_t>(J0 + r) * k + J0 + c] = v;
     }
   }
   __syncwarp();
@@ -200,7 +268,13 @@ __device__ void pivot_block(T* W, T* x, const Active& act, Smem<T>& s, T& logdet
   }
   if (r < NB) {
 #pragma unroll
-    for (int i = 0; i < NB; ++i) s.linv[i][r] = xc[i];
+    for (int i = 0; i < NB; ++i) {
+      s.linv[i][r] = xc[i];
+      s.linvt[par][r][i] = xc[i];
+      // states keeps L11^{-1} in the pivot block for its back substitution
+      if (WANT == kStates && r < nb && i >= r && i < nb)
+        W[static_cast<size_t>(J0 + i) * k + J0 + r] = xc[i];
+    }
   }
   __syncwarp();
 
@@ -241,205 +315,271 @@ __device__ void pivot_inverse(T* W, const Active& act, const Smem<T>& s) {
   }
 }
 
-// Stage the panel entries of compressed rows cb .. cb + MT - 1 into dst
-// (zeros past the last row and past nb): rows stored as rows are read
-// along t, rows stored as columns along i, so that neighbouring threads
-// read neighbouring addresses either way.  Every thread issues all its
-// loads before its first store: a store through a generic pointer could
-// alias a later load, which would then wait for it.
+// Stage the panel entries of compressed rows c0 .. c0 + rows - 1 (rows a
+// multiple of MT) into buf by cp.async: zeros past the last active row and
+// past nb.  Rows stored as columns are copied an element at a time along
+// i, rows stored as rows 16 bytes at a time along t where every row start
+// is 16-byte aligned (k a multiple of 16 bytes, the matrix aligned), else
+// an element at a time.  Each thread
+// waits for its own copies; the caller's block barrier publishes them.
 template <typename T>
-__device__ void stage(T (*dst)[Shape<T>::LDP], const T* W, const Active& act, int cb) {
-  constexpr int NB = Shape<T>::NB, MT = Shape<T>::MT, EPT = MT * NB / kThreads;
-  T v[EPT];
-#pragma unroll
-  for (int q = 0; q < EPT; ++q) {
-    const int e = threadIdx.x + q * kThreads, il = e / NB, t = e % NB, ci = cb + il;
-    const bool load = ci < act.m && t < act.nb && act.real(ci) >= act.J0;
-    v[q] = load ? W[act.at(act.real(ci), t)] : T(0);
+__device__ void stage(T* buf, const T* W, const Active& act, int c0, int rows) {
+  constexpr int NB = Shape<T>::NB, LDP = Shape<T>::LDP, V = Shape<T>::V;
+  const int tid = threadIdx.x, k = act.k, J0 = act.J0, nb = act.nb;
+  const int ce = min(c0 + rows, act.m);
+  const int cc = min(max(act.column_rows(), c0), ce);  // rows [c0, cc) are columns
+  const int nc = cc - c0;
+  for (int e = tid; e < nc * NB; e += kThreads) {
+    const int t = e / nc, il = e % nc;
+    T* d = buf + il * LDP + t;
+    if (t < nb) cp_async_elem(d, W + static_cast<size_t>(J0 + t) * k + c0 + il);
+    else *d = T(0);
   }
+  const int nr = ce - cc;
+  if (k % V == 0 && (reinterpret_cast<size_t>(W) & 15) == 0) {
+    constexpr int Q = NB / V;
+    for (int e = tid; e < nr * Q; e += kThreads) {
+      const int il = e / Q, t0 = (e % Q) * V;
+      T* d = buf + (cc - c0 + il) * LDP + t0;
+      const int n = min(max(nb - t0, 0), V);
+      if (n > 0) {
+        cp_async16(d, W + static_cast<size_t>(act.real(cc + il)) * k + J0 + t0,
+                   n * static_cast<int>(sizeof(T)));
+      } else {
 #pragma unroll
-  for (int q = 0; q < EPT; ++q) {
-    const int e = threadIdx.x + q * kThreads, il = e / NB, t = e % NB, ci = cb + il;
-    if (ci >= act.m || act.real(ci) >= act.J0) dst[il][t] = v[q];
+        for (int v = 0; v < V; ++v) d[v] = T(0);
+      }
+    }
+  } else {
+    for (int e = tid; e < nr * NB; e += kThreads) {
+      const int il = e / NB, t = e % NB;
+      T* d = buf + (cc - c0 + il) * LDP + t;
+      if (t < nb) cp_async_elem(d, W + static_cast<size_t>(act.real(cc + il)) * k + J0 + t);
+      else *d = T(0);
+    }
   }
-  if (act.inverse && cb < act.J0) {
-#pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int e = threadIdx.x + q * kThreads, t = e / MT, il = e % MT, ci = cb + il;
-      v[q] = ci < act.m && ci < act.J0 && t < act.nb ? W[act.at(ci, t)] : T(0);
-    }
-#pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int e = threadIdx.x + q * kThreads, t = e / MT, il = e % MT, ci = cb + il;
-      if (ci < act.m && ci < act.J0) dst[il][t] = v[q];
-    }
+  for (int e = tid; e < (c0 + rows - ce) * NB; e += kThreads)
+    buf[(ce - c0 + e / NB) * LDP + e % NB] = T(0);
+  cp_async_wait_all();
+}
+
+// Write the staged rows c0 .. c0 + n - 1 back to their panel entries: the
+// inverse of stage.
+template <typename T>
+__device__ void unstage(T* W, const T* buf, const Active& act, int c0, int n) {
+  constexpr int NB = Shape<T>::NB, LDP = Shape<T>::LDP;
+  const int tid = threadIdx.x, nb = act.nb;
+  const int cc = min(max(act.column_rows(), c0), c0 + n);
+  const int nc = cc - c0, nr = n - nc;
+  for (int e = tid; e < nc * NB; e += kThreads) {
+    const int t = e / nc, il = e % nc;
+    if (t < nb) W[act.at(c0 + il, t)] = buf[il * LDP + t];
+  }
+  for (int e = tid; e < nr * NB; e += kThreads) {
+    const int il = e / NB, t = e % NB;
+    if (t < nb) W[act.at(act.real(cc + il), t)] = buf[(nc + il) * LDP + t];
   }
 }
 
-// Write the staged rows back: the inverse of stage.
-template <typename T>
-__device__ void unstage(T* W, const T (*src)[Shape<T>::LDP], const Active& act, int cb) {
-  constexpr int NB = Shape<T>::NB, MT = Shape<T>::MT, EPT = MT * NB / kThreads;
-  T v[EPT];
-#pragma unroll
-  for (int q = 0; q < EPT; ++q) {
-    const int e = threadIdx.x + q * kThreads;
-    v[q] = src[e / NB][e % NB];
-  }
-#pragma unroll
-  for (int q = 0; q < EPT; ++q) {
-    const int e = threadIdx.x + q * kThreads, il = e / NB, t = e % NB, ci = cb + il;
-    if (ci < act.m && t < act.nb && act.real(ci) >= act.J0) W[act.at(act.real(ci), t)] = v[q];
-  }
-  if (act.inverse && cb < act.J0) {
-#pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int e = threadIdx.x + q * kThreads;
-      v[q] = src[e % MT][e / MT];
-    }
-#pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int e = threadIdx.x + q * kThreads, t = e / MT, il = e % MT, ci = cb + il;
-      if (ci < act.m && ci < act.J0 && t < act.nb) W[act.at(ci, t)] = v[q];
-    }
-  }
-}
-
-// (b) and (d), MT active rows at a time through shared memory, 4 threads a
-// row: (b) V_i = U_i L11^{-T} and x_i -= V_i . z, (d) U_i P = V_i L11^{-1};
-// in place.  L11^{-1} is lower triangular with explicit zeros, so both
-// products run over the whole panel width.
+// (b) and (d) on the n staged rows c0 .. c0 + n - 1 in buf, a warp a
+// 32-row block: (b) V = U L11^{-T} in place, then x_i -= V_i . z for the
+// warp's own rows (x null for chol); (d) U P = V L11^{-1} into the panel
+// entries in device memory (columns < nb), bt = L11^{-T} of the step.
+// L11^{-1} is lower triangular with explicit zeros, so both products run
+// over the whole panel width.
 template <typename T, bool kSecond>
-__device__ void panel_rows(T* W, T* x, const Active& act, Smem<T>& s) {
-  constexpr int NB = Shape<T>::NB, MT = Shape<T>::MT;
-  constexpr int TPR = kThreads / MT;  // threads a row
-  constexpr int CPT = NB / TPR;       // columns a thread
-  const int row = threadIdx.x / TPR, c0 = (threadIdx.x % TPR) * CPT;
-  for (int cb = 0; cb < act.m; cb += MT) {
-    stage(s.a, W, act, cb);
-    __syncthreads();
-    T out[CPT] = {};
-#pragma unroll 4
-    for (int t = 0; t < NB; ++t) {
-      const T u = s.a[row][t];
+__device__ void panel_product(T* W, T* x, T* buf, const Active& act, const Smem<T>& s,
+                              const T* bt, int c0, int n) {
+  constexpr int NB = Shape<T>::NB, LDP = Shape<T>::LDP, MT = Shape<T>::MT, NI = NB / 8;
+  using F = Mma<T>;
+  using A = Acc<T, NI>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int rb = warp; rb * MT < n; rb += kWarps) {
+    A acc;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        out[j] = fma(u, kSecond ? s.linv[t][c0 + j] : s.linv[c0 + j][t], out[j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < A::MI; ++i)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) s.a[row][c0 + j] = out[j];
-    __syncthreads();
-    if (!kSecond && x != nullptr && threadIdx.x < MT && cb + threadIdx.x < act.m) {
-      T dot = T(0);
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < F::NC; ++e) acc.c[i][j][e] = T(0);
+    T* rows = buf + rb * MT * LDP;
+    block_product<T, NI, NB>(acc, rows, LDP, kSecond ? bt : &s.linv[0][0], LDP, false);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < A::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < F::NC; ++e) {
+          const int r = i * F::M + F::crow(e), c = j * F::N + F::ccol(e);
+          if (!kSecond) rows[r * LDP + c] = acc.c[i][j][e];
+          else if (rb * MT + r < n && c < act.nb)
+            W[act.at(act.real(c0 + rb * MT + r), c)] = acc.c[i][j][e];
+        }
+    if (!kSecond && x != nullptr) {
+      __syncwarp();
+      const int r = rb * MT + lane;
+      if (r < n) {
+        T dot = T(0);
 #pragma unroll 8
-      for (int c = 0; c < NB; ++c) dot = fma(s.a[threadIdx.x][c], s.z[c], dot);
-      x[act.real(cb + threadIdx.x)] -= dot;
+        for (int c = 0; c < NB; ++c) dot = fma(rows[lane * LDP + c], s.z[c], dot);
+        x[act.real(c0 + r)] -= dot;
+      }
     }
-    unstage(W, s.a, act, cb);
+  }
+}
+
+// (c) on one pair of staged blocks: rows ra0 .. ra0 + na - 1 of the active
+// triangle (in bufa) against columns cb0 .. cb0 + nb - 1 (in bufb; the same
+// block on the diagonal, where only the lower triangle is taken), a warp a
+// 32 x 32 output tile, tiles dealt round-robin to the warps; with a lead
+// tile (the next pivot block's, lead >= 0) warp 0 takes that one alone and
+// the others go round-robin to warps 1 .. kWarps - 1.
+template <typename T>
+__device__ void update_pair(T* W, const Active& act, const T* bufa, int ra0, int na,
+                            const T* bufb, int cb0, int nbr, int lead) {
+  constexpr int NB = Shape<T>::NB, LDP = Shape<T>::LDP, MT = Shape<T>::MT, NI = MT / 8;
+  using F = Mma<T>;
+  using A = Acc<T, NI>;
+  const int warp = threadIdx.x >> 5, k = act.k;
+  const bool diag = ra0 == cb0;
+  const int tr = (na + MT - 1) / MT, tc = (nbr + MT - 1) / MT;
+  int p = 0;
+  for (int R = 0; R < tr; ++R) {
+    for (int C = 0; C < (diag ? R + 1 : tc); ++C, ++p) {
+      const int owner =
+          lead < 0 ? p % kWarps : p == lead ? 0 : 1 + (p - (p > lead)) % (kWarps - 1);
+      if (owner != warp) continue;
+      A acc;
+      // the tile's old values, loaded before the products
+#pragma unroll
+      for (int i = 0; i < A::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < F::NC; ++e) {
+            const int ci = ra0 + R * MT + i * F::M + F::crow(e);
+            const int cl = cb0 + C * MT + j * F::N + F::ccol(e);
+            acc.c[i][j][e] = ci < act.m && cl <= ci && cl < cb0 + nbr
+                                 ? W[static_cast<size_t>(act.real(ci)) * k + act.real(cl)]
+                                 : T(0);
+          }
+      block_product<T, NI, NB>(acc, bufa + R * MT * LDP, LDP, bufb + C * MT * LDP, LDP, true);
+#pragma unroll
+      for (int i = 0; i < A::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < F::NC; ++e) {
+            const int ci = ra0 + R * MT + i * F::M + F::crow(e);
+            const int cl = cb0 + C * MT + j * F::N + F::ccol(e);
+            if (ci < act.m && cl <= ci && cl < cb0 + nbr)
+              W[static_cast<size_t>(act.real(ci)) * k + act.real(cl)] = acc.c[i][j][e];
+          }
+    }
+  }
+}
+
+// One panel step after the pivot block, (b) to (d), with L11^{-T} in
+// s.linvt[par].  With one chunk (the whole panel staged) V stays in buf from
+// (b) through (d), the warps go from their tiles of (c) to their rows of (d)
+// without a barrier, and, given a next step (next.nb > 0) and kAheadTiles
+// tiles in (c), warp 0 updates the next pivot block's tile first and
+// factors that block (into s.linvt[par ^ 1]) while the other warps finish
+// (c).  In chunks V goes through device memory, (c) takes chunk pairs
+// through buf and buf + CH rows, and the next pivot block waits for the
+// step's end.  Returns whether the next pivot block was factored.
+template <typename T, int WANT>
+__device__ bool panel_step(T* W, T* x, const Active& act, Smem<T>& s, T* buf,
+                           const Plan<T>& plan, int par, const Active& next, T& logdet,
+                           T& quad) {
+  constexpr int LDP = Shape<T>::LDP, MT = Shape<T>::MT;
+  constexpr bool kInverse = is_inverse(WANT);
+  const int m = act.m;
+  const int nch = plan.chunked ? (m + Shape<T>::CH - 1) / Shape<T>::CH : 1;
+  const int cr = nch == 1 ? round_up(m, MT) : Shape<T>::CH;
+  const bool keep = nch == 1;
+  const int tr = (m + MT - 1) / MT;
+  const bool ahead = keep && next.nb > 0 && tr * (tr + 1) / 2 >= kAheadTiles;
+  T* buf2 = buf + static_cast<size_t>(Shape<T>::CH) * LDP;
+  // (b)
+  for (int c = 0; c < nch; ++c) {
+    const int c0 = c * cr, n = min(cr, m - c0);
+    stage(buf, W, act, c0, round_up(n, MT));
     __syncthreads();
+    panel_product<T, false>(W, x, buf, act, s, nullptr, c0, n);
+    __syncthreads();
+    if (!keep || WANT == kChol || WANT == kStates) unstage(W, buf, act, c0, n);
+    if (!keep) __syncthreads();
   }
-}
-
-__device__ __forceinline__ void load16(const float* p, float (&o)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void load16(const double* p, double (&o)[2]) {
-  const double2 v = *reinterpret_cast<const double2*>(p);
-  o[0] = v.x; o[1] = v.y;
-}
-
-// (c): A[i][l] -= V_i . V_l over the active lower triangle.
-template <typename T>
-__device__ void trailing_update(T* W, const Active& act, Smem<T>& s) {
-  constexpr int NB = Shape<T>::NB, MT = Shape<T>::MT, V = Shape<T>::V;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int tiles = (act.m + MT - 1) / MT;
-  for (int R = 0; R < tiles; ++R) {
-    for (int C = 0; C <= R; ++C) {
-      stage(s.a, W, act, R * MT);
-      stage(s.b, W, act, C * MT);
-      __syncthreads();
-      T acc[4][4] = {};
-#pragma unroll
-      for (int t = 0; t < NB; t += V) {
-        T ra[4][V], rc[4][V];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          load16(&s.a[ty + 16 * q][t], ra[q]);
-          load16(&s.b[tx + 16 * q][t], rc[q]);
-        }
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-#pragma unroll
-          for (int p = 0; p < 4; ++p)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[p][q] = fma(ra[p][e], rc[q][e], acc[p][q]);
-      }
-      // read all 16 old values, then write (see stage)
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int ci = R * MT + ty + 16 * p;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int cl = C * MT + tx + 16 * q;
-          if (ci < act.m && cl <= ci)
-            acc[p][q] = W[static_cast<size_t>(act.real(ci)) * act.k + act.real(cl)] - acc[p][q];
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int ci = R * MT + ty + 16 * p;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int cl = C * MT + tx + 16 * q;
-          if (ci < act.m && cl <= ci)
-            W[static_cast<size_t>(act.real(ci)) * act.k + act.real(cl)] = acc[p][q];
-        }
-      }
-      __syncthreads();
+  // (c); the next pivot block lies in the diagonal tile at compressed row 0
+  // (factor variants) or J0 (inverse variants)
+  const int lead_row = (kInverse ? act.J0 : 0) / MT;
+  const int lead = ahead ? lead_row * (lead_row + 1) / 2 + lead_row : -1;
+  for (int ra = 0; ra < nch; ++ra) {
+    const int ra0 = ra * cr, na = min(cr, m - ra0);
+    if (!keep) stage(buf, W, act, ra0, round_up(na, MT));
+    for (int cb = 0; cb <= ra; ++cb) {
+      const int cb0 = cb * cr, nbr = min(cr, m - cb0);
+      if (!keep && cb < ra) stage(buf2, W, act, cb0, round_up(nbr, MT));
+      if (!keep) __syncthreads();
+      update_pair(W, act, buf, ra0, na, cb < ra ? buf2 : buf, cb0, nbr, lead);
+      if (!keep) __syncthreads();
     }
   }
+  if (ahead && (threadIdx.x >> 5) == 0) {
+    __syncwarp();  // the tile's stores, before the warp's lanes read them back
+    pivot_block<T, WANT>(W, x, next, s, par ^ 1, logdet, quad);
+  }
+  // (d)
+  if (kInverse) {
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * cr, n = min(cr, m - c0);
+      if (!keep) {
+        stage(buf, W, act, c0, round_up(n, MT));
+        __syncthreads();
+      }
+      panel_product<T, true>(W, nullptr, buf, act, s, &s.linvt[par][0][0], c0, n);
+      if (!keep) __syncthreads();
+    }
+  }
+  return ahead;
 }
 
-// states: back substitution L^T s = y by blocks, from the last; y in x.
+// states: back substitution L^T s = y by blocks, from the last; y in x,
+// L11^{-1} in each pivot block (pivot_block), so that each block's solve is
+// one product: s_J = L11^{-T} (y_J - sum over rows i below block J of
+// L[i][J]^T s_i).  `part` holds kWarps x NB partial sums.
 template <typename T>
-__device__ void back_substitute(const T* W, const T* x, T* s_out, int k, Smem<T>& s) {
+__device__ void back_substitute(const T* W, const T* x, T* s_out, int k, T* part) {
   constexpr int NB = Shape<T>::NB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int last = ((k - 1) / NB) * NB;
   for (int J0 = last; J0 >= 0; J0 -= NB) {
     const int nb = min(NB, k - J0);
-    // t_c = sum over rows i below block J of L[i][J0 + c] s_i
-    T part = T(0);
+    T acc = T(0);
     if (lane < nb) {
+#pragma unroll 4
       for (int i = J0 + nb + warp; i < k; i += kWarps)
-        part = fma(W[static_cast<size_t>(i) * k + J0 + lane], s_out[i], part);
+        acc = fma(W[static_cast<size_t>(i) * k + J0 + lane], s_out[i], acc);
     }
-    if (lane < NB) s.a[warp][lane] = part;
+    if (lane < NB) part[warp * NB + lane] = acc;
     __syncthreads();
     if (warp == 0) {
-      const int c = lane;
       T r = T(0);
-      T col[NB];  // lane c: column c of L11
-      if (c < nb) {
-        r = x[J0 + c];
+      if (lane < nb) {
+        r = x[J0 + lane];
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) r -= s.a[w][c];
+        for (int w = 0; w < kWarps; ++w) r -= part[w * NB + lane];
       }
-#pragma unroll
-      for (int i = 0; i < NB; ++i)
-        col[i] = (c < nb && i < nb) ? (i >= c ? W[static_cast<size_t>(J0 + i) * k + J0 + c] : T(0))
-                                    : (i == c ? T(1) : T(0));
+      // lane c: s_c = sum over i >= c of L11^{-1}[i][c] r_i
       T sv = T(0);
 #pragma unroll
-      for (int i = NB - 1; i >= 0; --i) {
-        const T si = __shfl_sync(0xffffffffu, r / col[i], i);
-        if (c == i) sv = si;
-        if (c < i) r = fma(-col[i], si, r);
+      for (int i = 0; i < NB; ++i) {
+        const T ri = __shfl_sync(0xffffffffu, r, i);
+        if (i < nb && i >= lane) sv = fma(W[static_cast<size_t>(J0 + i) * k + J0 + lane], ri, sv);
       }
-      if (c < nb) s_out[J0 + c] = sv;
+      if (lane < nb) s_out[J0 + lane] = sv;
     }
     __syncthreads();
   }
@@ -456,6 +596,9 @@ spd_panel_kernel(const T* __restrict__ sigma, long long sigma_stride, const T* _
   constexpr bool kInverse = is_inverse(WANT);
   constexpr bool kSecond = WANT == kFullT || WANT == kFull;
   __shared__ Smem<T> s;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  T* buf = reinterpret_cast<T*>(dyn);
+  const Plan<T> plan(k);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t kk = static_cast<size_t>(k) * k;
   // llk and states keep the right-hand side in the scratch's last row
@@ -471,7 +614,7 @@ spd_panel_kernel(const T* __restrict__ sigma, long long sigma_stride, const T* _
       s2 = sig * sig;
     }
     // M = G + sigma^2 I, lower triangle, a 32 x 32 tile at a time (loads
-    // before stores, see stage)
+    // before stores)
     const int tiles = (k + OT - 1) / OT;
     for (int R = 0; R < tiles; ++R) {
       for (int C = 0; C <= R; ++C) {
@@ -494,24 +637,20 @@ spd_panel_kernel(const T* __restrict__ sigma, long long sigma_stride, const T* _
     __syncthreads();
 
     T logdet = T(0), quad = T(0);  // warp 0's
-    for (int J0 = 0; J0 < k; J0 += NB) {
-      Active act;
-      act.J0 = J0;
-      act.nb = min(NB, k - J0);
-      act.k = k;
-      act.inverse = kInverse;
-      act.m = kInverse ? k - act.nb : k - J0 - act.nb;
-      if (warp == 0) pivot_block<T, WANT>(W, x, act, s, logdet, quad);
-      __syncthreads();
+    Active act = step<T>(0, k, kInverse);
+    if (warp == 0) pivot_block<T, WANT>(W, x, act, s, 0, logdet, quad);
+    __syncthreads();
+    for (int par = 0; act.nb > 0; par ^= 1) {
+      const Active next = step<T>(act.J0 + NB, k, kInverse);
       if (kInverse) pivot_inverse(W, act, s);
-      if (act.m == 0) {
+      const bool ahead =
+          act.m > 0 && panel_step<T, WANT>(W, x, act, s, buf, plan, par, next, logdet, quad);
+      __syncthreads();
+      if (!ahead && next.nb > 0) {
+        if (warp == 0) pivot_block<T, WANT>(W, x, next, s, par ^ 1, logdet, quad);
         __syncthreads();
-        continue;
       }
-      // each of these ends in a block barrier
-      panel_rows<T, false>(W, x, act, s);
-      trailing_update(W, act, s);
-      if (kInverse) panel_rows<T, true>(W, nullptr, act, s);
+      act = next;
     }
     const bool bad = s.bad != 0;
     const T poison = bad ? nan_like(T(0)) : T(0);
@@ -540,37 +679,47 @@ spd_panel_kernel(const T* __restrict__ sigma, long long sigma_stride, const T* _
       __syncthreads();
       continue;
     }
-    if (WANT == kStates) back_substitute(W, x, s_out + n * k, k, s);
+    if (WANT == kStates) back_substitute(W, x, s_out + n * k, k, buf);
 
     if (kInverse) {
-      // SM = s s^T - sigma^2 A (or Sigma = -sigma^2 A), a 32 x 32 tile of the
-      // lower triangle and its transpose at a time
-      T (*tile)[OT + 1] = reinterpret_cast<T (*)[OT + 1]>(&s.a[0][0]);
+      // SM = s s^T - sigma^2 A (or Sigma = -sigma^2 A): the OT x OT tiles
+      // (R, C) of the lower triangle, as many of a tile row at once as buf
+      // holds, each written and its transpose (C, R) through buf, so that
+      // both stores are coalesced
+      constexpr int TE = OT * (OT + 1);
+      const int cap = max(1, static_cast<int>(plan.bytes() / sizeof(T)) / TE);
       const T* sv = s_out + n * k;
       for (int R = 0; R < tiles; ++R) {
-        for (int C = 0; C <= R; ++C) {
-          T v[OT * OT / kThreads];
+        for (int C0 = 0; C0 <= R; C0 += cap) {
+          const int total = min(cap, R + 1 - C0) * OT * OT;
+          for (int e0 = 0; e0 < total; e0 += kIo * kThreads) {
+            T v[kIo];
 #pragma unroll
-          for (int q = 0; q < OT * OT / kThreads; ++q) {
-            const int e = tid + q * kThreads, i = R * OT + e / OT, c = C * OT + e % OT;
-            v[q] = i < k && c <= i
-                       ? (kSecond ? sv[i] * sv[c] : T(0)) - s2 * W[static_cast<size_t>(i) * k + c]
-                       : T(0);
-          }
+            for (int u = 0; u < kIo; ++u) {
+              const int e = e0 + tid + u * kThreads, t = e / (OT * OT);
+              const int i = R * OT + e / OT % OT, c = (C0 + t) * OT + e % OT;
+              v[u] = e < total && i < k && c <= i
+                         ? (kSecond ? sv[i] * sv[c] : T(0)) -
+                               s2 * W[static_cast<size_t>(i) * k + c]
+                         : T(0);
+            }
 #pragma unroll
-          for (int q = 0; q < OT * OT / kThreads; ++q) {
-            const int e = tid + q * kThreads, rl = e / OT, cl = e % OT;
-            const int i = R * OT + rl, c = C * OT + cl;
-            if (i < k && c <= i) {
-              W[static_cast<size_t>(i) * k + c] = v[q] + poison;
-              tile[cl][rl] = v[q] + poison;
+            for (int u = 0; u < kIo; ++u) {
+              const int e = e0 + tid + u * kThreads, t = e / (OT * OT);
+              const int rl = e / OT % OT, cl = e % OT, i = R * OT + rl, c = (C0 + t) * OT + cl;
+              if (e < total && i < k && c <= i) {
+                W[static_cast<size_t>(i) * k + c] = v[u] + poison;
+                buf[t * TE + cl * (OT + 1) + rl] = v[u] + poison;
+              }
             }
           }
           __syncthreads();
-          for (int e = tid; e < OT * OT; e += kThreads) {
-            const int rl = e / OT, cl = e % OT;  // row C*OT + rl, column R*OT + cl
-            const int i = C * OT + rl, c = R * OT + cl;
-            if (i < k && c < k && c > i) W[static_cast<size_t>(i) * k + c] = tile[rl][cl];
+          for (int e = tid; e < total; e += kThreads) {
+            // row (C0 + t) OT + rl, column R OT + cl
+            const int t = e / (OT * OT), rl = e / OT % OT, cl = e % OT;
+            const int i = (C0 + t) * OT + rl, c = R * OT + cl;
+            if (i < k && c < k && c > i)
+              W[static_cast<size_t>(i) * k + c] = buf[t * TE + rl * (OT + 1) + cl];
           }
           __syncthreads();
         }
@@ -600,11 +749,17 @@ cudaError_t launch_panel(int device, const void* sigma, long long sigma_stride, 
                          void* llk, void* sq, void* work, long long B, int k,
                          cudaStream_t stream) {
   int sms = 0;
-  const cudaError_t err = multiprocessors(device, sms);
+  cudaError_t err = multiprocessors(device, sms);
+  if (err != cudaSuccess) return err;
+  // the dynamic shared memory of this k (with the static, above the
+  // default 48 KB a block at larger k)
+  const size_t bytes = Plan<T>(k).bytes();
+  err = cudaFuncSetAttribute(spd_panel_kernel<T, WANT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const long long slots = static_cast<long long>(kCtasPerSm) * sms;
   const unsigned grid = static_cast<unsigned>(B < slots ? B : slots);
-  spd_panel_kernel<T, WANT><<<grid, kThreads, 0, stream>>>(
+  spd_panel_kernel<T, WANT><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(sigma), sigma_stride, static_cast<const T*>(G),
       static_cast<const T*>(b), static_cast<const T*>(rnorm), static_cast<const T*>(d_obs),
       static_cast<T*>(s), static_cast<T*>(m), static_cast<T*>(llk), static_cast<T*>(sq),

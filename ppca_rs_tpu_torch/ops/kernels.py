@@ -24,9 +24,10 @@ On a CUDA tensor the wrapper launches the kernel behind
 ``csrc/spd_estep.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:_make_kernel``
 / ``spd_estep``) or raises: up to the tile limit the library reports
 (:func:`design`) the register-tile design of ``csrc/spd_estep_tile.cuh``,
-above it the panel design of ``csrc/spd_panel.cuh``, which takes any k
-device memory holds (``llk`` and ``states`` give it a scratch,
-:func:`scratch_shape`).  On a CPU tensor it runs
+above it the panel design of ``csrc/spd_panel.cuh`` (panel steps whose
+products run on the tensor cores, 3xTF32 in float32 and FP64 MMA in
+float64), which takes any k device memory holds (``llk`` and ``states``
+give it a scratch, :func:`scratch_shape`).  On a CPU tensor it runs
 :func:`spd_estep_reference`.  There is no other route.  An all-masked
 sample (``G = 0``, ``b = 0``, ``rnorm = d_obs = 0``) is neutral: ``s = 0``,
 ``Sigma = I``, ``llk = 0``.  A sample whose M is not positive definite
@@ -69,9 +70,10 @@ def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) ->
     """Which design serves state size k on the card for ``kernel``
     ("estep": every spd_estep variant; "chol": spd_chol) and ``dtype``:
     "tile" (registers, a sample over one or more warps) or "panel" (one
-    CTA a sample, the working matrix in device memory, any k), by the tile
-    limit that the kernel library reports for that kernel and element
-    size."""
+    CTA a sample, the working matrix in device memory, each panel step's
+    columns staged once in shared memory and its products on the tensor
+    cores, any k), by the tile limit that the kernel library reports for
+    that kernel and element size."""
     from . import _build
 
     if kernel not in ("estep", "chol"):
@@ -83,7 +85,8 @@ def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) ->
 
 #: CTAs a multiprocessor in the panel design's persistent grid, for every
 #: variant and dtype: the minimum its launch bounds fix (``kCtasPerSm`` in
-#: ``csrc/spd_panel.cuh``).
+#: ``csrc/spd_panel.cuh``), which the staged panel's shared memory (at most
+#: ~93 KB a CTA) leaves room for.
 PANEL_CTAS_PER_SM = 2
 
 
