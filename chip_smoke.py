@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from the sources in the checkout and runs
-thirteen phases; any failed check raises and the script exits non-zero:
+fourteen phases; any failed check raises and the script exits non-zero:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
 2. every spd_estep kernel variant and spd_chol against its plain PyTorch
@@ -26,7 +26,7 @@ thirteen phases; any failed check raises and the script exits non-zero:
    window, beside its bound; spd_chol also beside torch.linalg.cholesky_ex,
    which the port never calls; ``full`` also at B=32 and ``states`` at
    B=1024, the pattern tables' and the row solve's shapes; fullt also in
-   float64 at k in {96, 128, 160};
+   float64 at k in {96, 128, 160}, and states and llk at k=96 (phase 11c's);
 3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
    missing at random, N=1,048,576 float32 rows made on the card from a
    seed (pattern detection must demote them), five trainer iterations,
@@ -129,7 +129,28 @@ thirteen phases; any failed check raises and the script exits non-zero:
    float32 against the CPU in float64 (1e-3), and ``full`` and ``states``
    at this phase's shapes against their plain versions, timed;
 13. the nine examples of ``examples/torch_port/`` on the card with
-   ``--device cuda`` in smoke mode, started together; each must exit 0.
+   ``--device cuda`` in smoke mode, started together; each must exit 0;
+14. the reference's test themes through the kernels (``[themes]`` lines):
+   (a) state size 0 (a noise-only model) on the masked, pattern and dense
+   routes over 65,536 rows at D=1024, with its sampler, mixtures of (0, 0)
+   and (0, 8) components and two streamed chunks: one EM step, the llks
+   and infer on the card in float32 against the CPU in float64, with no
+   launch at k=0; (b) the reference's golden anchors (quadratic form
+   34.219288, log det -3.49328, the toy llk) in float64 through the
+   ``infer`` and ``llk`` kernels at k=2; (c) near-noiseless float32: exact
+   low-rank data with the model at the truth and sigma=1e-4, three EM
+   steps each on the masked route at k=64 (262,144 rows) and k=256
+   (32,768 rows, the panel design), the pattern and dense routes at k=64,
+   a general mixture (M=8, k=32, D=512) and phase 12's structured
+   mixture, sigma finite, >= 0 and < 1e-2 after every step; the dense
+   route with a mean offset of 1e3 against the CPU in float64; (d)
+   recovery of a planted model (D=1024, k=64, sigma=1, signal eigenvalues
+   40 down to 4) from 1,048,576 rows drawn 50% missing on the card, 30
+   iterations, its largest principal angle and sigma; (e) 24 seeded draws
+   (k from 0 to 257, N from 1 to 20,000, D up to 1024, 0-90% missing,
+   all-masked rows, empty dimensions, zero weights, random priors), one
+   EM step, the llks, infer, smooth and the sampler's factor on the card
+   against the CPU in float64.
 
 The line before the last is the JSON kernel summary (the register-tile
 kernels on the main path, with phase 12's ``full`` and ``states`` under
@@ -141,6 +162,7 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -159,10 +181,10 @@ ROOT = Path(__file__).resolve().parent
 #: the panel design above it.
 ESTEP_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_estep_tile.cuh",
                 "panel": "ppca_rs_tpu_torch/csrc/spd_panel.cuh"}
-ESTEP_REPLACES = "ppca_rs_tpu/ops/kernels.py:501"  # spd_estep -> pl.pallas_call, body _make_kernel :176
+ESTEP_REPLACES = "ppca_rs_tpu/ops/kernels.py:502"  # spd_estep -> pl.pallas_call, body _make_kernel :176
 CHOL_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_chol_tile.cuh",
                "panel": "ppca_rs_tpu_torch/csrc/spd_panel.cuh"}
-CHOL_REPLACES = "ppca_rs_tpu/ops/kernels.py:663"   # spd_chol -> pl.pallas_call :727
+CHOL_REPLACES = "ppca_rs_tpu/ops/kernels.py:664"   # spd_chol -> pl.pallas_call :727
 
 BATCH = 8192
 #: State sizes of the kernel checks: every register tile (8, 16, 32, 64,
@@ -338,6 +360,46 @@ PATMIX_REPS = 3
 N_PATMIX_CPU = 512
 #: Phase 13: each example of examples/torch_port/ is killed after this.
 EXAMPLE_TIMEOUT = 300
+#: Phase 14: the reference's test themes (tests/test_golden.py,
+#: test_small_sigma.py, test_statistical.py, test_fuzz_parity.py) on the
+#: card.  (a) state size 0 on N_ZERO rows at D_MAIN (the pattern route
+#: over P_ZERO masks) and mixtures of the state sizes K_ZERO_MIX; (c)
+#: near-noiseless float32: exact low-rank data, the model at the truth
+#: with sigma SIGMA_NOISELESS, NOISELESS_ITERS EM steps, sigma below
+#: NOISELESS_SIGMA_MAX (tests/test_small_sigma.py's bound), on the masked
+#: route at k=64 (N_NOISELESS rows, the register tile) and at
+#: K_NOISELESS_PANEL (N_NOISELESS_PANEL rows, the panel design), the
+#: pattern and dense routes at k=64, a general mixture and phase 12's
+#: structured mixture; the dense route's mean offset of 1e3 on N_OFFSET
+#: rows; (d) recovery of a planted model from N_RECOVERY rows in at most
+#: RECOVERY_ITERS iterations, within RECOVERY_ANGLE_MAX radians and
+#: RECOVERY_SIGMA_TOL of sigma = 1 (bounds set before the first run: the
+#: sampling error of the weakest direction is ~0.03 rad); (e) FUZZ_DRAWS
+#: seeded draws at the state sizes FUZZ_KS, float64 on the card against
+#: the CPU within TOL_FUZZ_F64.
+N_ZERO = 65_536
+P_ZERO = 32
+K_ZERO_MIX = ((0, 0), (0, 8))
+SIGMA_NOISELESS = 1e-4
+NOISELESS_ITERS = 3
+NOISELESS_SIGMA_MAX = 1e-2
+N_NOISELESS = 262_144
+K_NOISELESS_PANEL = 256
+N_NOISELESS_PANEL = 32_768
+N_NOISELESS_MIX = 65_536
+D_NOISELESS_MIX = 512
+K_NOISELESS_MIX = 32
+M_NOISELESS_MIX = 8
+N_OFFSET = 65_536
+N_RECOVERY = 1 << 20
+RECOVERY_ITERS = 30
+RECOVERY_ANGLE_MAX = 0.1
+RECOVERY_SIGMA_TOL = 0.01
+FUZZ_DRAWS = 24
+FUZZ_KS = (0, 1, 2, 3, 13, 50, 64, 65, 127, 129, 131, 200, 257)
+FUZZ_N_MAX = 20_000
+FUZZ_WORK = 1e9
+TOL_FUZZ_F64 = 1e-8
 SEED = 20261016
 
 
@@ -347,8 +409,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def rel_err(got, want) -> float:
-    """max |got - want| / max |want| in float64."""
-    got, want = got.double(), want.double()
+    """max |got - want| / max |want| in float64, on ``want``'s device."""
+    got, want = got.detach().double().to(want.device), want.detach().double()
     scale = float(want.abs().max()) if want.numel() else 0.0
     return float((got - want).abs().max()) / max(scale, 1e-300) if want.numel() else 0.0
 
@@ -645,7 +707,8 @@ def check_row_solve(gen, k: int) -> None:
 def phase_kernels():
     """Phase 2.  Returns the float32 kernel rows at TIMED_K (summary), at
     WIDE_K (wide), at each of PANEL_KS (panel), and the float64 fullt rows
-    at F64_TIMED_KS."""
+    at F64_TIMED_KS (keyed by k) with the states and llk rows at K_LK64
+    (keyed by (want, k))."""
     from ppca_rs_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -715,7 +778,10 @@ def phase_kernels():
     f64 = {}
     for k in F64_TIMED_KS:
         inputs64, _ = kernel_inputs(BATCH, k, gen)
-        f64[k] = time_estep(k, inputs64, ("fullt",))["fullt"]
+        # at phase 11c's k also the variants that path launches
+        timed = time_estep(k, inputs64, ("fullt", "states", "llk") if k == K_LK64 else ("fullt",))
+        f64[k] = timed.pop("fullt")
+        f64.update({(want, k): row for want, row in timed.items()})
         del inputs64
         torch.cuda.empty_cache()
     for k in (13, 256):
@@ -990,12 +1056,20 @@ def phase_main(smi: str):
 # phase 4
 
 
+def model_cpu64(model):
+    """The model's parameters in float64 on the CPU."""
+    from ppca_rs_tpu_torch import PPCAModel
+
+    return PPCAModel._from_params(model.transform.cpu().double(), model.mean.cpu().double(),
+                                  model.isotropic_noise.cpu().double())
+
+
 def card_vs_cpu(tag: str, model, sub, used, unused=(), tol: float = TOL_CARD_VS_CPU):
     """One EM step and the per-sample llks of ``sub`` on the card (in the
     model's dtype) against the port on the CPU in float64, which takes the
     same route, within ``tol``.  The card run must launch the kernels in
     ``used`` and none in ``unused``."""
-    from ppca_rs_tpu_torch import Dataset, PPCAModel
+    from ppca_rs_tpu_torch import Dataset
     from ppca_rs_tpu_torch.ops import kernels
 
     before = dict(kernels.LAUNCHES)
@@ -1007,8 +1081,7 @@ def card_vs_cpu(tag: str, model, sub, used, unused=(), tol: float = TOL_CARD_VS_
     for name in unused:
         check(kernels.LAUNCHES[name] == before[name], f"{tag}: the card run launched {name}")
 
-    host = PPCAModel._from_params(model.transform.cpu().double(), model.mean.cpu().double(),
-                                  model.isotropic_noise.cpu().double())
+    host = model_cpu64(model)
     sub_cpu = Dataset.from_parts(sub.data.cpu().double(), sub.mask.cpu(), sub.weights_dev.cpu().double())
     check((sub_cpu.pattern_info() is None) == (sub.pattern_info() is None),
           f"{tag}: the CPU copy takes another route")
@@ -1317,11 +1390,9 @@ def make_mix_dataset(observed: float = MIX_OBSERVED, seed: int = SEED + 13, n: i
 
 def mix_on_cpu64(mix):
     """The mixture's parameters in float64 on the CPU."""
-    from ppca_rs_tpu_torch import PPCAMix, PPCAModel
+    from ppca_rs_tpu_torch import PPCAMix
 
-    return PPCAMix([PPCAModel._from_params(m.transform.cpu().double(), m.mean.cpu().double(),
-                                           m.isotropic_noise.cpu().double()) for m in mix.models],
-                   mix.log_weights.cpu().double())
+    return PPCAMix([model_cpu64(m) for m in mix.models], mix.log_weights.cpu().double())
 
 
 def mix_diffs(a, b) -> dict:
@@ -3070,6 +3141,538 @@ def phase_examples() -> None:
           f"{time.perf_counter() - t0:.1f} s, run together")
 
 
+# --------------------------------------------------------------------- #
+# phase 14
+
+
+@contextlib.contextmanager
+def launch_log():
+    """Record the (kernel, k) of every launch while the block runs, beside
+    the wrappers' own counts."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    seen = []
+    launch, launch_chol = kernels.launch, kernels.launch_chol
+
+    def logged(want, sigma, G, *args, **kwargs):
+        seen.append((want, G.shape[-1]))
+        return launch(want, sigma, G, *args, **kwargs)
+
+    def logged_chol(M, L):
+        seen.append(("chol", M.shape[-1]))
+        return launch_chol(M, L)
+
+    kernels.launch, kernels.launch_chol = logged, logged_chol
+    try:
+        yield seen
+    finally:
+        kernels.launch, kernels.launch_chol = launch, launch_chol
+
+
+def dataset_cpu64(ds):
+    """``ds`` in float64 on the CPU, with the route the card found for it
+    (its mask-only caches), so the host does not detect patterns again."""
+    from ppca_rs_tpu_torch import Dataset
+
+    host = Dataset.from_parts(ds.data.cpu().double(), ds.mask.cpu(), ds.weights_dev.cpu().double())
+    return ds._share_caches(host, torch.device("cpu"))
+
+
+def scalar_err(got: float, want: float) -> float:
+    return rel_err(torch.tensor([got]), torch.tensor([want]))
+
+
+def themes_data(n: int, d: int, k: int, seed: int, missing: float = 0.5, patterns: int = 0,
+                noise: float = 0.5, scale: float = 1.0, offset=None):
+    """n x d float32 rows made on the card, y = z C^T + mean + noise eps
+    with C ~ scale N(0, 1) (d x k), z, eps ~ N(0, 1) and mean ~ N(0, 1)
+    (or ``offset``); each entry missing with probability ``missing``, or,
+    with ``patterns`` = P, each row observed as one of P masks that miss
+    each entry with probability ``missing``.  Returns (dataset, C, mean)."""
+    from ppca_rs_tpu_torch import Dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    opts = dict(generator=gen, device="cuda", dtype=torch.float32)
+    C = scale * torch.randn(d, k, **opts)
+    mean = torch.randn(d, **opts) if offset is None else offset
+    table = torch.rand(patterns, d, generator=gen, device="cuda") >= missing if patterns else None
+    data = torch.empty(n, d, device="cuda", dtype=torch.float32)
+    mask = torch.empty(n, d, device="cuda", dtype=torch.bool)
+    step = 1 << 16
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        y = torch.randn(hi - lo, k, **opts) @ C.T + mean
+        if noise:
+            y = y + noise * torch.randn(hi - lo, d, **opts)
+        if table is not None:
+            m = table[torch.randint(0, patterns, (hi - lo,), generator=gen, device="cuda")]
+        else:
+            m = torch.rand(hi - lo, d, generator=gen, device="cuda") >= missing
+        data[lo:hi] = torch.where(m, y, torch.zeros_like(y))
+        mask[lo:hi] = m
+    return Dataset.from_parts(data, mask), C, mean
+
+
+def themes_zero_model(tag: str, model, ds, host_ds, kind: str) -> None:
+    """(a) A k = 0 model on ``ds``: one EM step, llks, infer and the sampler
+    on the card with no launch, against the CPU in float64 (``host_ds``)."""
+    from ppca_rs_tpu_torch.models.routes import route
+    from ppca_rs_tpu_torch.ops import kernels
+
+    check(route(ds).kind == kind, f"{tag}: the data took route {route(ds).kind}, not {kind}")
+    before = dict(kernels.LAUNCHES)
+    with launch_log() as seen:
+        new, llk = model._iterate_with_llk(ds, None)
+        llks = model.llks(ds)
+        inferred = model.infer(ds)
+        draw = inferred.posterior_sampler().sample(
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 141)).data
+        torch.cuda.synchronize()
+    check(not seen and kernels.LAUNCHES == before, f"{tag}: launches at k = 0: {seen}")
+    host = model_cpu64(model)
+    cnew, cllk = host._iterate_with_llk(host_ds, None)
+    cinf = host.infer(host_ds)
+    n, D = len(ds), ds.output_size()
+    check(tuple(inferred.states().shape) == (n, 0)
+          and tuple(inferred.covariances_array().shape) == (n, 0, 0),
+          f"{tag}: infer shapes {tuple(inferred.states().shape)}")
+    sigma = float(model.isotropic_noise)
+    se = float((draw.mean(0) - model.mean).abs().max()) / (sigma / math.sqrt(n))
+    var = float(draw.var(0).mean()) / sigma ** 2
+    check(bool(torch.isfinite(draw).all()) and se < SAMPLER_SE and abs(var - 1) < SAMPLER_VAR,
+          f"{tag}: sampler draws: mean {se:.2f} standard errors off, variance ratio {var:.4f}")
+    diffs = {**model_diffs(new, cnew), "llk": scalar_err(llk, cllk),
+             "llks": rel_err(llks.cpu(), host.llks(host_ds)),
+             "states": rel_err(inferred.states().cpu(), cinf.states())}
+    report_diffs("themes", f"(a) {tag}: N={n} D={D}, one EM step, llks, infer, card float32 "
+                 f"vs CPU float64, no launch; sampler draws mean {se:.2f} SE, variance ratio "
+                 f"{var:.4f}", diffs, TOL_CARD_VS_CPU)
+
+
+def themes_zero_mix(tag: str, ks, ds, host_ds, center) -> None:
+    """(a) A mixture of state sizes ``ks`` (some 0) on the general route,
+    its components' means near the data's (``center``) and their noise
+    near the data's spread about it, so that each keeps a share of the
+    rows (a component far from every row takes none, and its update then
+    differs between float32 and float64 by design): one EM step, llks,
+    infer and the sampler on the card against the CPU in float64; no
+    launch at k = 0."""
+    from ppca_rs_tpu_torch import PPCAMix, PPCAModel, Prior
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 142)
+    D = ds.output_size()
+    spread = math.sqrt(float(((ds.data - center) * ds.mask).pow(2).sum() / ds.mask.sum()))
+    models = [PPCAModel._from_params(0.3 * torch.randn(D, k, generator=gen, device="cuda"),
+                                     center + 0.1 * torch.randn(D, generator=gen, device="cuda"),
+                                     torch.tensor(spread * (1.0 + 0.05 * i), device="cuda"))
+              for i, k in enumerate(ks)]
+    mix = PPCAMix(models, torch.log(torch.tensor([0.4, 0.6], dtype=torch.float64)))
+    check(ds.pattern_info(include_dense=True) is None, f"{tag}: not the general route")
+    with launch_log() as seen:
+        new, llk = mix._iterate_with_llk(ds, Prior())
+        llks = mix.llks(ds)
+        inferred = mix.infer(ds)
+        draw = inferred.posterior_sampler().sample(
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 143)).data
+        torch.cuda.synchronize()
+    sizes = {k for _, k in seen}
+    check(0 not in sizes and sizes <= set(ks), f"{tag}: launches at state sizes {sorted(sizes)}")
+    check(bool(seen) == (max(ks) > 0), f"{tag}: {len(seen)} launches")
+    check(bool(torch.isfinite(draw).all()) and tuple(draw.shape) == (len(ds), D),
+          f"{tag}: sampler draws")
+    host = mix_on_cpu64(mix)
+    cnew, cllk = host._iterate_with_llk(host_ds, Prior())
+    diffs = {**mix_diffs(new, cnew), "llk": scalar_err(llk, cllk),
+             "llks": rel_err(llks.cpu(), host.llks(host_ds)),
+             "posteriors": rel_err(inferred.posteriors().cpu(),
+                                   host.infer(host_ds).posteriors())}
+    weights = ", ".join(f"{w:.4f}" for w in cnew.weights.tolist())
+    report_diffs("themes", f"(a) {tag}: N={len(ds)} D={D}, one EM step (new weights "
+                 f"{weights}), llks, infer, card float32 vs CPU float64, {len(seen)} launches, "
+                 f"all at k={sorted(sizes) or '-'}", diffs, TOL_CARD_VS_CPU)
+
+
+def themes_zero(smi: str) -> None:
+    """(a) State size 0 on the card: the masked, pattern and dense routes,
+    the sampler, mixtures of (0, 0) and (0, 8) components, two streamed
+    chunks."""
+    from ppca_rs_tpu_torch import PPCAModel, iterate_streamed
+    from ppca_rs_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    masked, _, mean = themes_data(N_ZERO, D_MAIN, K_MAIN, SEED + 140)
+    zero = PPCAModel._from_params(torch.zeros(D_MAIN, 0, device="cuda"), mean.clone(),
+                                  torch.tensor(0.8, device="cuda"))
+    host_masked = dataset_cpu64(masked)
+    themes_zero_model("masked route, k=0", zero, masked, host_masked, "masked")
+    pattern, _, _ = themes_data(N_ZERO, D_MAIN, K_MAIN, SEED + 144, patterns=P_ZERO)
+    themes_zero_model(f"pattern route (P={P_ZERO}), k=0", zero, pattern,
+                      dataset_cpu64(pattern), "pattern")
+    dense, _, _ = themes_data(N_ZERO, D_MAIN, K_MAIN, SEED + 145, missing=0.0)
+    themes_zero_model("dense route, k=0", zero, dense, dataset_cpu64(dense), "dense")
+    del pattern, dense
+    for ks in K_ZERO_MIX:
+        themes_zero_mix(f"mixture of state sizes {ks}", ks, masked, host_masked, mean)
+
+    half = N_ZERO // 2
+    before = dict(kernels.LAUNCHES)
+    with launch_log() as seen:
+        new, llk = iterate_streamed(zero, [masked.slice(0, half), masked.slice(half, N_ZERO)])
+        torch.cuda.synchronize()
+    check(not seen and kernels.LAUNCHES == before, f"streamed k=0: launches {seen}")
+    cnew, cllk = model_cpu64(zero)._iterate_with_llk(host_masked, None)
+    report_diffs("themes", "(a) iterate_streamed, k=0, two chunks, card float32 vs the "
+                 "CPU's resident step in float64, no launch",
+                 {**model_diffs(new, cnew), "llk": scalar_err(llk, cllk)}, TOL_CARD_VS_CPU)
+    print(f"[themes] (a) state size 0 in {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def themes_golden() -> None:
+    """(b) The reference's golden anchors in float64 on the card, through
+    the ``infer`` and ``llk`` kernels at k=2 (the register tile)."""
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    C = torch.tensor([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]], **f64)
+    sigma, mean = 0.1, torch.tensor([0.0, 1.0, 0.0], **f64)
+    D, k = C.shape
+    ones = torch.ones(1, D, **f64)
+    check(kernels.design(k, "estep", torch.float64) == "tile", "k=2 is not on the register tile")
+    before = dict(kernels.LAUNCHES)
+    post = ml.block_posterior(C, ml.outer_flat(C), torch.zeros(D, **f64), sigma,
+                              torch.ones(1, D, **f64), ones, "infer")
+    s, Sigma = post.out[0], post.out[1]
+    quad = float((post.rnorm - (post.b * s).sum(-1))[0]) / sigma ** 2
+    noise = 2.0 * math.log(sigma) * (D - k)
+    logdet = k * 2.0 * math.log(sigma) - float(torch.logdet(Sigma[0])) + noise
+    y = torch.tensor([[1.0, 2.0, 3.0]], **f64)
+    llk = float(ml.block_posterior(C, ml.outer_flat(C), mean, sigma, y, ones, "llk").out[0][0])
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["infer"] == before["infer"] + 1
+          and kernels.LAUNCHES["llk"] == before["llk"] + 1, "golden: infer and llk not launched")
+    cov = (sigma ** 2 * torch.eye(D, dtype=torch.float64) + C.cpu() @ C.cpu().T)
+    r = (y - mean).cpu()[0]
+    dense = -0.5 * float(r @ torch.linalg.solve(cov, r) + torch.logdet(cov) + D * math.log(2 * math.pi))
+    errs = {"quadratic form": abs(quad / 34.219288 - 1), "log det": abs(logdet / -3.49328 - 1),
+            "llk": abs(llk / dense - 1)}
+    print(f"[themes] (b) golden anchors, float64 on the card (infer and llk kernels, k=2, "
+          f"tile): quadratic form {quad:.9f} (34.219288, rel {errs['quadratic form']:.2e}, "
+          f"tol 1e-6), log det {logdet:.8f} (-3.49328, rel {errs['log det']:.2e}, tol 1e-5), "
+          f"toy llk {llk:.12f} vs the dense density {dense:.12f} (rel {errs['llk']:.2e}, tol 1e-10)")
+    check(errs["quadratic form"] <= 1e-6 and errs["log det"] <= 1e-5 and errs["llk"] <= 1e-10,
+          f"golden anchors off: {errs}")
+
+
+def noiseless_steps(tag: str, fit, ds, n_steps: int = NOISELESS_ITERS):
+    """(c) ``n_steps`` EM steps of ``fit`` (a model or a mixture at the
+    truth, sigma = SIGMA_NOISELESS) on exact low-rank data: every sigma
+    finite, >= 0 and < NOISELESS_SIGMA_MAX, every transform finite."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trace = []
+    for step in range(n_steps):
+        fit = fit.iterate(ds)
+        models = fit.models if hasattr(fit, "models") else [fit]
+        sigmas = [float(m.isotropic_noise) for m in models]
+        trace.append(max(sigmas))
+        finite = all(bool(torch.isfinite(m.transform).all()) for m in models)
+        print(f"[themes] (c) {tag}: step {step + 1}: sigma "
+              + ", ".join(f"{v:.4e}" for v in sigmas))
+        check(finite and all(math.isfinite(v) and 0.0 <= v < NOISELESS_SIGMA_MAX for v in sigmas),
+              f"{tag}: step {step + 1}: sigma {sigmas}, transforms finite {finite}")
+    torch.cuda.synchronize()
+    launched = {name: n for name, n in kernels.LAUNCHES.items() if n}
+    print(f"[themes] (c) {tag}: {n_steps} steps in {time.perf_counter() - t0:.2f} s, "
+          f"launches {launched}")
+    return trace
+
+
+def themes_noiseless(smi: str) -> dict:
+    """(c) Near-noiseless float32 at full width: exact low-rank data
+    (C ~ N(0, 1), Gram entries of order D), the model at the truth with
+    sigma = 1e-4, three EM steps on each route; and the dense route's
+    large-mean-offset case against the CPU in float64."""
+    from ppca_rs_tpu_torch import PPCAMix, PPCAModel, config
+    from ppca_rs_tpu_torch.models.routes import route
+    from ppca_rs_tpu_torch.ops import kernels
+
+    def at_truth(C):
+        return PPCAModel._from_params(C.clone(), torch.zeros(C.shape[0], device="cuda"),
+                                      torch.tensor(SIGMA_NOISELESS, device="cuda"))
+
+    def mix_at_truth(C, m):
+        return PPCAMix([at_truth(C + 0.01 * i) for i in range(m)],
+                       torch.zeros(m, dtype=torch.float64))
+
+    zero = torch.zeros(D_MAIN, device="cuda")
+    traces = {}
+    t0 = time.perf_counter()
+    for tag, k, n, kw in ((f"masked, k={K_MAIN}", K_MAIN, N_NOISELESS, dict(missing=0.3)),
+                          (f"masked, k={K_NOISELESS_PANEL}", K_NOISELESS_PANEL,
+                           N_NOISELESS_PANEL, dict(missing=0.3)),
+                          (f"pattern (P={P_ZERO}), k={K_MAIN}", K_MAIN, N_NOISELESS,
+                           dict(missing=0.3, patterns=P_ZERO)),
+                          (f"dense, k={K_MAIN}", K_MAIN, N_NOISELESS, dict(missing=0.0))):
+        ds, C, _ = themes_data(n, D_MAIN, k, SEED + 150 + k, noise=0.0, offset=zero, **kw)
+        kind = route(ds).kind
+        design = kernels.design(k, "estep", torch.float32) if kind != "dense" else "no kernel"
+        traces[tag] = noiseless_steps(f"{tag}, N={n}, {kind} route, {design}", at_truth(C), ds)
+        del ds
+        torch.cuda.empty_cache()
+
+    ds, C, _ = themes_data(N_NOISELESS_MIX, D_NOISELESS_MIX, K_NOISELESS_MIX, SEED + 155,
+                           missing=0.2, noise=0.0, offset=torch.zeros(D_NOISELESS_MIX, device="cuda"))
+    check(ds.pattern_info(include_dense=True) is None, "noiseless mixture: not the general route")
+    tag = f"general mixture, M={M_NOISELESS_MIX}, k={K_NOISELESS_MIX}, D={D_NOISELESS_MIX}"
+    traces[tag] = noiseless_steps(f"{tag}, N={N_NOISELESS_MIX}", mix_at_truth(C, M_NOISELESS_MIX), ds)
+
+    ds, C, _ = themes_data(N_PATMIX, D_PATMIX, K_PATMIX, SEED + 156, patterns=P_PATMIX,
+                           noise=0.0, offset=zero)
+    check(ds.pattern_order() is not None, "noiseless sorted mixture: the per-segment EM does not apply")
+    tag = f"sorted mixture, M={M_PATMIX}, k={K_PATMIX}, P={P_PATMIX}"
+    traces[tag] = noiseless_steps(f"{tag}, N={N_PATMIX} ({config.pat_sorted_min_rows} rows a "
+                                  "segment)", mix_at_truth(C, M_PATMIX), ds)
+    del ds
+    torch.cuda.empty_cache()
+
+    # The dense route's statistics with a mean far from zero: the float32
+    # llk within 1e-5 of float64 (the JAX test's bound), one EM step's
+    # sigma within 1e-4 and mean within 1e-5 relative + 1e-3 absolute of it.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 157)
+    offset = 1000.0 * (1.0 + torch.rand(D_MAIN, generator=gen, device="cuda"))
+    ds, C, _ = themes_data(N_OFFSET, D_MAIN, K_MAIN, SEED + 158, missing=0.0, noise=0.1,
+                           offset=offset)
+    check(route(ds).kind == "dense", "offset case: not the dense route")
+    card = PPCAModel._from_params(C.clone(), offset.clone(), torch.tensor(0.5, device="cuda"))
+    host, host_ds = model_cpu64(card), dataset_cpu64(ds)
+    llk32, llk64 = card.llk(ds), host.llk(host_ds)
+    new32, _ = card._iterate_with_llk(ds, None)
+    new64, _ = host._iterate_with_llk(host_ds, None)
+    mean_diff = (new32.mean.cpu().double() - new64.mean).abs()
+    mean_gap = float((mean_diff - 1e-5 * new64.mean.abs()).max())
+    sigma_gap = abs(float(new32.isotropic_noise) - float(new64.isotropic_noise))
+    diffs = {"llk": abs(llk32 - llk64) / abs(llk64), "sigma (abs)": sigma_gap,
+             "transform": rel_err(new32.transform.cpu(), new64.transform)}
+    print(f"[themes] (c) large mean offset (1e3), dense, N={N_OFFSET} D={D_MAIN} k={K_MAIN}, card "
+          f"float32 vs CPU float64: llk rel {diffs['llk']:.3e} (tol 1e-5), one EM step: sigma "
+          f"{float(new32.isotropic_noise):.6f} vs {float(new64.isotropic_noise):.6f} (abs "
+          f"{sigma_gap:.3e}, tol 1e-4), mean max abs diff {float(mean_diff.max()):.3e} (tol 1e-3 "
+          f"+ 1e-5 |mean|), transform "
+          f"{diffs['transform']:.3e} (tol {TOL_CARD_VS_CPU:g})")
+    check(diffs["llk"] < 1e-5 and sigma_gap < 1e-4 and mean_gap <= 1e-3
+          and diffs["transform"] <= TOL_CARD_VS_CPU, f"large mean offset: {diffs}, mean {mean_gap}")
+    print(f"[themes] (c) near-noiseless float32 in {time.perf_counter() - t0:.1f} s ({smi})")
+    return traces
+
+
+def principal_angle(A: torch.Tensor, B: torch.Tensor) -> float:
+    """Largest principal angle (radians) between the column spaces."""
+    Qa, Qb = torch.linalg.qr(A.double())[0], torch.linalg.qr(B.double())[0]
+    s = torch.linalg.svdvals(Qa.T @ Qb).clamp(-1.0, 1.0)
+    return float(torch.arccos(s.min()))
+
+
+def themes_recovery(smi: str) -> dict:
+    """(d) Statistical recovery at full width: a planted model with
+    orthogonal columns whose signal eigenvalues run from 40 down to 4
+    sigma^2, N_RECOVERY rows 50% missing drawn on the card by
+    ``PPCAModel.sample``, at most RECOVERY_ITERS trainer iterations."""
+    from ppca_rs_tpu_torch import PPCAModel, PPCATrainer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    Q = torch.linalg.qr(torch.randn(D_MAIN, K_MAIN, generator=gen, **f64))[0]
+    lam = 4.0 * 10.0 ** torch.linspace(1.0, 0.0, K_MAIN, **f64)
+    C_true = (Q * torch.sqrt(lam - 1.0)).float()
+    real = PPCAModel._from_params(C_true, torch.randn(D_MAIN, generator=gen, device="cuda"),
+                                  torch.tensor(1.0, device="cuda"))
+    ds = real.sample(N_RECOVERY, 0.5, generator=gen)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    llks = []
+    t1 = time.perf_counter()
+    model = PPCATrainer(ds).train(state_size=K_MAIN, n_iters=RECOVERY_ITERS, quiet=True,
+                                  callback=lambda it, m: llks.append(m.llk),
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED + 161))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    for a, b in zip(llks, llks[1:]):
+        check(b >= a - LLK_SLACK * abs(a), f"recovery: llk decreased: {a} -> {b}")
+    angle = principal_angle(model.transform, C_true)
+    sigma = float(model.isotropic_noise)
+    print(f"[themes] (d) recovery: D={D_MAIN} k={K_MAIN} sigma=1, signal eigenvalues 40..4, "
+          f"N={N_RECOVERY} drawn 50% missing in {made:.1f} s; {RECOVERY_ITERS} iterations in "
+          f"{secs:.1f} s (llk/sample {llks[0]:.6f} -> {llks[-1]:.6f}): largest principal angle "
+          f"{angle:.4f} rad (threshold {RECOVERY_ANGLE_MAX}), sigma {sigma:.6f} (|sigma - 1| "
+          f"threshold {RECOVERY_SIGMA_TOL}) ({smi})")
+    check(angle < RECOVERY_ANGLE_MAX and abs(sigma - 1.0) < RECOVERY_SIGMA_TOL,
+          f"recovery: angle {angle}, sigma {sigma}")
+    return {"angle": angle, "sigma": sigma, "seconds": secs}
+
+
+def fuzz_draw(i: int):
+    """The i-th fuzz draw, made on the host from a seed: its state size from
+    FUZZ_KS in turn, float64 on even draws and float32 on odd ones, and its
+    shape (N log-uniform up to FUZZ_N_MAX), masks, weights, parameters and
+    prior.  The float32 draws keep the EM step well posed in float32 (at
+    least 4k + 64 rows, at most half the entries missing, so each
+    dimension is seen by more than 2k rows, and sigma >= 0.5);
+    the float64 draws take the ragged corners (N = 1, N < k, D < k, 90%
+    missing, all-masked rows); draws 6, 14 and 22 ask for FUZZ_N_MAX rows
+    (more than one block where the work bound allows).  N * D * k^2 stays within FUZZ_WORK, which
+    bounds the CPU's float64 side, except where the float32 draw's rows
+    need more."""
+    g = torch.Generator().manual_seed(SEED + 1400 + i)
+    f64 = torch.float64
+
+    def uni(a, b):
+        return a + (b - a) * float(torch.rand((), generator=g, dtype=f64))
+
+    def randint(a, b):
+        return int(torch.randint(a, b + 1, (), generator=g))
+
+    k = FUZZ_KS[i % len(FUZZ_KS)]
+    dtype = torch.float64 if i % 2 == 0 else torch.float32
+    kk = max(k, 1)
+    if dtype == torch.float64:
+        n_min, d_min, missing, sigma = 1, max(1, k // 2), uni(0.0, 0.9), uni(0.05, 2.0)
+    else:
+        n_min, d_min, missing, sigma = 4 * k + 64, max(1, k), uni(0.0, 0.5), uni(0.5, 1.5)
+    n = {2: 1, 6: FUZZ_N_MAX}.get(i % 8) or int(math.exp(uni(math.log(n_min), math.log(FUZZ_N_MAX))))
+    d = randint(d_min, max(d_min, min(1024, int(FUZZ_WORK / (n * kk * kk)))))
+    n = max(n_min, min(n, int(FUZZ_WORK / (d * kk * kk))))
+    patterns = randint(1, 8) if i % 6 == 5 else 0
+    if i % 6 == 3:
+        missing = 0.0
+    C = torch.randn(d, k, generator=g, dtype=f64) * uni(0.5, 2.0) / math.sqrt(kk)
+    mean = torch.randn(d, generator=g, dtype=f64)
+    data = torch.randn(n, k, generator=g, dtype=f64) @ C.T + mean \
+        + sigma * torch.randn(n, d, generator=g, dtype=f64)
+    if patterns:
+        table = torch.rand(patterns, d, generator=g, dtype=f64) >= missing
+        mask = table[torch.randint(0, patterns, (n,), generator=g)]
+    else:
+        mask = torch.rand(n, d, generator=g, dtype=f64) >= missing
+    corners = []
+    if n > 3 and dtype == torch.float64 and float(torch.rand((), generator=g)) < 0.5:
+        mask[randint(0, n - 1)] = False
+        corners.append("all-masked row")
+    if d > 2 and missing and float(torch.rand((), generator=g)) < 0.5:
+        mask[:, randint(0, d - 1)] = False
+        corners.append("empty dimension")
+    weights = torch.rand(n, generator=g, dtype=f64) + 0.1
+    if n > 2 and float(torch.rand((), generator=g)) < 0.5:
+        weights[randint(0, n - 1)] = 0.0
+        corners.append("zero weight")
+    prior = {}
+    if float(torch.rand((), generator=g)) < 0.5:
+        prior["noise"] = (uni(0.5, 20.0), uni(0.5, 20.0))
+    if float(torch.rand((), generator=g)) < 0.5:
+        prior["tprec"] = uni(0.0, 2.0)
+    if float(torch.rand((), generator=g)) < 0.5:
+        prior["mean"] = (torch.randn(d, generator=g, dtype=f64).numpy(),
+                         (torch.eye(d, dtype=f64) * uni(0.2, 2.0)).numpy())
+    if dtype == torch.float32:    # both sides see the float32 values
+        C, mean, data = C.float().double(), mean.float().double(), data.float().double()
+        sigma = float(torch.tensor(sigma).float())
+    data = torch.where(mask, data, torch.zeros_like(data))
+    return dict(k=k, n=n, d=d, dtype=dtype, missing=missing, patterns=patterns, sigma=sigma,
+                C=C, mean=mean, data=data, mask=mask, weights=weights, prior=prior,
+                corners=corners)
+
+
+def fuzz_prior(spec: dict):
+    from ppca_rs_tpu_torch import Prior
+
+    prior = Prior()
+    if "noise" in spec:
+        prior = prior.with_isotropic_noise_prior(*spec["noise"])
+    if "tprec" in spec:
+        prior = prior.with_transformation_precision(spec["tprec"])
+    if "mean" in spec:
+        prior = prior.with_mean_prior(*spec["mean"])
+    return prior
+
+
+def fuzz_run(draw: dict, device: str, dtype):
+    """One EM step with the draw's prior, llks, infer, smooth and the
+    posterior sampler's factor and one draw, on ``device`` in ``dtype``."""
+    from ppca_rs_tpu_torch import Dataset, PPCAModel
+    from ppca_rs_tpu_torch.models.routes import route
+
+    ds = Dataset.from_parts(draw["data"].to(device=device, dtype=dtype), draw["mask"].to(device),
+                            draw["weights"].to(device=device, dtype=dtype))
+    model = PPCAModel(isotropic_noise=draw["sigma"], transform=draw["C"].numpy(),
+                      mean=draw["mean"].numpy(), device=device, dtype=dtype)
+    new, llk = model._iterate_with_llk(ds, fuzz_prior(draw["prior"]))
+    inferred = model.infer(ds)
+    sampler = inferred.posterior_sampler()
+    sample = sampler.sample(generator=torch.Generator(device=device).manual_seed(SEED + 170)).data
+    out = {"transform": new.transform, "mean": new.mean, "sigma": new.isotropic_noise.reshape(1),
+           "llk": torch.tensor([llk]), "llks": model.llks(ds), "states": inferred.states(),
+           "covariances": inferred.covariances_array(), "smooth": model.smooth(ds).data,
+           "chol": sampler._chol}
+    check(bool(torch.isfinite(sample).all()) and tuple(sample.shape) == (draw["n"], draw["d"]),
+          f"fuzz: sampler draw on {device}")
+    return {name: t.detach().cpu() for name, t in out.items()}, route(ds).kind
+
+
+def themes_fuzz(smi: str) -> dict:
+    """(e) FUZZ_DRAWS seeded draws through the kernels on the card against
+    the CPU in float64: float32 within TOL_CARD_VS_CPU, float64 within
+    TOL_FUZZ_F64.  Returns the worst error by design and dtype."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    worst = {}
+    for i in range(FUZZ_DRAWS):
+        t1 = time.perf_counter()
+        draw = fuzz_draw(i)
+        k, dtype = draw["k"], draw["dtype"]
+        with launch_log() as seen:
+            card, kind = fuzz_run(draw, "cuda", dtype)
+            torch.cuda.synchronize()
+        host, host_kind = fuzz_run(draw, "cpu", torch.float64)
+        check(kind == host_kind, f"fuzz {i}: card route {kind}, CPU route {host_kind}")
+        design = "none" if k == 0 else kernels.design(k, "estep", dtype)
+        if k and kernels.design(k, "chol", dtype) != design:
+            design += f" (chol {kernels.design(k, 'chol', dtype)})"
+        check({kk for _, kk in seen} <= ({k} if k else set()),
+              f"fuzz {i}: launches {sorted(set(seen))} at k={k}")
+        check(kind == "dense" or bool(seen) == (k > 0), f"fuzz {i}: {len(seen)} launches")
+        errs = {name: rel_err(card[name], host[name]) for name in card}
+        name, err = max(errs.items(), key=lambda item: item[1])
+        tol = TOL_CARD_VS_CPU if dtype == torch.float32 else TOL_FUZZ_F64
+        key = f"{design.split()[0]} {str(dtype)[6:]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        notes = [f"missing {draw['missing']:.2f}"]
+        notes += [f"{draw['patterns']} patterns"] if draw["patterns"] else []
+        notes += draw["corners"] + (["prior " + "+".join(draw["prior"])] if draw["prior"] else [])
+        print(f"[themes] (e) draw {i:2d}: N={draw['n']} D={draw['d']} k={k} {str(dtype)[6:]}, "
+              f"{', '.join(notes)}; {kind} route, {design} design, {len(seen)} launches: "
+              f"worst {name} {err:.3e} (tol {tol:g}), {time.perf_counter() - t1:.2f} s")
+        check(err <= tol, f"fuzz draw {i}: {name} {err:.3e} above {tol}: {errs}")
+    print(f"[themes] (e) {FUZZ_DRAWS} draws in {time.perf_counter() - t0:.1f} s; worst by "
+          "design: " + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items())) + f" ({smi})")
+    return worst
+
+
+def phase_themes(smi: str) -> dict:
+    """Phase 14: the reference's test themes on the card through the
+    kernels: (a) state size 0, (b) the golden anchors, (c) near-noiseless
+    float32, (d) statistical recovery, (e) a fuzz."""
+    themes_zero(smi)
+    themes_golden()
+    traces = themes_noiseless(smi)
+    recovery = themes_recovery(smi)
+    worst = themes_fuzz(smi)
+    return {"noiseless": traces, "recovery": recovery, "fuzz": worst}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-child":
         return parallel_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
@@ -3117,6 +3720,8 @@ def main() -> int:
     done("12")
     phase_examples()
     done("13")
+    phase_themes(smi)
+    done("14")
     starts = [t_start] + [t for _, t in marks[:-1]]
     print(f"[done] all phases passed in {marks[-1][1] - t_start:.1f} s ("
           + ", ".join(f"phase {p} {t - t0:.1f} s" for (p, t), t0 in zip(marks, starts)) + ")")
@@ -3149,7 +3754,7 @@ def main() -> int:
     ]}
     # the panel design: each variant's kernel at PANEL_KS (B=BATCH up to
     # FULL_BATCH_MAX_K, a block's rows above), launched on phase 11's path;
-    # fullt also in float64 at F64_TIMED_KS
+    # fullt also in float64 at F64_TIMED_KS, states and llk at K_LK64
     ref_k = PANEL_KS[1]
     for key in ("fullt", "states", "llk", "infer", "full", "chol"):
         row = panel[ref_k][key]
@@ -3164,6 +3769,9 @@ def main() -> int:
         if key == "fullt":
             entry["at_f64"] = {f"k{k}": {f: f64[k][f] for f in fields if f in f64[k]}
                                for k in F64_TIMED_KS}
+        elif (key, K_LK64) in f64:
+            row = f64[key, K_LK64]
+            entry["at_f64"] = {f"k{K_LK64}": {f: row[f] for f in fields if f in row}}
         kernels_line["kernels"].append(entry)
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched by its path")

@@ -31,7 +31,10 @@ give it a scratch, :func:`scratch_shape`).  On a CPU tensor it runs
 :func:`spd_estep_reference`.  There is no other route.  An all-masked
 sample (``G = 0``, ``b = 0``, ``rnorm = d_obs = 0``) is neutral: ``s = 0``,
 ``Sigma = I``, ``llk = 0``.  A sample whose M is not positive definite
-yields non-finite values for that sample only.
+yields non-finite values for that sample only.  State size 0 has no
+factorization: both wrappers answer it with :func:`spd_estep_state_size_zero`
+and :func:`spd_chol_state_size_zero` on every device and launch nothing, as
+the JAX package leaves k = 0 to XLA.
 
 :func:`spd_chol` is the batched lower Cholesky factor ``L (B, k, k)`` of SPD
 matrices ``M (B, k, k)`` behind the posterior sampler: the kernel behind
@@ -171,13 +174,39 @@ def spd_chol_reference(M: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[:, None, None], L, torch.full_like(L, math.nan))
 
 
+def spd_estep_state_size_zero(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Tensor, ...]:
+    """The E-step's outputs at state size 0, in closed form: M is empty, so
+    s is (B, 0), SM and Sigma are (B, 0, 0), sq = 0 and
+    ``llk = -(rnorm / sigma^2 + d_obs log sigma^2 + d_obs log 2 pi) / 2``
+    (0 for an all-masked sample)."""
+    _check_want(want)
+    B = G.shape[0]
+    sigma, _ = sigma_arg(sigma, B, G.dtype, G.device)
+    s2 = sigma * sigma
+    llk = -0.5 * (rnorm / s2 + (torch.log(s2) + LN_2PI) * d_obs)
+    if want == "llk":
+        return (llk,)
+    s = G.new_empty((B, 0))
+    if want == "states":
+        return s, llk
+    return s, G.new_empty((B, 0, 0)), llk, torch.zeros_like(llk)
+
+
+def spd_chol_state_size_zero(M: torch.Tensor) -> torch.Tensor:
+    """The Cholesky factor at state size 0: an empty (B, 0, 0)."""
+    return M.new_empty((M.shape[0], 0, 0))
+
+
 def spd_chol(M: torch.Tensor) -> torch.Tensor:
     """Batched lower Cholesky factor ``L (B, k, k)`` of ``M (B, k, k)``,
     lower triangle of ``M`` read, zeros above the diagonal of ``L``.
 
-    CPU tensors take :func:`spd_chol_reference`; CUDA tensors launch the
-    kernel, which raises on anything it does not take."""
+    k = 0 takes :func:`spd_chol_state_size_zero`; otherwise CPU tensors
+    take :func:`spd_chol_reference` and CUDA tensors launch the kernel,
+    which raises on anything it does not take."""
     _check_chol_shape(M)
+    if M.shape[-1] == 0:
+        return spd_chol_state_size_zero(M)
     if M.device.type == "cpu":
         return spd_chol_reference(M)
     L = torch.empty_like(M, memory_format=torch.contiguous_format)
@@ -188,10 +217,13 @@ def spd_chol(M: torch.Tensor) -> torch.Tensor:
 def spd_estep(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Tensor, ...]:
     """The batched SPD E-step (see the module docstring for the outputs).
 
-    CPU tensors take :func:`spd_estep_reference`; CUDA tensors launch the
-    kernel, which raises on anything it does not take."""
+    k = 0 takes :func:`spd_estep_state_size_zero`; otherwise CPU tensors
+    take :func:`spd_estep_reference` and CUDA tensors launch the kernel,
+    which raises on anything it does not take."""
     _check_want(want)
     _check_shapes(G, b, rnorm, d_obs)
+    if G.shape[-1] == 0:
+        return spd_estep_state_size_zero(sigma, G, b, rnorm, d_obs, want)
     if G.device.type == "cpu":
         return spd_estep_reference(sigma, G, b, rnorm, d_obs, want)
     B, k, _ = G.shape

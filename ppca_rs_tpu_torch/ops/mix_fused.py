@@ -473,12 +473,14 @@ def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *, transformation_prec
     weights, which set the priors' strength); the M * D row solves of all
     components run in ONE ``states`` launch on S rebuilt from its lower
     triangle, so a singular row (an empty dimension with lambda = 0) goes
-    non-finite alone and keeps its old row.  A dead component (resp_max =
-    0: every responsibility underflowed) keeps its parameters and gets
-    log-weight -inf.  With a model ``group``, the new transforms and means
-    are this rank's rows (``masked_linalg.em_finalize``)."""
+    non-finite alone and keeps its old row.  A dead component keeps its
+    parameters: resp_max below the dtype's smallest normal number, so every
+    responsibility underflowed (log-weight -inf) or is subnormal (whose
+    reciprocal overflows and whose few bits carry no update).  With a model
+    ``group``, the new transforms and means are this rank's rows
+    (``masked_linalg.em_finalize``)."""
     M, D, k = Cs.shape
-    alive = stats.resp_max > 0
+    alive = stats.resp_max >= torch.finfo(stats.resp_max.dtype).tiny
     inv_scale = torch.where(alive, 1.0 / torch.where(alive, stats.resp_max, 1.0), 0.0)
     scaled = [x * inv_scale.view(-1, *([1] * (x.ndim - 1)))
               for x in stats[:6]]                  # cross, S, square_error, dev_sq, total_dev, totals

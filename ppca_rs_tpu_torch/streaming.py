@@ -57,7 +57,7 @@ from .ops import masked_linalg as ml
 from .ops import mix_fused as mf
 from .ops import pattern_dedup as pd
 from .parallel import api
-from .parallel.mesh import MODEL_AXIS, axis_size, dataset_mesh
+from .parallel.mesh import MODEL_AXIS, DeviceMesh, axis_size, dataset_mesh
 from .prior import Prior
 from .trainer import Metric, MetricsCallback, _train
 
@@ -314,6 +314,9 @@ class StreamingPPCATrainer:
     ``prefetch``; with ``mesh``, ``chunks`` are this rank's part of the
     stream (:func:`iterate_streamed`)."""
 
+    chunks: List[ChunkLike]
+    mesh: Optional[DeviceMesh]
+
     def __init__(self, chunks: Sequence[ChunkLike], mesh=None):
         self.chunks = list(chunks)
         self.mesh = mesh
@@ -351,6 +354,9 @@ class StreamingPPCAMixTrainer:
     """Train a PPCA mixture over chunks that need never be on the device
     together.  API of :class:`ppca_rs_tpu_torch.PPCAMixTrainer`, plus
     ``prefetch`` and ``mesh`` (:class:`StreamingPPCATrainer`)."""
+
+    chunks: List[ChunkLike]
+    mesh: Optional[DeviceMesh]
 
     def __init__(self, chunks: Sequence[ChunkLike], mesh=None):
         self.chunks = list(chunks)

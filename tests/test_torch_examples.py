@@ -63,10 +63,12 @@ def imported_roots(path: Path) -> set:
 
 
 def test_nothing_imports_jax():
-    """No module of the port, no example of the port and not chip_smoke.py
-    imports jax or the JAX package (checked on the syntax tree, so an import
-    inside a function counts too)."""
-    files = [*sorted((ROOT / "ppca_rs_tpu_torch").rglob("*.py")),
+    """No module or stub of the port, no example of the port and not
+    chip_smoke.py imports jax or the JAX package (checked on the syntax
+    tree, so an import inside a function counts too)."""
+    stubs = sorted((ROOT / "ppca_rs_tpu_torch").rglob("*.pyi"))
+    assert stubs
+    files = [*sorted((ROOT / "ppca_rs_tpu_torch").rglob("*.py")), *stubs,
              *sorted(EXAMPLES_DIR.glob("*.py")), ROOT / "chip_smoke.py"]
     assert len(files) > 30
     bad = {str(f.relative_to(ROOT)): sorted(imported_roots(f) & set(FORBIDDEN)) for f in files}

@@ -300,6 +300,28 @@ def test_finalize_singular_row_stays_alone(rng):
         close(new_sigmas[m], want[2])
 
 
+def test_finalize_subnormal_component_keeps_params(rng):
+    """A float32 component whose responsibilities are all subnormal (the
+    reciprocal of its resp_max, the max-1 rescale, overflows) is dead: it
+    keeps its parameters, finite, and the other component gets the M-step
+    it gets beside a live one."""
+    Cs, means, sigmas, lw, data, mask, w, _, _ = as_torch(make_inputs(rng, M=2, N=80),
+                                                        torch.float32)
+    stats = tmf.mix_em_stats(Cs, means, sigmas, lw, data, mask, w, block_size=32)
+    shrink = torch.tensor([1.0, 1e-44])
+    sub = tmf.MixEMStats(*(x * shrink.view(-1, *([1] * (x.ndim - 1))) for x in stats[:8]),
+                         llk=stats.llk)
+    assert 0.0 < float(sub.resp_max[1]) < torch.finfo(torch.float32).tiny
+    zero = torch.zeros(())
+    new = tmf.mix_em_finalize(Cs, means, sigmas, sub, transformation_precision=zero)
+    live = tmf.mix_em_finalize(Cs, means, sigmas, stats, transformation_precision=zero)
+    assert all(bool(torch.isfinite(x).all()) for x in new[:3])
+    assert torch.equal(new[0][1], Cs[1]) and torch.equal(new[1][1], means[1])
+    assert float(new[2][1]) == float(sigmas[1])
+    for got, want in zip(new[:3], live[:3]):
+        torch.testing.assert_close(got[0], want[0])
+    assert float(torch.exp(new[3][1])) < 1e-30
+
 def test_em_finalize_takes_transform_rows(rng):
     D, k = 6, 2
     C = torch.from_numpy(rng.normal(size=(D, k)))
