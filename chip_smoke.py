@@ -13,11 +13,13 @@ fourteen phases; any failed check raises and the script exits non-zero:
    version at k in {2, 13, 24, 50, 64, 99, 128, 131, 160, 192, 256, 257,
    384, 512, 704} (B=8192 up to k=256, one single-model block's rows
    above: 1024 at 257, 512 at 384 and 512, 256 at 704), the
-   register-tile designs up to the tile limits the library reports, the
-   panel design above them (each k prints which design serves each kernel
-   and the panel design's CTAs per multiprocessor), in float64 and
-   float32, on inputs with all-masked (spd_estep) or non-SPD and identity
-   (spd_chol) samples and NaN-prefilled outputs; a negative-definite sample
+   tile designs up to the tile limits the library reports, the panel
+   design above them (each k prints which design serves each kernel, the
+   panel design's CTAs per multiprocessor and the E-step tile's residency),
+   in float64 and float32, on inputs with all-masked (spd_estep) or non-SPD
+   and identity (spd_chol) samples and NaN-prefilled outputs (fullt's SM
+   compared on and below the diagonal, where alone it is written, and the
+   NaN above it checked to be still there); a negative-definite sample
    that goes non-finite alone; a sigma per sample against scalar-sigma
    launches; the M-step row solve at lambda=0 with a singular row at k=13
    and k=256.  Each float32 kernel is timed by launches into preallocated
@@ -25,8 +27,9 @@ fourteen phases; any failed check raises and the script exits non-zero:
    plain version) and by its device time read by name from a torch.profiler
    window, beside its bound; spd_chol also beside torch.linalg.cholesky_ex,
    which the port never calls; ``full`` also at B=32 and ``states`` at
-   B=1024, the pattern tables' and the row solve's shapes; fullt also in
-   float64 at k in {96, 128, 160}, and states and llk at k=96 (phase 11c's);
+   B=1024, the pattern tables' and the row solve's shapes; fullt also at
+   k=50 (rows not 16-byte aligned, beside k=64) and in float64 at k in
+   {96, 128, 160}, and states and llk at k=96 (phase 11c's);
 3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
    missing at random, N=1,048,576 float32 rows made on the card from a
    seed (pattern detection must demote them), five trainer iterations,
@@ -199,8 +202,10 @@ KS = (2, 13, 24, 50, 64, 99, 128, 131, 160, 192, 256, 257, 384, 512, 704)
 #: single-model block (``config.block_rows``), so the plain version fits.
 FULL_BATCH_MAX_K = 256
 #: The state sizes whose times go into the kernels line: the main path's,
-#: phase 7's, and the panel design's.
+#: phase 7's, and the panel design's; fullt is also timed at RAGGED_K, whose
+#: rows are not 16-byte aligned, beside TIMED_K.
 TIMED_K = 64
+RAGGED_K = 50
 WIDE_K = 128
 PANEL_KS = (160, 256, 512)
 #: float64 state sizes at which fullt is also timed (the panel design
@@ -475,7 +480,7 @@ def kernel_inputs(B: int, k: int, gen):
 #: register tile's last one; the panel design's 0-4), or spd_chol (its
 #: register tile, or the panel design's want 5).
 _KERNEL_NAME = re.compile(
-    r"spd_(?:estep_tile_kernel<(float|double), \d+, (\d)>"
+    r"spd_(?:estep_(?:tile|small)_kernel<(float|double), \d+, (\d)>"
     r"|panel_kernel<(float|double), (\d)>|chol_tile_kernel<(float|double), \d+>)")
 
 
@@ -553,13 +558,41 @@ def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1):
 
 
 def design_note(k: int, kernel: str, dtype) -> str:
-    """The design serving k, with the panel design's CTAs per multiprocessor."""
+    """The design serving k, with the panel design's CTAs per
+    multiprocessor, or the E-step tile's residency (the occupancy
+    calculator's CTAs a multiprocessor, warps a CTA, samples in flight)."""
     from ppca_rs_tpu_torch.ops import kernels
 
     d = kernels.design(k, kernel, dtype)
     if d == "panel":
         return f"panel design, {kernels.PANEL_CTAS_PER_SM} CTAs per SM"
+    if kernel == "estep":
+        ctas, warps, samples = kernels.tile_occupancy(k, dtype)
+        return (f"tile design, {ctas} CTAs x {warps} warps per SM = {ctas * warps} warps, "
+                f"{ctas * samples} samples in flight")
     return f"{d} design"
+
+
+def defined(want: str, outs) -> list:
+    """The output elements a kernel defines: fullt's SM (its second output)
+    on and below the diagonal, as (B, k(k+1)/2); every other output whole."""
+    if want != "fullt":
+        return list(outs)
+    sm = outs[1]
+    k = sm.shape[-1]
+    low = torch.ones(k, k, dtype=torch.bool, device=sm.device).tril()
+    return [outs[0], sm[:, low], *outs[2:]]
+
+
+def check_above_untouched(tag: str, want: str, outs) -> None:
+    """fullt writes nothing above SM's diagonal: the NaN it was prefilled
+    with is still there."""
+    if want != "fullt":
+        return
+    sm = outs[1]
+    k = sm.shape[-1]
+    up = torch.ones(k, k, dtype=torch.bool, device=sm.device).triu(1)
+    check(bool(torch.isnan(sm[:, up]).all()), f"{tag}: fullt wrote above the diagonal of SM")
 
 
 def kernel_reps(k: int) -> int:
@@ -627,7 +660,8 @@ def check_not_pd(k: int, dtype, tol: float, gen) -> None:
         kernels.launch(want, SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], outs)
         torch.cuda.synchronize()
         ref = kernels.spd_estep_reference(SIGMA, x64["G"], x64["b"], x64["rnorm"], x64["d_obs"], want)
-        for o, r in zip(outs, ref):
+        check_above_untouched(f"not-PD {want} k={k} {dtype}", want, outs)
+        for o, r in zip(defined(want, outs), defined(want, ref)):
             check(not bool(torch.isfinite(o[NOT_PD]).any()),
                   f"not-PD {want} k={k} {dtype}: the sample has a finite output element")
             check(bool(torch.isfinite(o[good]).all()),
@@ -653,7 +687,7 @@ def check_per_sample_sigma(k: int, dtype, x) -> None:
         for i in range(len(SIGMA_LEVELS)):
             scalar = kernels.spd_estep(levels[i:i + 1], G, b, rn, do, want=want)
             rows = which == i
-            for g, s in zip(got, scalar):
+            for g, s in zip(defined(want, got), defined(want, scalar)):
                 check(torch.equal(g[rows], s[rows]),
                       f"per-sample sigma {want} k={k} {dtype}: differs from the scalar launch")
             del scalar
@@ -733,9 +767,11 @@ def phase_kernels():
                 torch.cuda.synchronize()
                 ref = kernels.spd_estep_reference(SIGMA, x64["G"], x64["b"], x64["rnorm"],
                                                   x64["d_obs"], want)
-                errs = [rel_err(o, r) for o, r in zip(outs, ref)]
-                abs_err = max(float((o.double() - r).abs().max()) for o, r in zip(outs, ref))
-                check(all(bool(torch.isfinite(o).all()) for o in outs),
+                check_above_untouched(tag, want, outs)
+                got, exp = defined(want, outs), defined(want, ref)
+                errs = [rel_err(o, r) for o, r in zip(got, exp)]
+                abs_err = max(float((o.double() - r).abs().max()) for o, r in zip(got, exp))
+                check(all(bool(torch.isfinite(o).all()) for o in got),
                       f"{tag}: an output element was left unwritten or is non-finite")
                 check(max(errs) <= tol, f"{tag}: relative errors {errs} above {tol}")
                 # all-masked samples are neutral
@@ -757,6 +793,8 @@ def phase_kernels():
             check_per_sample_sigma(k, dtype, x)
             if dtype == torch.float32:
                 timed = time_estep(k, x, kernels.WANTS)
+                if k == RAGGED_K:
+                    ragged = timed["fullt"]
                 if k == WIDE_K:
                     wide.update(timed)
                 if k in PANEL_KS:
@@ -794,6 +832,11 @@ def phase_kernels():
               f"({'faster' if chol['ms'] < chol['library_ms'] else 'NOT faster'}); fullt "
               f"{fullt['ms']:.4f} ms vs its plain version {fullt['plain_ms']:.4f} ms "
               f"({'faster' if fullt['ms'] < fullt['plain_ms'] else 'NOT faster'}) (CUDA events)")
+    print(f"[kernels] fullt float32 B={BATCH}: k={RAGGED_K} {ragged['ms']:.4f} ms beside "
+          f"k={TIMED_K} {summary['fullt']['ms']:.4f} ms (CUDA events; device time "
+          f"{ragged['device_ms']} / {summary['fullt']['device_ms']} ms): rows of {RAGGED_K} "
+          "elements are staged by element copies where they start unaligned, rows of "
+          f"{TIMED_K} by 16-byte copies")
     for want in kernels.WANTS:
         summary[want]["max_abs_err"] = errors[want, TIMED_K]
         wide[want]["max_abs_err"] = errors[want, WIDE_K]
@@ -1660,6 +1703,8 @@ def check_estep_at(tag: str, want: str, inp: dict, sigma, k: int) -> float:
     torch.cuda.synchronize()
     ref = kernels.spd_estep_reference(sigma.double(), *(inp[n_].double() for n_ in
                                                         ("G", "b", "rnorm", "d_obs")), want)
+    check_above_untouched(f"{tag} {want} B={n}", want, outs)
+    outs, ref = defined(want, outs), defined(want, ref)
     if want == "states":      # lambda = 0: the row solve reads the solution alone
         outs, ref = outs[:1], ref[:1]
     check(all(bool(torch.isfinite(o).all()) for o in outs),
@@ -1711,7 +1756,7 @@ def check_mix_kernels(mix, dataset, sub) -> dict:
         for m in range(M_MIX):
             scalar = kernels.spd_estep(sigmas[m:m + 1], x["G"], x["b"], x["rnorm"], x["d_obs"],
                                        want=want)
-            for g, s_ in zip(got, scalar):
+            for g, s_ in zip(defined(want, got), defined(want, scalar)):
                 check(torch.equal(g[which == m], s_[which == m]),
                       f"mix {want}: component {m}'s samples differ from its scalar-sigma launch")
     print(f"[mix] fullt, llk, infer at B={B}: the {M_MIX} components' sigmas stacked per sample "

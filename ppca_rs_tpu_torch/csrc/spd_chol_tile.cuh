@@ -13,7 +13,7 @@
 // chain of k dependent pivot steps, so the latency of that chain, not
 // device memory, is what the design works on.
 //
-// The design, the lane grid of spd_estep_tile.cuh (tile_common.cuh):
+// The design, on the lane grid of tile_common.cuh:
 // * The tile A starts as M's lower triangle, padded to KP with an identity
 //   block, and stays in registers.  Step j, one formula over the whole
 //   tile so that every register index is a compile-time constant:

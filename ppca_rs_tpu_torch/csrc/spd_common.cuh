@@ -11,13 +11,10 @@ namespace ppca {
 // The devices a process may drive, for the once-per-device lookups.
 constexpr int kMaxDevices = 64;
 
-// spd_estep and spd_chol serve k up to these limits with the register-tile
-// designs (spd_estep_tile.cuh, spd_chol_tile.cuh: tiles of 8 to 128) and
+// spd_estep and spd_chol serve k up to these limits with the tile designs
+// (spd_estep_tile.cuh, spd_chol_tile.cuh: padded sizes of 8 to 128) and
 // larger k with the panel design (spd_panel.cuh); the entry points
 // spd_estep_tile_max_k and spd_chol_tile_max_k report them to the wrapper.
-// The float64 E-step takes the panel design above k=64: its KP=128 tile
-// spills (ptxas for sm_90a: 255 registers and 216 bytes of spill stores in
-// fullt, infer and full).
 template <typename T>
 constexpr int estep_tile_max_k() { return sizeof(T) == 4 ? 128 : 64; }
 template <typename T>

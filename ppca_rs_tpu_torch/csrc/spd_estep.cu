@@ -12,12 +12,12 @@
 //   fullt  : s, SM = s s^T + sigma^2 M^{-1}, llk, sq
 //   full   : the same as fullt
 //
-// SM and Sigma are written as the full symmetric matrix (a superset of the
-// TPU "fullt" contract, whose upper wedge was garbage).  On the TPU, full
-// and fullt differ only in that fullt skips the upper wedge of SM; written
-// whole, the two are one body, kept under two codes so that each caller's
-// launches are counted apart (full: the pattern tables, with b = 0, rnorm = 0,
-// so SM = Sigma and llk is the pattern's mask term).
+// fullt writes SM on and below the diagonal only, as the TPU kernel's
+// "fullt" did (its upper wedge was garbage): every element above the diagonal
+// of the SM tensor is left as it was, and its consumers (the M-steps of
+// masked_linalg and mix_fused) rebuild S from the lower triangle.  full (the
+// pattern tables, with b = 0, rnorm = 0, so SM = Sigma and llk is the
+// pattern's mask term) and infer write their matrix whole.
 //
 // Layout is batch-major: G (B,k,k), b and s (B,k), SM (B,k,k), rnorm, d_obs,
 // llk, sq (B,), all contiguous; sigma is one device scalar (stride 0) or one
@@ -32,11 +32,13 @@
 // k ~ 120.
 //
 // Two designs, chosen by k in the entry points below:
-// * k <= estep_tile_max_k<T>() (128 in float, 64 in double): the
-//   register-tile design, spd_estep_tile.cuh (built in
-//   spd_estep_tile_f32.cu and spd_estep_tile_f64.cu): the k x k matrix in
-//   registers over 4 to 128 lanes, inverted in place by k symmetric sweeps
-//   with one warp-level sync per pivot.
+// * k <= estep_tile_max_k<T>() (128 in float, 64 in double): the tile
+//   design, spd_estep_tile.cuh (built in spd_estep_tile_f32.cu and
+//   spd_estep_tile_f64.cu): up to k=16 a sample in one segment of a warp's
+//   registers, swept with shuffles; above, one CTA a sample with its k x k
+//   matrix in shared memory, 16-column pivot blocks inverted in one warp's
+//   registers and the panel and trailing products on the tensor cores
+//   (3xTF32 in float, FP64 MMA in double), G staged by cp.async.
 // * any larger k: the panel design, spd_panel.cuh (built in
 //   spd_panel_f32.cu and spd_panel_f64.cu): one CTA a sample, the working
 //   matrix in device memory, NB columns a step (a warp factors the pivot
@@ -57,7 +59,9 @@
 #include "spd_common.cuh"
 
 extern "C" {
-// spd_estep_tile_f32.cu, spd_estep_tile_f64.cu: the register-tile design.
+// spd_estep_tile_f32.cu, spd_estep_tile_f64.cu: the tile design.
+int ppca_spd_estep_tile_occupancy_f32(int k, int* ctas_per_sm, int* warps, int* samples);
+int ppca_spd_estep_tile_occupancy_f64(int k, int* ctas_per_sm, int* warps, int* samples);
 int ppca_spd_estep_tile_f32(int want, const void* sigma, long long sigma_stride, const void* G,
                             const void* b, const void* rnorm, const void* d_obs, void* s,
                             void* m, void* llk, void* sq, long long B, int k, void* stream);
@@ -126,10 +130,22 @@ int spd_estep_f64(int want, int device, const void* sigma, long long sigma_strid
                           work, B, k, stream);
 }
 
-// Largest k that the register-tile design serves for elements of
+// Largest k that the tile design serves for elements of
 // `itemsize` bytes (4 or 8); larger k take the panel design.
 int spd_estep_tile_max_k(int itemsize) {
   return itemsize == 4 ? estep_tile_max_k<float>() : itemsize == 8 ? estep_tile_max_k<double>() : 0;
+}
+
+// The tile design's residency at state size k (1 <= k <= the tile limit) for
+// elements of `itemsize` bytes on `device`: CTAs a multiprocessor holds,
+// warps a CTA and samples a CTA works on at once.
+int spd_estep_tile_occupancy(int itemsize, int device, int k, int* ctas_per_sm, int* warps,
+                             int* samples) {
+  const cudaError_t err = ensure_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (itemsize == 4) return ppca_spd_estep_tile_occupancy_f32(k, ctas_per_sm, warps, samples);
+  if (itemsize == 8) return ppca_spd_estep_tile_occupancy_f64(k, ctas_per_sm, warps, samples);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* spd_estep_error_string(int err) {

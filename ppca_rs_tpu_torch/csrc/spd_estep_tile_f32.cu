@@ -1,4 +1,4 @@
-// The register-tile E-step (spd_estep_tile.cuh) in float, in a source of its
+// The tile design of the E-step (spd_estep_tile.cuh) in float, in a source of its
 // own so that nvcc builds it beside the other sources.
 #include "spd_estep_tile.cuh"
 
@@ -9,4 +9,10 @@ extern "C" int ppca_spd_estep_tile_f32(int want, const void* sigma, long long si
   return static_cast<int>(ppca::tile::spd_estep_tile<float>(
       want, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k,
       static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int ppca_spd_estep_tile_occupancy_f32(int k, int* ctas_per_sm, int* warps,
+                                                  int* samples) {
+  return static_cast<int>(
+      ppca::tile::estep_tile_occupancy<float>(k, *ctas_per_sm, *warps, *samples));
 }

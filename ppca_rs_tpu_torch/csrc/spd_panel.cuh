@@ -77,11 +77,12 @@
 // * Per step: two block barriers in (b), one at the end, and one more after
 //   the pivot block without the look-ahead; in chunks two more a chunk.
 // * Outputs: states back-substitutes L^T s = y by blocks, one product with
-//   L11^{-1} a block; fullt/full/infer write SM = s s^T + sigma^2 M^{-1}
-//   (or Sigma) whole, the 32 x 32 tiles of the lower triangle and their
-//   transposes through shared memory (as many of a tile row at once as the
-//   panel's buffer holds) so that both stores are coalesced; chol writes
-//   zeros above the diagonal.
+//   L11^{-1} a block; fullt writes SM = s s^T + sigma^2 M^{-1} on and below
+//   the diagonal only (in place: the working matrix is SM's lower
+//   triangle), full and infer write SM or Sigma whole, the 32 x 32 tiles of
+//   the lower triangle and their transposes through shared memory (as many
+//   of a tile row at once as the panel's buffer holds) so that both stores
+//   are coalesced; chol writes zeros above the diagonal.
 // * A pivot <= 0 or NaN (M not positive definite) sets a flag, and every
 //   output element of that sample is written NaN (chol: on and below the
 //   diagonal).  Nothing reduces across samples.
@@ -684,8 +685,8 @@ spd_panel_kernel(const T* __restrict__ sigma, long long sigma_stride, const T* _
     if (kInverse) {
       // SM = s s^T - sigma^2 A (or Sigma = -sigma^2 A): the OT x OT tiles
       // (R, C) of the lower triangle, as many of a tile row at once as buf
-      // holds, each written and its transpose (C, R) through buf, so that
-      // both stores are coalesced
+      // holds, each written and (full, infer) its transpose (C, R) through
+      // buf, so that both stores are coalesced
       constexpr int TE = OT * (OT + 1);
       const int cap = max(1, static_cast<int>(plan.bytes() / sizeof(T)) / TE);
       const T* sv = s_out + n * k;
@@ -709,10 +710,11 @@ spd_panel_kernel(const T* __restrict__ sigma, long long sigma_stride, const T* _
               const int rl = e / OT % OT, cl = e % OT, i = R * OT + rl, c = (C0 + t) * OT + cl;
               if (e < total && i < k && c <= i) {
                 W[static_cast<size_t>(i) * k + c] = v[u] + poison;
-                buf[t * TE + cl * (OT + 1) + rl] = v[u] + poison;
+                if (WANT != kFullT) buf[t * TE + cl * (OT + 1) + rl] = v[u] + poison;
               }
             }
           }
+          if (WANT == kFullT) continue;  // fullt's SM: on and below the diagonal only
           __syncthreads();
           for (int e = tid; e < total; e += kThreads) {
             // row (C0 + t) OT + rl, column R OT + cl

@@ -1,6 +1,6 @@
-// The lane grid shared by the register-tile kernels (spd_estep_tile.cuh,
-// spd_chol_tile.cuh): the shape of one sample's lanes, 16-byte loads and
-// stores of four neighbouring elements, and the sync of one sample's lanes.
+// The lane grid of the register-tile Cholesky (spd_chol_tile.cuh): the shape
+// of one sample's lanes, 16-byte loads and stores of four neighbouring
+// elements, and the sync of one sample's lanes.
 //
 // A sample's KP x KP tile belongs to NL lanes laid out as a GR x GC lane
 // grid; lane (lr, lc) holds the 4P x 4Q elements at rows p*4GR + 4lr +
@@ -20,14 +20,13 @@ namespace tile {
 // GR x GC lanes, each with P row quads and Q column quads; THREADS per
 // block, GROUPS samples a block.  A lane holds 16 P Q elements of the tile.
 //  * float KP=64: 32 lanes x 128 elements (ptxas gives those kernels up
-//    to 254 registers and no spills; capped at 168 they spill ~3 KB a
-//    thread and `fullt` ran 2.75x slower on an H100).
+//    to 254 registers and no spills; capped at 168 the E-step's spilled
+//    ~3 KB a thread and ran 2.75x slower on an H100).
 //  * float KP=128: 128 lanes x 128 elements, the load of float KP=64 (no
-//    spills).  On an H100 `fullt` at k=128 took 1.75 ms on this grid and
-//    2.67 ms on 256 lanes x 64 elements.
+//    spills).  On an H100 the E-step's `fullt` at k=128 took 1.75 ms on
+//    this grid and 2.67 ms on 256 lanes x 64 elements.
 //  * double: 64 elements a lane from KP=64 up (64 lanes at KP=64, 256 at
-//    KP=128, where the E-step spills and is not used), 32 at KP=32 (with
-//    64 there, ptxas spilled).
+//    KP=128), 32 at KP=32 (with 64 there, ptxas spilled).
 // A sample of up to 32 lanes is part of one warp; a wider one is whole
 // warps, one sample a block from 128 lanes up.
 template <typename T, int KP>

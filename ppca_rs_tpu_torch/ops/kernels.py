@@ -12,8 +12,12 @@ d_obs = ``|m|``), :func:`spd_estep` returns by ``want``:
   code, so that the pattern tables' launches are counted apart
 
 where ``llk`` is the per-sample log-likelihood and ``sq = tr(G Sigma) =
-sigma^2 (k - sigma^2 tr M^{-1})``, the noise-update term.  SM and Sigma are
-full symmetric matrices.
+sigma^2 (k - sigma^2 tr M^{-1})``, the noise-update term.  ``"full"`` and
+``"infer"`` fill their matrix whole; the kernel writes ``"fullt"``'s SM on
+and below the diagonal only (the TPU kernel's contract) and leaves every
+element above it as it was, so a caller reads SM's lower triangle only
+(the M-steps rebuild S with ``masked_linalg.symmetric_from_lower``).  The
+plain version fills SM whole, a superset.
 
 Layout is batch-major: ``G (B, k, k)``, ``b (B, k)``, ``rnorm, d_obs (B,)``;
 ``sigma`` is one noise level for the batch (a Python float or a one-element
@@ -23,10 +27,12 @@ their components on the batch axis).
 On a CUDA tensor the wrapper launches the kernel behind
 ``csrc/spd_estep.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:_make_kernel``
 / ``spd_estep``) or raises: up to the tile limit the library reports
-(:func:`design`) the register-tile design of ``csrc/spd_estep_tile.cuh``,
-above it the panel design of ``csrc/spd_panel.cuh`` (panel steps whose
-products run on the tensor cores, 3xTF32 in float32 and FP64 MMA in
-float64), which takes any k device memory holds (``llk`` and ``states``
+(:func:`design`) the tile design of ``csrc/spd_estep_tile.cuh`` (to k=16 a
+sample in a segment of a warp's registers; above, a CTA a sample with its
+matrix in shared memory and the products on the tensor cores), above it
+the panel design of ``csrc/spd_panel.cuh`` (panel steps whose products run
+on the tensor cores, 3xTF32 in float32 and FP64 MMA in float64), which
+takes any k device memory holds (``llk`` and ``states``
 give it a scratch, :func:`scratch_shape`).  On a CPU tensor it runs
 :func:`spd_estep_reference`.  There is no other route.  An all-masked
 sample (``G = 0``, ``b = 0``, ``rnorm = d_obs = 0``) is neutral: ``s = 0``,
@@ -72,11 +78,13 @@ def reset_launch_counts() -> None:
 def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) -> str:
     """Which design serves state size k on the card for ``kernel``
     ("estep": every spd_estep variant; "chol": spd_chol) and ``dtype``:
-    "tile" (registers, a sample over one or more warps) or "panel" (one
-    CTA a sample, the working matrix in device memory, each panel step's
-    columns staged once in shared memory and its products on the tensor
-    cores, any k), by the tile limit that the kernel library reports for
-    that kernel and element size."""
+    "tile" (the E-step: a sample in one warp's registers up to k=16, one
+    CTA a sample with its matrix in shared memory above; the Cholesky: a
+    register tile over one or more warps) or "panel" (one CTA a sample,
+    the working matrix in device memory, each panel step's columns staged
+    once in shared memory and its products on the tensor cores, any k), by
+    the tile limit that the kernel library reports for that kernel and
+    element size."""
     from . import _build
 
     if kernel not in ("estep", "chol"):
@@ -84,6 +92,28 @@ def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) ->
     lib = _build.load()
     limit = lib.spd_estep_tile_max_k if kernel == "estep" else lib.spd_chol_tile_max_k
     return "tile" if k <= limit(dtype.itemsize) else "panel"
+
+
+def tile_occupancy(k: int, dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """The E-step tile's residency at state size k on the current card:
+    ``(CTAs per multiprocessor, warps per CTA, samples per CTA)``, as the
+    CUDA occupancy calculator gives it for the kernel serving k (the
+    blocked body's persistent grid runs that many CTAs a multiprocessor).
+    Needs the card; k within the tile limit (:func:`design`)."""
+    import ctypes
+
+    from . import _build
+
+    if design(k, "estep", dtype) != "tile" or k < 1:
+        raise ValueError(f"k={k} is not served by the E-step tile in {dtype}")
+    index = torch.cuda.current_device()
+    out = [ctypes.c_int(0) for _ in range(3)]
+    lib = _build.load()
+    err = lib.spd_estep_tile_occupancy(dtype.itemsize, index, k, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"spd_estep_tile_occupancy failed (k={k}): "
+                           f"{lib.spd_estep_error_string(err).decode()}")
+    return tuple(v.value for v in out)
 
 
 #: CTAs a multiprocessor in the panel design's persistent grid, for every
@@ -219,7 +249,9 @@ def spd_estep(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Ten
 
     k = 0 takes :func:`spd_estep_state_size_zero`; otherwise CPU tensors
     take :func:`spd_estep_reference` and CUDA tensors launch the kernel,
-    which raises on anything it does not take."""
+    which raises on anything it does not take.  Of ``"fullt"``'s SM only
+    the lower triangle (diagonal included) is defined: on the card the
+    elements above the diagonal are never written."""
     _check_want(want)
     _check_shapes(G, b, rnorm, d_obs)
     if G.shape[-1] == 0:
@@ -242,7 +274,7 @@ def output_shapes(want: str, B: int, k: int):
 
 def empty_outputs(want: str, B: int, k: int, like: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Uninitialised output tensors for ``want`` (the kernel writes every
-    element)."""
+    element but those above the diagonal of ``"fullt"``'s SM)."""
     return tuple(torch.empty(sh, dtype=like.dtype, device=like.device)
                  for sh in output_shapes(want, B, k))
 

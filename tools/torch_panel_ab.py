@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
-"""Check and time the panel design of ppca_rs_tpu_torch's SPD kernels on the
-card, against its plain PyTorch version and against another version of the
-kernel sources.
+"""Check and time the E-step tile and the panel design of ppca_rs_tpu_torch's
+SPD kernels on the card, against their plain PyTorch versions and against
+another version of the kernel sources.
 
     python3 tools/torch_panel_ab.py check
     python3 tools/torch_panel_ab.py time --other DIR[:LABEL] [--other ...] [--cases ...]
 
 ``check`` launches every spd_estep variant and spd_chol through the
-package's wrappers at state sizes served by the panel design (float32
-k in {131, 160, 257, 512, 704}, float64 k in {65, 99, 160, 257, 704}; 704
-takes the chunked staging) and holds each against its plain version in
-float64 (1e-4 relative to each output's largest magnitude in float32,
-1e-10 in float64).
+package's wrappers at state sizes served by the tile design (float32 k in
+{2, 13, 24, 50, 64, 99, 128}, float64 k in {2, 13, 24, 50, 64}: each padded
+size, ragged and not) and by the panel design (float32 k in {131, 160, 257,
+512, 704}, float64 k in {65, 99, 160, 257, 704}; 704 takes the chunked
+staging), on inputs with three all-masked samples and one negative-definite
+sample, into NaN-prefilled outputs, and holds each against its plain
+version in float64 (1e-4 relative to each output's largest magnitude in
+float32, 1e-10 in float64): the negative-definite sample must come back
+non-finite in every written element and the others finite; of fullt's SM
+only the lower triangle is compared, and the NaN above the diagonal must
+still be there (the kernels write nothing above it).
 
 ``time`` builds the ``.cu`` sources of each DIR (another checkout's
 ``ppca_rs_tpu_torch/csrc``, or a changed copy of it, with the same C entry
 points) into a library of its own and times the same launches through
 every library into the same preallocated outputs, in turns (the others,
 this checkout twice, the others in reverse order), CUDA events around 10
-back-to-back launches after one: by default every variant at float32 k in
-{160, 256, 512} (B 8192, 8192, 512), float64 fullt at k in {96, 128, 160}
-(B 8192), and chol beside torch.linalg.cholesky_ex (which the port never
-calls) at k in {131, 160, 256, 257, 512}.  Prints one ``[ab]`` line per
-case and a JSON list.
+back-to-back launches after one (30 for the tile's shapes): by default the
+tile's shapes -- every variant at float32 k in {50, 64, 128} (B=8192) and
+k=32 at B=65,536 with a sigma per sample (the mixtures' blocks), float64
+k=64 (B=8192), the launch-bound rows the main path also gives (full at
+k=64 B=32, and k=64 B=256 and k=32 B=8 with a sigma per sample (the
+mixture tables), states at k=64 B=1024
+and k=32 B=4096), and fullt and llk at k in {8, 16} (the one-block
+sizes) -- then every variant at float32 k in {160, 256, 512} (B 8192,
+8192, 512), float64 fullt at k in {96, 128, 160} (B 8192), and chol beside
+torch.linalg.cholesky_ex (which the port never calls) at k in {131, 160,
+256, 257, 512}.  Prints one ``[ab]`` line per case and a JSON list.
 
 It needs a CUDA card and nvcc; the library of this checkout is built by the
 package itself.
@@ -48,12 +60,25 @@ sys.path.insert(0, str(ROOT))
 from ppca_rs_tpu_torch.ops import _build, kernels  # noqa: E402
 
 SIGMA = 0.7
-CHECK_F32 = (131, 160, 257, 512, 704)
-CHECK_F64 = (65, 99, 160, 257, 704)
+#: Noise levels cycled over the batch where a case takes a sigma per sample.
+SIGMA_LEVELS = (0.4, 0.7, 1.0, 1.3)
+CHECK_F32 = (2, 13, 24, 50, 64, 99, 128, 131, 160, 257, 512, 704)
+CHECK_F64 = (2, 13, 24, 50, 64, 65, 99, 160, 257, 704)
+#: The sample made negative definite in the check.
+NOT_PD = 5
 TIME_F32 = ((160, 8192), (256, 8192), (512, 512))
 TIME_F64 = ((96, 8192), (128, 8192), (160, 8192))
 TIME_CHOL = ((131, 8192), (160, 8192), (256, 2048), (257, 1024), (512, 512))
+#: The tile's shapes: (want, k, B, dtype name, sigma per sample).
+TIME_TILE = ([(w, k, 8192, "f32", False) for k in (50, 64, 128) for w in kernels.WANTS]
+             + [(w, 32, 65536, "f32", True) for w in kernels.WANTS]
+             + [(w, 64, 8192, "f64", False) for w in kernels.WANTS]
+             + [("full", 64, 32, "f32", False), ("full", 64, 256, "f32", True),
+                ("full", 32, 8, "f32", True),
+                ("states", 64, 1024, "f32", False), ("states", 32, 4096, "f32", False)]
+             + [(w, k, 8192, "f32", False) for k in (8, 16) for w in ("fullt", "llk")])
 REPS = 10
+TILE_REPS = 30
 TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 
 
@@ -65,7 +90,7 @@ def inputs(B: int, k: int, seed: int):
     f64 = dict(dtype=torch.float64, device="cuda")
     C = torch.randn(D, k, generator=gen, **f64)
     mask = (torch.rand(B, D, generator=gen, device="cuda") < 0.5).double()
-    mask[[0, 17, B - 1]] = 0.0
+    mask[sorted({0, min(17, B - 1), B - 1})] = 0.0
     R = torch.randn(B, D, generator=gen, **f64) * mask
     G = torch.cat([(mask[i:i + 256, :, None] * C).mT @ C for i in range(0, B, 256)])
     return dict(G=G, b=R @ C, rnorm=(R * R).sum(-1), d_obs=mask.sum(-1))
@@ -82,6 +107,23 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
 
 
+def written(want: str, outs, refs):
+    """The output elements the kernel writes, beside the plain version's,
+    and whether the NaN prefill above fullt's diagonal survived: fullt's SM
+    is compared on and below the diagonal only."""
+    got, want_ = [], []
+    untouched = True
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        if want == "fullt" and i == 1:
+            k = o.shape[-1]
+            low = torch.ones(k, k, dtype=torch.bool, device=o.device).tril()
+            untouched = bool(torch.isnan(o[:, ~low]).all())
+            o, r = o[:, low], r[:, low]
+        got.append(o)
+        want_.append(r)
+    return got, want_, untouched
+
+
 def check() -> bool:
     ok = True
     for dtype, ks in ((torch.float32, CHECK_F32), (torch.float64, CHECK_F64)):
@@ -89,8 +131,16 @@ def check() -> bool:
         for k in ks:
             B = 64 if k > 512 else 256
             x64 = inputs(B, k, k)
+            x64["G"][NOT_PD] = -(2.0 + SIGMA ** 2) * torch.eye(k, dtype=torch.float64, device="cuda")
             x = {n: t.to(dtype).contiguous() for n, t in x64.items()}
             xr = {n: t.double() for n, t in x.items()}
+            good_rows = torch.ones(B, dtype=torch.bool, device="cuda")
+            good_rows[NOT_PD] = False
+            if kernels.design(k, "estep", dtype) == "tile":
+                ctas, warps, samples = kernels.tile_occupancy(k, dtype)
+                print(f"[check] tile k={k} {str(dtype)[6:]}: {ctas} CTAs of {warps} warps a "
+                      f"multiprocessor ({ctas * warps} warps, {ctas * samples} samples in flight)",
+                      flush=True)
             for want in kernels.WANTS:
                 outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
                              for sh in kernels.output_shapes(want, B, k))
@@ -98,13 +148,17 @@ def check() -> bool:
                 torch.cuda.synchronize()
                 ref = kernels.spd_estep_reference(SIGMA, xr["G"], xr["b"], xr["rnorm"],
                                                   xr["d_obs"], want)
-                errs = [rel_err(o, r) for o, r in zip(outs, ref)]
-                finite = all(bool(torch.isfinite(o).all()) for o in outs)
-                good = finite and max(errs) <= tol
+                got, ref, untouched = written(want, outs, ref)
+                errs = [rel_err(o[good_rows], r[good_rows]) for o, r in zip(got, ref)]
+                finite = all(bool(torch.isfinite(o[good_rows]).all()) for o in got)
+                poisoned = all(not bool(torch.isfinite(o[NOT_PD]).any()) for o in got)
+                good = finite and poisoned and untouched and max(errs) <= tol
                 ok &= good
                 print(f"[check] {want} k={k} B={B} {str(dtype)[6:]} "
                       f"({kernels.design(k, 'estep', dtype)}): max rel err {max(errs):.3e} "
-                      f"finite {finite} {'ok' if good else 'FAILED'}", flush=True)
+                      f"finite {finite}, not-PD sample non-finite {poisoned}"
+                      f"{f', above the diagonal untouched {untouched}' if want == 'fullt' else ''} "
+                      f"{'ok' if good else 'FAILED'}", flush=True)
             M = spd_inputs(B, k, k + 1).to(dtype)
             L = torch.full_like(M, math.nan)
             kernels.launch_chol(M, L)
@@ -123,14 +177,16 @@ def check() -> bool:
 
 def build_other(csrc: Path, out: Path, label: str) -> ctypes.CDLL:
     """Compile another version's kernel sources into ``out`` and load it
-    with this package's entry-point types.  Its panel kernels are compiled
-    under another namespace than this checkout's, so that both libraries'
-    kernels keep their own attributes in one process."""
+    with this package's entry-point types.  Its panel and tile kernels are
+    compiled under other namespaces than this checkout's, so that both
+    libraries' kernels keep their own attributes (and cached launch
+    shapes) in one process."""
     cu = sorted(csrc.glob("*.cu"))
     objs = [out / f"{p.stem}.o" for p in cu]
     nvcc = _build.nvcc_path()
-    _build._run_all([[nvcc, *_build.COMPILE_FLAGS, f"-Dpanel=panel_{label}", f"-I{csrc}", "-c",
-                      "-o", str(o), str(p)] for p, o in zip(cu, objs)])
+    _build._run_all([[nvcc, *_build.COMPILE_FLAGS, f"-Dpanel=panel_{label}",
+                      f"-Dtile=tile_{label}", f"-I{csrc}", "-c", "-o", str(o), str(p)]
+                     for p, o in zip(cu, objs)])
     lib_path = out / f"{label}.so"
     _build._run_all([[nvcc, *_build.LINK_FLAGS, "-o", str(lib_path), *map(str, objs)]])
     lib = ctypes.CDLL(str(lib_path))
@@ -142,7 +198,8 @@ def build_other(csrc: Path, out: Path, label: str) -> ctypes.CDLL:
 
 
 def estep_call(lib, want, sig, x, outs, scratch):
-    """A launch of spd_estep through ``lib`` into ``outs``."""
+    """A launch of spd_estep through ``lib`` into ``outs``; ``sig`` holds one
+    sigma or one per sample."""
     G = x["G"]
     B, k, _ = G.shape
     s = m = sq = None
@@ -159,7 +216,8 @@ def estep_call(lib, want, sig, x, outs, scratch):
         return None if t is None else t.data_ptr()
 
     def run():
-        err = fn(kernels._WANT_CODE[want], torch.cuda.current_device(), ptr(sig), 0, ptr(G),
+        err = fn(kernels._WANT_CODE[want], torch.cuda.current_device(), ptr(sig),
+                 0 if sig.numel() == 1 else 1, ptr(G),
                  ptr(x["b"]), ptr(x["rnorm"]), ptr(x["d_obs"]), ptr(s), ptr(m), ptr(llk),
                  ptr(sq), ptr(scratch), B, k, stream)
         if err != 0:
@@ -191,18 +249,24 @@ def events_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
 def default_cases():
-    cases = [(want, k, B, torch.float32) for k, B in TIME_F32 for want in kernels.WANTS]
-    cases += [("fullt", k, B, torch.float64) for k, B in TIME_F64]
-    return cases + [("chol", k, B, torch.float32) for k, B in TIME_CHOL]
+    """(want, k, B, dtype, sigma per sample): the tile's shapes, then the
+    panel design's."""
+    cases = [(want, k, B, DTYPES[dt], ps) for want, k, B, dt, ps in TIME_TILE]
+    cases += [(want, k, B, torch.float32, False) for k, B in TIME_F32 for want in kernels.WANTS]
+    cases += [("fullt", k, B, torch.float64, False) for k, B in TIME_F64]
+    return cases + [("chol", k, B, torch.float32, False) for k, B in TIME_CHOL]
 
 
 def parse_cases(text: str):
-    """want:k:B:f32|f64,... -> cases."""
+    """want:k:B:f32|f64[:ps],... -> cases (``ps``: a sigma per sample)."""
     out = []
     for item in text.split(","):
-        want, k, B, dt = item.split(":")
-        out.append((want, int(k), int(B), torch.float32 if dt == "f32" else torch.float64))
+        want, k, B, dt, *rest = item.split(":")
+        out.append((want, int(k), int(B), DTYPES[dt], rest == ["ps"]))
     return out
 
 
@@ -220,31 +284,38 @@ def time_ab(others, cases) -> list:
         order = [label for _, label in others]
         order = order + ["this", "this"] + order[::-1]
         rows = []
-        for want, k, B, dtype in cases:
+        for want, k, B, dtype, per_sample in cases:
+            reps = TILE_REPS if k <= 128 else REPS
             if want == "chol":
                 M = spd_inputs(B, k, k + 1).to(dtype).contiguous()
                 L = torch.empty_like(M)
                 runs = {name: chol_call(lib, M, L) for name, lib in libs.items()}
             else:
                 x = {n: t.to(dtype).contiguous() for n, t in inputs(B, k, k).items()}
-                sig = torch.full((1,), SIGMA, dtype=dtype, device="cuda")
+                if per_sample:
+                    levels = torch.tensor(SIGMA_LEVELS, dtype=dtype, device="cuda")
+                    sig = levels[torch.arange(B, device="cuda") % len(SIGMA_LEVELS)].contiguous()
+                else:
+                    sig = torch.full((1,), SIGMA, dtype=dtype, device="cuda")
                 outs = kernels.empty_outputs(want, B, k, x["G"])
                 scratch = kernels.empty_scratch(want, B, k, x["G"])
                 runs = {name: estep_call(lib, want, sig, x, outs, scratch)
                         for name, lib in libs.items()}
             ms = {name: [] for name in libs}
             for name in order:
-                ms[name].append(events_ms(runs[name], REPS))
-            row = dict(kernel=want, dtype=str(dtype)[6:], k=k, B=B, ms=ms)
+                ms[name].append(events_ms(runs[name], reps))
+            row = dict(kernel=want, dtype=str(dtype)[6:], k=k, B=B, sigma_per_sample=per_sample,
+                       ms=ms)
             line = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in v)} ms"
                              for name, v in ms.items())
             if want == "chol":
                 fn = lambda: torch.linalg.cholesky_ex(M)  # noqa: E731
-                row["library_ms"] = [events_ms(fn, REPS), events_ms(fn, REPS)]
+                row["library_ms"] = [events_ms(fn, reps), events_ms(fn, reps)]
                 line += (", torch.linalg.cholesky_ex "
                          + "/".join(f"{t:.4f}" for t in row["library_ms"]) + " ms")
             rows.append(row)
-            print(f"[ab] {want} k={k} B={B} {str(dtype)[6:]}: {line}", flush=True)
+            print(f"[ab] {want} k={k} B={B} {str(dtype)[6:]}"
+                  f"{', sigma per sample' if per_sample else ''}: {line}", flush=True)
             del runs
             torch.cuda.empty_cache()
     return rows
@@ -255,7 +326,7 @@ def main() -> int:
     ap.add_argument("mode", choices=("check", "time"))
     ap.add_argument("--other", action="append", default=[], metavar="DIR[:LABEL]",
                     help="another version's csrc directory (time; repeatable)")
-    ap.add_argument("--cases", help="want:k:B:f32|f64,... (time; default: the list above)")
+    ap.add_argument("--cases", help="want:k:B:f32|f64[:ps],... (time; default: the list above)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Tensor-core instructions and spills of the panel kernels, from their SASS.
+"""Tensor-core instructions and spills of the panel and E-step tile kernels,
+from their SASS.
 
     cuobjdump -sass spd_panel_f32.o > f32.sass
     python3 tools/torch_panel_sass.py f32.sass [f64.sass ...]
 
-For every ``spd_panel_kernel<T, WANT>`` in the listings it prints the count
+For every ``spd_panel_kernel<T, WANT>``, ``spd_estep_tile_kernel<T, KP,
+WANT>`` (the tile's blocked body) and ``spd_estep_small_kernel<T, KP, WANT>``
+(its one-block body) in the listings it prints the count
 of HMMA instructions with TF32 operands and of DMMA instructions, the local
 memory (spill) loads and stores in the whole kernel, and for each run of
 tensor-core instructions (consecutive ones less than GAP instructions apart:
@@ -21,6 +24,7 @@ import sys
 GAP = 120
 _FUNCTION = re.compile(r"Function : (\S+)")
 _PANEL = re.compile(r"spd_panel_kernelI([fd])Li(\d)E")
+_TILE = re.compile(r"spd_estep_(tile|small)_kernelI([fd])Li(\d+)ELi(\d)E")
 
 
 def kernels(path: str):
@@ -59,13 +63,18 @@ def summary(body):
 def main(paths) -> int:
     for path in paths:
         for name, body in kernels(path):
-            m = _PANEL.search(name)
-            if not m:
+            m, t = _PANEL.search(name), _TILE.search(name)
+            if m:
+                dtype = "float" if m.group(1) == "f" else "double"
+                label = f"spd_panel_kernel<{dtype}, {m.group(2)}>"
+            elif t:
+                dtype = "float" if t.group(2) == "f" else "double"
+                label = f"spd_estep_{t.group(1)}_kernel<{dtype}, {t.group(3)}, {t.group(4)}>"
+            else:
                 continue
             tf32, dmma, spills, inside = summary(body)
-            dtype = "float" if m.group(1) == "f" else "double"
             runs = ", ".join(f"{n} mma/{s} spill" for n, s in inside)
-            print(f"spd_panel_kernel<{dtype}, {m.group(2)}>: HMMA.TF32 {tf32}, DMMA {dmma}, "
+            print(f"{label}: HMMA.TF32 {tf32}, DMMA {dmma}, "
                   f"local loads+stores {spills}; runs: {runs}")
     return 0
 
