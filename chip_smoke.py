@@ -222,12 +222,19 @@ KERNEL_REPS = 30
 PANEL_REPS = 10
 PLAIN_REPS = 5
 #: Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
-#: memory bytes/s, float32 FLOP/s outside the tensor cores, and float64
-#: FLOP/s on the tensor cores (FP64 MMA, full IEEE float64; twice the 34
-#: TFLOP/s outside them), the fastest the card does either type.
+#: memory bytes/s; float32 FLOP/s outside the tensor cores, and float32 work
+#: on them as three TF32 products (3xTF32, float32 accuracy: a third of the
+#: 495 TFLOP/s TF32 peak), the rate of the kernels whose products run there;
+#: float64 FLOP/s on the tensor cores (FP64 MMA, full IEEE float64; twice the
+#: 34 TFLOP/s outside them), the fastest the card does float64.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F32_3XTF32_FLOPS = 495e12 / 3
 PEAK_F64_FLOPS = 67e12
+#: The largest k the E-step tile serves with its one-block body, which runs
+#: outside the tensor cores; its blocked body above runs its products on them
+#: (csrc/spd_estep_tile.cuh).
+TILE_SMALL_MAX_K = 16
 #: float64 kernel vs plain float64: only rounding-order differences.
 TOL_F64 = 1e-10
 #: float32 kernel vs plain float64 on the same inputs, relative to each
@@ -521,16 +528,33 @@ def profiled_ms(launchers: dict, reps: int, dtype=torch.float32) -> dict:
     return {name: found.get(name) for name in launchers}
 
 
-def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
+def bound(nbytes: float, flops: float, peak: float):
     """(ms, "bytes" or "operations"): the least time the card could take
-    for this work at its published peaks."""
+    for this work at its published peaks, ``peak`` FLOP/s for the
+    operations."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def peak_flops(dtype) -> float:
-    return PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_F64_FLOPS
+def peak_flops(k: int, kernel: str, dtype) -> float:
+    """The peak FLOP/s for the operations of the design serving k for
+    ``kernel`` ("estep" or "chol"): float64 on FP64 MMA; float32 at 3xTF32's
+    rate where that design runs its products on the tensor cores (the panel
+    design, the E-step tile's blocked body), else outside them."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    if dtype != torch.float32:
+        return PEAK_F64_FLOPS
+    tensor = (kernels.design(k, kernel, dtype) == "panel"
+              or (kernel == "estep" and k > TILE_SMALL_MAX_K))
+    return PEAK_F32_3XTF32_FLOPS if tensor else PEAK_F32_FLOPS
+
+
+def bound_note(b_ms: float, by: str, peak: float) -> str:
+    """The bound as the [time] lines print it, with the rate of an
+    operations bound."""
+    return f"bound {b_ms * 1e3:.2f} us ({by}{f' at {peak / 1e12:g} TFLOP/s' if by == 'operations' else ''})"
 
 
 def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1):
@@ -627,14 +651,15 @@ def time_estep(k: int, x, wants, sigma=None) -> dict:
     out = {}
     for want, r in rows.items():
         (k1, k2), (p1, p2) = r["events"], r["plains"]
-        b_ms, by = bound(*estep_work(want, B, k, dtype.itemsize, sig.numel()), peak_flops(dtype))
+        peak = peak_flops(k, "estep", dtype)
+        b_ms, by = bound(*estep_work(want, B, k, dtype.itemsize, sig.numel()), peak)
         dev = device[want]
         print(f"[time] {want} k={k} B={B} {str(dtype)[6:]}"
               f"{', sigma per sample' if sig.numel() > 1 else ''}, "
               f"{design_note(k, 'estep', dtype)}: kernel "
               f"{k1:.4f}/{k2:.4f} ms (events, {reps} launches), "
               f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
-              f"plain {p1:.4f}/{p2:.4f} ms; bound {b_ms * 1e3:.2f} us ({by})")
+              f"plain {p1:.4f}/{p2:.4f} ms; {bound_note(b_ms, by, peak)}")
         out[want] = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
                          bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by, library_ms=None,
                          design=kernels.design(k, "estep", dtype), B=B, k=k)
@@ -865,13 +890,14 @@ def time_chol(M, L) -> dict:
                       cuda_ms(kern, reps), cuda_ms(plain, PLAIN_REPS))
     l1, l2 = cuda_ms(library, PLAIN_REPS), cuda_ms(library, PLAIN_REPS)
     dev = profiled_ms({"chol": kern}, reps)["chol"]
-    b_ms, by = bound(B * (k * (k + 1) // 2 + k * k) * 4, B * k ** 3 / 3)
+    peak = peak_flops(k, "chol", M.dtype)
+    b_ms, by = bound(B * (k * (k + 1) // 2 + k * k) * 4, B * k ** 3 / 3, peak)
     design = kernels.design(k, "chol", M.dtype)
     print(f"[time] chol k={k} B={B} float32, {design_note(k, 'chol', M.dtype)}: kernel "
           f"{k1:.4f}/{k2:.4f} ms (events, {reps} launches), "
           f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
           f"plain {p1:.4f}/{p2:.4f} ms; torch.linalg.cholesky_ex {l1:.4f}/{l2:.4f} ms; "
-          f"bound {b_ms * 1e3:.2f} us ({by})")
+          f"{bound_note(b_ms, by, peak)}")
     return dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                 bound_us=b_ms * 1e3, bound_by=by, library_ms=(l1 + l2) / 2, design=design,
                 B=B, k=k)

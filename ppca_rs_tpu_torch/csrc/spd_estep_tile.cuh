@@ -23,9 +23,12 @@
 //   M = sigma^2 I + G in registers, read from G's lower triangle staged in
 //   shared memory by cp.async, and the symmetric Gauss-Jordan sweep runs on
 //   it with shuffles (gj_sweep) for every variant: A ends as -M^{-1}, b,
-//   riding as one more column, as s = M^{-1} b.
+//   riding as one more column, as s = M^{-1} b.  G's rows come into shared
+//   memory (in float), and full's and infer's rows go out through it, a
+//   chunk a lane, neighbouring lanes on neighbouring chunks; fullt writes
+//   its triangle a row a lane.
 // * KP in {32, 64, 128}: one CTA of NW warps (1, 2, 8) a sample, a
-//   persistent grid of as many CTAs as fit a multiprocessor (in float 21 at
+//   persistent grid of as many CTAs as fit a multiprocessor (in float 20 at
 //   KP=32, by registers; 8 at KP=64 and 2 at KP=128, by shared memory).  The sample's working matrix is KP x KP in dynamic
 //   shared memory, lower triangle only, row stride KP + 8 (8- or 16-byte
 //   accumulator accesses fall on distinct banks).  G's lower triangle and b
@@ -257,11 +260,13 @@ spd_estep_small_kernel(const T* __restrict__ sigma, long long sigma_stride,
                        T* __restrict__ s_out, T* __restrict__ m_out,
                        T* __restrict__ llk_out, T* __restrict__ sq_out, long long B, int k) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
+  constexpr int Q = KP / V;                      // chunks of V elements a row
   constexpr int PER_BLOCK = kSmallThreads / KP;  // samples a block
   constexpr int LDS = KP + 4;                    // staged row stride
   constexpr bool kInverse = is_inverse(WANT);
   constexpr bool kSecond = WANT == kFullT || WANT == kFull;
   __shared__ __align__(16) T stage[PER_BLOCK][KP][LDS];
+  __shared__ __align__(16) T svec[PER_BLOCK][KP];  // s, for full's rows
 
   const int slot = threadIdx.x / KP;
   const int r = threadIdx.x % KP;
@@ -269,7 +274,19 @@ spd_estep_small_kernel(const T* __restrict__ sigma, long long sigma_stride,
   const bool live = n < B;
   const size_t kk = static_cast<size_t>(k) * k;
   T (*S)[LDS] = stage[slot];
-  if (live && r < k) stage_row(&S[r][0], G + n * kk + static_cast<size_t>(r) * k, r + 1, k, 0, 1);
+  // G's lower triangle in: in float a chunk a lane, neighbouring lanes on
+  // neighbouring chunks of a row (lane r takes chunk r % Q of rows V i +
+  // r / Q; a row a lane leaves each access's sectors half used); in double a
+  // row a lane (the chunks put local-memory accesses into KP=8's fullt,
+  // states and llk).
+  if constexpr (sizeof(T) == 4) {
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) stage_rows<T, KP, LDS>(&S[0][0], G + n * kk, V * i, k, r);
+    }
+  } else {
+    if (live && r < k) stage_row(&S[r][0], G + n * kk + static_cast<size_t>(r) * k, r + 1, k, 0, 1);
+  }
   cp_async_commit();
   cp_async_wait<0>();
   __syncwarp();
@@ -301,12 +318,12 @@ spd_estep_small_kernel(const T* __restrict__ sigma, long long sigma_stride,
     quad += __shfl_xor_sync(kAll, quad, off, KP);
     tr += __shfl_xor_sync(kAll, tr, off, KP);
   }
-  T sc[KP];  // s, for the rows of SM
-  if constexpr (kSecond) {
+  T sc[KP];  // s, for fullt's rows
+  if constexpr (WANT == kFullT) {
 #pragma unroll
     for (int c = 0; c < KP; ++c) sc[c] = __shfl_sync(kAll, x, c, KP);
   }
-  if (!live) return;
+  if (!live) return;  // the segment's lanes share their sample
   // A pivot <= 0 (M not positive definite) or NaN: the whole sample is NaN.
   const T poison = isfinite(logdet) ? T(0) : nan_like(logdet);
   if (r == 0) {
@@ -315,25 +332,51 @@ spd_estep_small_kernel(const T* __restrict__ sigma, long long sigma_stride,
                                    T(kLn2Pi) * dob) + poison);
     if (kInverse) __stcs(sq_out + n, s2 * (T(k) - s2 * tr) + poison);
   }
-  if (WANT == kLlk || r >= k) return;
-  __stcs(s_out + n * k + r, x + poison);
+  if (WANT == kLlk) return;
+  if (r < k) __stcs(s_out + n * k + r, x + poison);
   if (WANT == kStates) return;
 
-  // row r of SM = s s^T + sigma^2 M^{-1} (fullt: on and below the diagonal)
-  // or of Sigma = sigma^2 M^{-1}
-  T* row = m_out + n * kk + static_cast<size_t>(r) * k;
-  const int ncols = WANT == kFullT ? r + 1 : k;
-  const bool vec = (reinterpret_cast<size_t>(row) & 15) == 0;
+  // Out: SM = s s^T + sigma^2 M^{-1} (fullt: on and below the diagonal) or
+  // Sigma = sigma^2 M^{-1}.  fullt: lane r writes its row's chunks, s from
+  // the segment by shuffles.  full, infer: lane r puts row r in its staging
+  // row (full's s from shared memory), and the segment writes the rows a
+  // chunk a lane, neighbouring lanes on neighbouring chunks.  (On an H100
+  // the chunks are faster for whole rows and slower for fullt's triangle;
+  // s from shared memory faster for full and slower for fullt.)
+  if constexpr (WANT == kFullT) {
+    if (r >= k) return;
+    T* row = m_out + n * kk + static_cast<size_t>(r) * k;
+    const bool vec = (reinterpret_cast<size_t>(row) & 15) == 0;
 #pragma unroll
-  for (int c0 = 0; c0 < KP; c0 += V) {
-    if (c0 >= ncols) break;
-    T o[V];
+    for (int c0 = 0; c0 < KP; c0 += V) {
+      if (c0 > r) break;
+      T o[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const T cov = s2 * -a[c0 + e];
-      o[e] = (kSecond ? fma(x, sc[c0 + e], cov) : cov) + poison;
+      for (int e = 0; e < V; ++e) o[e] = fma(x, sc[c0 + e], s2 * -a[c0 + e]) + poison;
+      write_chunk<T, V>(row, c0, r + 1, vec, o);
     }
-    write_chunk<T, V>(row, c0, ncols, vec, o);
+  } else {
+    const unsigned seg = ((1u << KP) - 1u) << (threadIdx.x & 31 & ~(KP - 1));
+    T* sv = svec[slot];
+    if (kSecond) sv[r] = x;
+    __syncwarp(seg);  // s is there, and the segment has read its staged rows
+#pragma unroll
+    for (int c = 0; c < KP; ++c) {
+      const T cov = s2 * -a[c];
+      S[r][c] = (kSecond ? fma(x, sv[c], cov) : cov) + poison;
+    }
+    __syncwarp(seg);
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int row = V * i + r / Q, c0 = (r % Q) * V;
+      if (row < k) {
+        T o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) o[e] = S[row][c0 + e];
+        T* dst = m_out + n * kk + static_cast<size_t>(row) * k;
+        write_chunk<T, V>(dst, c0, k, (reinterpret_cast<size_t>(dst) & 15) == 0, o);
+      }
+    }
   }
 }
 

@@ -8,10 +8,10 @@ another version of the kernel sources.
 
 ``check`` launches every spd_estep variant and spd_chol through the
 package's wrappers at state sizes served by the tile design (float32 k in
-{2, 13, 24, 50, 64, 99, 128}, float64 k in {2, 13, 24, 50, 64}: each padded
-size, ragged and not) and by the panel design (float32 k in {131, 160, 257,
-512, 704}, float64 k in {65, 99, 160, 257, 704}; 704 takes the chunked
-staging), on inputs with three all-masked samples and one negative-definite
+{2, 8, 13, 16, 24, 50, 64, 99, 128}, float64 k in {2, 8, 13, 16, 24, 50,
+64}: each padded size, ragged and not) and by the panel design (float32 k
+in {131, 160, 257, 512, 704}, float64 k in {65, 99, 160, 257, 704}; 704
+takes the chunked staging), on inputs with three all-masked samples and one negative-definite
 sample, into NaN-prefilled outputs, and holds each against its plain
 version in float64 (1e-4 relative to each output's largest magnitude in
 float32, 1e-10 in float64): the negative-definite sample must come back
@@ -24,13 +24,16 @@ still be there (the kernels write nothing above it).
 points) into a library of its own and times the same launches through
 every library into the same preallocated outputs, in turns (the others,
 this checkout twice, the others in reverse order), CUDA events around 10
-back-to-back launches after one (30 for the tile's shapes): by default the
+back-to-back launches after one (30 for the tile's shapes); the cases at
+launch scale (k <= 16, or B <= 4096) are also timed as those launches
+captured in a CUDA graph and replayed, the device's time without the
+host's cost of each launch between them.  By default the
 tile's shapes -- every variant at float32 k in {50, 64, 128} (B=8192) and
 k=32 at B=65,536 with a sigma per sample (the mixtures' blocks), float64
 k=64 (B=8192), the launch-bound rows the main path also gives (full at
 k=64 B=32, and k=64 B=256 and k=32 B=8 with a sigma per sample (the
 mixture tables), states at k=64 B=1024
-and k=32 B=4096), and fullt and llk at k in {8, 16} (the one-block
+and k=32 B=4096), and every variant at k in {8, 16} (the one-block
 sizes) -- then every variant at float32 k in {160, 256, 512} (B 8192,
 8192, 512), float64 fullt at k in {96, 128, 160} (B 8192), and chol beside
 torch.linalg.cholesky_ex (which the port never calls) at k in {131, 160,
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import subprocess
@@ -62,8 +66,8 @@ from ppca_rs_tpu_torch.ops import _build, kernels  # noqa: E402
 SIGMA = 0.7
 #: Noise levels cycled over the batch where a case takes a sigma per sample.
 SIGMA_LEVELS = (0.4, 0.7, 1.0, 1.3)
-CHECK_F32 = (2, 13, 24, 50, 64, 99, 128, 131, 160, 257, 512, 704)
-CHECK_F64 = (2, 13, 24, 50, 64, 65, 99, 160, 257, 704)
+CHECK_F32 = (2, 8, 13, 16, 24, 50, 64, 99, 128, 131, 160, 257, 512, 704)
+CHECK_F64 = (2, 8, 13, 16, 24, 50, 64, 65, 99, 160, 257, 704)
 #: The sample made negative definite in the check.
 NOT_PD = 5
 TIME_F32 = ((160, 8192), (256, 8192), (512, 512))
@@ -76,7 +80,7 @@ TIME_TILE = ([(w, k, 8192, "f32", False) for k in (50, 64, 128) for w in kernels
              + [("full", 64, 32, "f32", False), ("full", 64, 256, "f32", True),
                 ("full", 32, 8, "f32", True),
                 ("states", 64, 1024, "f32", False), ("states", 32, 4096, "f32", False)]
-             + [(w, k, 8192, "f32", False) for k in (8, 16) for w in ("fullt", "llk")])
+             + [(w, k, 8192, "f32", False) for k in (8, 16) for w in kernels.WANTS])
 REPS = 10
 TILE_REPS = 30
 TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
@@ -237,6 +241,24 @@ def chol_call(lib, M, L):
     return run
 
 
+def graph_ms(make, reps: int) -> float:
+    """ms a launch of ``reps`` launches of ``make()`` captured in one CUDA
+    graph and replayed after one replay."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn = make()  # launches on the capturing stream
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def events_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -286,10 +308,12 @@ def time_ab(others, cases) -> list:
         rows = []
         for want, k, B, dtype, per_sample in cases:
             reps = TILE_REPS if k <= 128 else REPS
+            graphed = k <= 16 or B <= 4096
             if want == "chol":
                 M = spd_inputs(B, k, k + 1).to(dtype).contiguous()
                 L = torch.empty_like(M)
-                runs = {name: chol_call(lib, M, L) for name, lib in libs.items()}
+                makes = {name: functools.partial(chol_call, lib, M, L)
+                         for name, lib in libs.items()}
             else:
                 x = {n: t.to(dtype).contiguous() for n, t in inputs(B, k, k).items()}
                 if per_sample:
@@ -299,15 +323,23 @@ def time_ab(others, cases) -> list:
                     sig = torch.full((1,), SIGMA, dtype=dtype, device="cuda")
                 outs = kernels.empty_outputs(want, B, k, x["G"])
                 scratch = kernels.empty_scratch(want, B, k, x["G"])
-                runs = {name: estep_call(lib, want, sig, x, outs, scratch)
-                        for name, lib in libs.items()}
+                makes = {name: functools.partial(estep_call, lib, want, sig, x, outs, scratch)
+                         for name, lib in libs.items()}
+            runs = {name: make() for name, make in makes.items()}
             ms = {name: [] for name in libs}
+            graph = {name: [] for name in libs}
             for name in order:
                 ms[name].append(events_ms(runs[name], reps))
+                if graphed:
+                    graph[name].append(graph_ms(makes[name], reps))
             row = dict(kernel=want, dtype=str(dtype)[6:], k=k, B=B, sigma_per_sample=per_sample,
                        ms=ms)
             line = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in v)} ms"
                              for name, v in ms.items())
+            if graphed:
+                row["graph_ms"] = graph
+                line += "; graph replay: " + ", ".join(
+                    f"{name} {'/'.join(f'{t:.4f}' for t in v)} ms" for name, v in graph.items())
             if want == "chol":
                 fn = lambda: torch.linalg.cholesky_ex(M)  # noqa: E731
                 row["library_ms"] = [events_ms(fn, reps), events_ms(fn, reps)]
@@ -316,7 +348,7 @@ def time_ab(others, cases) -> list:
             rows.append(row)
             print(f"[ab] {want} k={k} B={B} {str(dtype)[6:]}"
                   f"{', sigma per sample' if per_sample else ''}: {line}", flush=True)
-            del runs
+            del runs, makes
             torch.cuda.empty_cache()
     return rows
 
