@@ -15,7 +15,8 @@ fourteen phases; any failed check raises and the script exits non-zero:
    above: 1024 at 257, 512 at 384 and 512, 256 at 704), the
    tile designs up to the tile limits the library reports, the panel
    design above them (each k prints which design serves each kernel, the
-   panel design's CTAs per multiprocessor and the E-step tile's residency),
+   panel design's CTAs per multiprocessor and the tile's residency, the
+   E-step's and spd_chol's),
    in float64 and float32, on inputs with all-masked (spd_estep) or non-SPD
    and identity (spd_chol) samples and NaN-prefilled outputs (fullt's SM
    compared on and below the diagonal, where alone it is written, and the
@@ -26,7 +27,8 @@ fourteen phases; any failed check raises and the script exits non-zero:
    outputs (CUDA events around 30 back-to-back launches, in turns with the
    plain version) and by its device time read by name from a torch.profiler
    window, beside its bound; spd_chol also beside torch.linalg.cholesky_ex,
-   which the port never calls; ``full`` also at B=32 and ``states`` at
+   which the port never calls, and in float64 too at k=64, 99 and 128;
+   ``full`` also at B=32 and ``states`` at
    B=1024, the pattern tables' and the row solve's shapes; fullt also at
    k=50 (rows not 16-byte aligned, beside k=64) and in float64 at k in
    {96, 128, 160}, and states and llk at k=96 (phase 11c's);
@@ -53,7 +55,7 @@ fourteen phases; any failed check raises and the script exits non-zero:
    iterations, ``model.llk``, the posterior sampler on 8,192 rows with a
    check of its draws' moments, the launch counts of that run (every
    spd_estep variant but ``full``, and spd_chol, each checked to be served
-   by the register-tile design), a profile of one more EM iteration, and
+   by the tile design), a profile of one more EM iteration, and
    the phase-4 check on 4,096 rows;
 8. PPCA mixtures at bench_suite.py's mixture configuration: N=200,000,
    D=512, k=32, M=8 components, 80% observed at random, made on the card;
@@ -155,9 +157,10 @@ fourteen phases; any failed check raises and the script exits non-zero:
    EM step, the llks, infer, smooth and the sampler's factor on the card
    against the CPU in float64.
 
-The line before the last is the JSON kernel summary (the register-tile
-kernels on the main path, with phase 12's ``full`` and ``states`` under
-``at_patmix``, then the panel design's kernels on phase 11's path); the
+The line before the last is the JSON kernel summary (the tile's kernels
+on the main path, with phase 12's ``full`` and ``states`` under
+``at_patmix`` and spd_chol's float64 times under ``at_f64``, then the panel
+design's kernels on phase 11's path); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -180,12 +183,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-#: spd_estep's sources by design (``kernels.design``): the register tile and
-#: the panel design above it.
+#: spd_estep's and spd_chol's sources by design (``kernels.design``): the
+#: tile (spd_chol is its sixth variant) and the panel design above it.
 ESTEP_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_estep_tile.cuh",
                 "panel": "ppca_rs_tpu_torch/csrc/spd_panel.cuh"}
 ESTEP_REPLACES = "ppca_rs_tpu/ops/kernels.py:502"  # spd_estep -> pl.pallas_call, body _make_kernel :176
-CHOL_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_chol_tile.cuh",
+CHOL_SOURCE = {"tile": "ppca_rs_tpu_torch/csrc/spd_estep_tile.cuh",
                "panel": "ppca_rs_tpu_torch/csrc/spd_panel.cuh"}
 CHOL_REPLACES = "ppca_rs_tpu/ops/kernels.py:664"   # spd_chol -> pl.pallas_call :727
 
@@ -211,6 +214,8 @@ PANEL_KS = (160, 256, 512)
 #: float64 state sizes at which fullt is also timed (the panel design
 #: serves float64 above k=64).
 F64_TIMED_KS = (96, 128, 160)
+#: spd_chol's float64 timings in phase 2: the tile's widest rows (KP=64, 128).
+CHOL_F64_TIMED_KS = (64, 99, 128)
 SIGMA = 0.7
 #: Noise levels cycled over the batch in the per-sample sigma check.
 SIGMA_LEVELS = (0.4, 0.7, 1.0, 1.3)
@@ -483,12 +488,11 @@ def kernel_inputs(B: int, k: int, gen):
 
 
 #: torch.profiler kernel names -> the kernel they time and its element
-#: type: an spd_estep variant by its ``want`` template argument (the
-#: register tile's last one; the panel design's 0-4), or spd_chol (its
-#: register tile, or the panel design's want 5).
+#: type: by the ``want`` template argument of the tile's kernels (its last
+#: one) and the panel design's: 0-4 an spd_estep variant, 5 spd_chol.
 _KERNEL_NAME = re.compile(
     r"spd_(?:estep_(?:tile|small)_kernel<(float|double), \d+, (\d)>"
-    r"|panel_kernel<(float|double), (\d)>|chol_tile_kernel<(float|double), \d+>)")
+    r"|panel_kernel<(float|double), (\d)>)")
 
 
 def kernel_of(name: str):
@@ -498,12 +502,8 @@ def kernel_of(name: str):
     m = _KERNEL_NAME.search(name)
     if m is None:
         return None
-    if m.group(1):
-        return kernels.WANTS[int(m.group(2))], m.group(1)
-    if m.group(3):
-        code = int(m.group(4))
-        return ("chol" if code == 5 else kernels.WANTS[code]), m.group(3)
-    return "chol", m.group(5)
+    ctype, code = (m.group(1), int(m.group(2))) if m.group(1) else (m.group(3), int(m.group(4)))
+    return ("chol" if code == 5 else kernels.WANTS[code]), ctype
 
 
 def profiled_ms(launchers: dict, reps: int, dtype=torch.float32) -> dict:
@@ -541,13 +541,13 @@ def peak_flops(k: int, kernel: str, dtype) -> float:
     """The peak FLOP/s for the operations of the design serving k for
     ``kernel`` ("estep" or "chol"): float64 on FP64 MMA; float32 at 3xTF32's
     rate where that design runs its products on the tensor cores (the panel
-    design, the E-step tile's blocked body), else outside them."""
+    design, the tile's blocked body above k=16, spd_chol's as the E-step's),
+    else outside them."""
     from ppca_rs_tpu_torch.ops import kernels
 
     if dtype != torch.float32:
         return PEAK_F64_FLOPS
-    tensor = (kernels.design(k, kernel, dtype) == "panel"
-              or (kernel == "estep" and k > TILE_SMALL_MAX_K))
+    tensor = kernels.design(k, kernel, dtype) == "panel" or k > TILE_SMALL_MAX_K
     return PEAK_F32_3XTF32_FLOPS if tensor else PEAK_F32_FLOPS
 
 
@@ -583,18 +583,15 @@ def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1):
 
 def design_note(k: int, kernel: str, dtype) -> str:
     """The design serving k, with the panel design's CTAs per
-    multiprocessor, or the E-step tile's residency (the occupancy
+    multiprocessor, or the tile's residency for ``kernel`` (the occupancy
     calculator's CTAs a multiprocessor, warps a CTA, samples in flight)."""
     from ppca_rs_tpu_torch.ops import kernels
 
-    d = kernels.design(k, kernel, dtype)
-    if d == "panel":
+    if kernels.design(k, kernel, dtype) == "panel":
         return f"panel design, {kernels.PANEL_CTAS_PER_SM} CTAs per SM"
-    if kernel == "estep":
-        ctas, warps, samples = kernels.tile_occupancy(k, dtype)
-        return (f"tile design, {ctas} CTAs x {warps} warps per SM = {ctas * warps} warps, "
-                f"{ctas * samples} samples in flight")
-    return f"{d} design"
+    ctas, warps, samples = kernels.tile_occupancy(k, dtype, kernel)
+    return (f"tile design, {ctas} CTAs x {warps} warps per SM = {ctas * warps} warps, "
+            f"{ctas * samples} samples in flight")
 
 
 def defined(want: str, outs) -> list:
@@ -849,7 +846,7 @@ def phase_kernels():
         torch.cuda.empty_cache()
     for k in (13, 256):
         check_row_solve(gen, k)
-    check_chol(gen, summary, wide, panel)
+    check_chol(gen, summary, wide, panel, f64)
     for k, rows in [(WIDE_K, wide)] + [(k, panel[k]) for k in PANEL_KS]:
         chol, fullt = rows["chol"], rows["fullt"]
         print(f"[kernels] k={k} B={fullt['B']} float32 ({fullt['design']} design): chol "
@@ -875,8 +872,8 @@ NOT_SPD, IDENTITY = 5, 9
 
 
 def time_chol(M, L) -> dict:
-    """float32 times of spd_chol on ``M`` into ``L`` (CUDA events in turns
-    with the plain version, device time from the profiler) beside
+    """Times of spd_chol on ``M`` into ``L`` in their dtype (CUDA events in
+    turns with the plain version, device time from the profiler) beside
     torch.linalg.cholesky_ex alone, which the port never calls, and the
     bound: M's lower triangle read, L written whole."""
     from ppca_rs_tpu_torch.ops import kernels
@@ -889,11 +886,11 @@ def time_chol(M, L) -> dict:
     p1, k1, k2, p2 = (cuda_ms(plain, PLAIN_REPS), cuda_ms(kern, reps),
                       cuda_ms(kern, reps), cuda_ms(plain, PLAIN_REPS))
     l1, l2 = cuda_ms(library, PLAIN_REPS), cuda_ms(library, PLAIN_REPS)
-    dev = profiled_ms({"chol": kern}, reps)["chol"]
+    dev = profiled_ms({"chol": kern}, reps, M.dtype)["chol"]
     peak = peak_flops(k, "chol", M.dtype)
-    b_ms, by = bound(B * (k * (k + 1) // 2 + k * k) * 4, B * k ** 3 / 3, peak)
+    b_ms, by = bound(B * (k * (k + 1) // 2 + k * k) * M.dtype.itemsize, B * k ** 3 / 3, peak)
     design = kernels.design(k, "chol", M.dtype)
-    print(f"[time] chol k={k} B={B} float32, {design_note(k, 'chol', M.dtype)}: kernel "
+    print(f"[time] chol k={k} B={B} {str(M.dtype)[6:]}, {design_note(k, 'chol', M.dtype)}: kernel "
           f"{k1:.4f}/{k2:.4f} ms (events, {reps} launches), "
           f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
           f"plain {p1:.4f}/{p2:.4f} ms; torch.linalg.cholesky_ex {l1:.4f}/{l2:.4f} ms; "
@@ -903,18 +900,19 @@ def time_chol(M, L) -> dict:
                 B=B, k=k)
 
 
-def check_chol(gen, summary, wide, panel) -> None:
+def check_chol(gen, summary, wide, panel, f64) -> None:
     """spd_chol against its plain version: a non-SPD sample goes non-finite
     alone, the identity factors to itself, and every element above the
     diagonal is written as 0.  Timed beside its plain version and beside
-    torch.linalg.cholesky_ex alone, which the port never calls."""
+    torch.linalg.cholesky_ex alone, which the port never calls: in float32,
+    and in float64 at CHOL_F64_TIMED_KS (into ``f64`` by ("chol", k))."""
     from ppca_rs_tpu_torch.ops import kernels
 
     for k in KS:
         B = batch_for(k)
-        f64 = dict(dtype=torch.float64, device="cuda")
-        V = torch.randn(B, k, 2 * k, generator=gen, **f64)
-        eye = torch.eye(k, **f64)
+        opts = dict(dtype=torch.float64, device="cuda")
+        V = torch.randn(B, k, 2 * k, generator=gen, **opts)
+        eye = torch.eye(k, **opts)
         M64 = V @ V.mT / (2 * k) + 0.1 * eye
         del V
         M64[NOT_SPD] = -M64[NOT_SPD]
@@ -938,6 +936,11 @@ def check_chol(gen, summary, wide, panel) -> None:
             check(err <= tol, f"{tag}: relative error {err:.3e} above {tol}")
             print(f"[kernels] {tag}: max rel err {err:.3e} (tol {tol:g}), max abs err {abs_err:.3e}; "
                   "non-SPD sample non-finite alone, identity exact, zeros above the diagonal")
+            if dtype == torch.float64 and k in CHOL_F64_TIMED_KS:
+                Mt = M.clone()   # M is M64 itself, which the float32 pass reads
+                Mt[NOT_SPD] = eye
+                f64["chol", k] = dict(time_chol(Mt, L), max_abs_err=abs_err)
+                del Mt
             if dtype == torch.float32:
                 M[NOT_SPD] = eye.to(dtype)
                 row = dict(time_chol(M, L), max_abs_err=abs_err)
@@ -3844,6 +3847,10 @@ def main() -> int:
             row = f64[key, K_LK64]
             entry["at_f64"] = {f"k{K_LK64}": {f: row[f] for f in fields if f in row}}
         kernels_line["kernels"].append(entry)
+    # spd_chol's tile in float64 (phase 2's timing)
+    chol_entry = next(e for e in kernels_line["kernels"] if e["name"] == "spd_chol")
+    chol_entry["at_f64"] = {f"k{k}": {f: f64["chol", k][f] for f in fields}
+                            for k in CHOL_F64_TIMED_KS}
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched by its path")
     print(json.dumps(kernels_line))

@@ -16,11 +16,15 @@
 // chain of dependent column steps, whose latency the designs work on.
 //
 // Two designs, chosen by k in the entry points below:
-// * k <= chol_tile_max_k<T>() (128): the register-tile design,
-//   spd_chol_tile.cuh (built in spd_chol_tile_f32.cu and
-//   spd_chol_tile_f64.cu): the matrix in registers, one warp-level sync (a
-//   named barrier for a sample of whole warps) per column, several samples
-//   a block below 128 lanes a sample.
+// * k <= chol_tile_max_k<T>() (128): the tile design of the E-step,
+//   spd_estep_tile.cuh (built in spd_estep_tile_f32.cu and
+//   spd_estep_tile_f64.cu), as its sixth variant, kChol = 5: up to k=16 a
+//   sample in a segment of a warp's registers, swept column by column with
+//   shuffles; above, one CTA a sample with M's lower triangle in shared
+//   memory (staged by cp.async), 16-column pivot blocks factored in one
+//   warp's registers and the panel L21 = U L11^{-T} and the trailing
+//   update on the tensor cores (3xTF32 in float, FP64 MMA in double), each
+//   block of rows of L written out as soon as it is final.
 // * any larger k: the panel design of spd_panel.cuh (want 5), a right-looking
 //   blocked Cholesky worked in L itself: one CTA a sample, one warp factors
 //   each NB x NB pivot block in registers, the panel below it, staged once
@@ -37,9 +41,13 @@
 #include "spd_common.cuh"
 
 extern "C" {
-// spd_chol_tile_f32.cu, spd_chol_tile_f64.cu: the register-tile design.
-int ppca_spd_chol_tile_f32(const void* M, void* L, long long B, int k, void* stream);
-int ppca_spd_chol_tile_f64(const void* M, void* L, long long B, int k, void* stream);
+// spd_estep_tile_f32.cu, spd_estep_tile_f64.cu: the tile design (want 5 is spd_chol).
+int ppca_spd_estep_tile_f32(int want, const void* sigma, long long sigma_stride, const void* G,
+                            const void* b, const void* rnorm, const void* d_obs, void* s,
+                            void* m, void* llk, void* sq, long long B, int k, void* stream);
+int ppca_spd_estep_tile_f64(int want, const void* sigma, long long sigma_stride, const void* G,
+                            const void* b, const void* rnorm, const void* d_obs, void* s,
+                            void* m, void* llk, void* sq, long long B, int k, void* stream);
 // spd_panel_f32.cu, spd_panel_f64.cu: the panel design.
 int ppca_spd_panel_f32(int want, int device, const void* sigma, long long sigma_stride,
                        const void* G, const void* b, const void* rnorm, const void* d_obs,
@@ -55,7 +63,7 @@ namespace {
 
 using namespace ppca;
 
-constexpr int kPanelChol = 5;
+constexpr int kChol = 5;  // the tile's and the panel design's want for spd_chol
 
 template <typename T>
 int dispatch(int device, const void* M, void* L, long long B, int k, void* stream) {
@@ -65,12 +73,14 @@ int dispatch(int device, const void* M, void* L, long long B, int k, void* strea
   if (k < 1 || B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   constexpr bool f32 = sizeof(T) == 4;
   if (k <= chol_tile_max_k<T>()) {
-    return f32 ? ppca_spd_chol_tile_f32(M, L, B, k, stream)
-               : ppca_spd_chol_tile_f64(M, L, B, k, stream);
+    return f32 ? ppca_spd_estep_tile_f32(kChol, nullptr, 0, M, nullptr, nullptr, nullptr, nullptr,
+                                         L, nullptr, nullptr, B, k, stream)
+               : ppca_spd_estep_tile_f64(kChol, nullptr, 0, M, nullptr, nullptr, nullptr, nullptr,
+                                         L, nullptr, nullptr, B, k, stream);
   }
-  return f32 ? ppca_spd_panel_f32(kPanelChol, device, nullptr, 0, M, nullptr, nullptr, nullptr,
+  return f32 ? ppca_spd_panel_f32(kChol, device, nullptr, 0, M, nullptr, nullptr, nullptr,
                                   nullptr, nullptr, nullptr, nullptr, L, B, k, stream)
-             : ppca_spd_panel_f64(kPanelChol, device, nullptr, 0, M, nullptr, nullptr, nullptr,
+             : ppca_spd_panel_f64(kChol, device, nullptr, 0, M, nullptr, nullptr, nullptr,
                                   nullptr, nullptr, nullptr, nullptr, L, B, k, stream);
 }
 
@@ -88,8 +98,8 @@ int spd_chol_f64(int device, const void* M, void* L, long long B, int k, void* s
   return dispatch<double>(device, M, L, B, k, stream);
 }
 
-// Largest k that the register-tile design serves for elements of
-// `itemsize` bytes (4 or 8); larger k take the panel design.
+// Largest k that the tile design serves for elements of `itemsize` bytes
+// (4 or 8); larger k take the panel design.
 int spd_chol_tile_max_k(int itemsize) {
   return itemsize == 4 ? chol_tile_max_k<float>() : itemsize == 8 ? chol_tile_max_k<double>() : 0;
 }

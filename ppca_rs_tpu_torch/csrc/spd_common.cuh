@@ -1,6 +1,6 @@
 // Pieces shared by the package's per-sample SPD kernels (spd_estep.cu,
-// spd_estep_tile.cuh, spd_chol.cu, spd_chol_tile.cuh, spd_panel.cuh): the
-// device limits, the tile limits and the type-generic math helpers.
+// spd_estep_tile.cuh, spd_chol.cu, spd_panel.cuh): the device limits, the
+// tile limits and the type-generic math helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,10 +11,11 @@ namespace ppca {
 // The devices a process may drive, for the once-per-device lookups.
 constexpr int kMaxDevices = 64;
 
-// spd_estep and spd_chol serve k up to these limits with the tile designs
-// (spd_estep_tile.cuh, spd_chol_tile.cuh: padded sizes of 8 to 128) and
-// larger k with the panel design (spd_panel.cuh); the entry points
-// spd_estep_tile_max_k and spd_chol_tile_max_k report them to the wrapper.
+// spd_estep and spd_chol serve k up to these limits with the tile design
+// (spd_estep_tile.cuh: padded sizes of 8 to 128; spd_chol is its variant
+// kChol) and larger k with the panel design (spd_panel.cuh); the entry
+// points spd_estep_tile_max_k and spd_chol_tile_max_k report them to the
+// wrapper.
 template <typename T>
 constexpr int estep_tile_max_k() { return sizeof(T) == 4 ? 128 : 64; }
 template <typename T>
@@ -32,8 +33,6 @@ inline cudaError_t ensure_device(int device) {
 
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 __device__ __forceinline__ float log_t(float x) { return logf(x); }
 __device__ __forceinline__ double log_t(double x) { return log(x); }
 __device__ __forceinline__ float nan_like(float) { return CUDART_NAN_F; }

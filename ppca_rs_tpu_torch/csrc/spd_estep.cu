@@ -60,8 +60,8 @@
 
 extern "C" {
 // spd_estep_tile_f32.cu, spd_estep_tile_f64.cu: the tile design.
-int ppca_spd_estep_tile_occupancy_f32(int k, int* ctas_per_sm, int* warps, int* samples);
-int ppca_spd_estep_tile_occupancy_f64(int k, int* ctas_per_sm, int* warps, int* samples);
+int ppca_spd_estep_tile_occupancy_f32(int k, int chol, int* ctas_per_sm, int* warps, int* samples);
+int ppca_spd_estep_tile_occupancy_f64(int k, int chol, int* ctas_per_sm, int* warps, int* samples);
 int ppca_spd_estep_tile_f32(int want, const void* sigma, long long sigma_stride, const void* G,
                             const void* b, const void* rnorm, const void* d_obs, void* s,
                             void* m, void* llk, void* sq, long long B, int k, void* stream);
@@ -137,14 +137,15 @@ int spd_estep_tile_max_k(int itemsize) {
 }
 
 // The tile design's residency at state size k (1 <= k <= the tile limit) for
-// elements of `itemsize` bytes on `device`: CTAs a multiprocessor holds,
-// warps a CTA and samples a CTA works on at once.
-int spd_estep_tile_occupancy(int itemsize, int device, int k, int* ctas_per_sm, int* warps,
-                             int* samples) {
+// elements of `itemsize` bytes on `device`, for the E-step (chol 0; its
+// fullt instantiation) or for spd_chol (chol 1): CTAs a multiprocessor
+// holds, warps a CTA and samples a CTA works on at once.
+int spd_estep_tile_occupancy(int itemsize, int device, int k, int chol, int* ctas_per_sm,
+                             int* warps, int* samples) {
   const cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (itemsize == 4) return ppca_spd_estep_tile_occupancy_f32(k, ctas_per_sm, warps, samples);
-  if (itemsize == 8) return ppca_spd_estep_tile_occupancy_f64(k, ctas_per_sm, warps, samples);
+  if (itemsize == 4) return ppca_spd_estep_tile_occupancy_f32(k, chol, ctas_per_sm, warps, samples);
+  if (itemsize == 8) return ppca_spd_estep_tile_occupancy_f64(k, chol, ctas_per_sm, warps, samples);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,10 +1,14 @@
 // Tile design of the batched SPD E-step (sm_90a), for k <= estep_tile_max_k<T>()
-// (128 in float, 64 in double).
+// (128 in float, 64 in double), and of the batched Cholesky factor (the sixth
+// variant, kChol), for k <= chol_tile_max_k<T>() (128 in both).
 //
 // Replaces, with spd_estep.cu's entry points, the Pallas TPU kernel
 // `ppca_rs_tpu/ops/kernels.py:_make_kernel` as launched by `spd_estep`; the
 // outputs, layout and contract are the ones spd_estep.cu states (fullt writes
-// SM's lower triangle only, as the TPU kernel did).
+// SM's lower triangle only, as the TPU kernel did).  With spd_chol.cu's entry
+// points, kChol replaces the same body as launched by `spd_chol` (the "chol"
+// variant): M in (lower triangle read), L out whole, the contract spd_chol.cu
+// states.
 //
 // What bounds it on this card: one fullt launch must read G's lower triangle
 // and write SM's (~4 k(k+1) bytes a sample in float32: 141 MB at B=8192,
@@ -71,6 +75,33 @@
 // * A sample whose M is not positive definite has a pivot <= 0 (or NaN): its
 //   log det is not finite and every output element of that sample is written
 //   NaN.  Nothing reduces across samples.
+// * kChol, the Cholesky factor L of M itself (no sigma^2, no right-hand
+//   side, no llk; sigma, b, rnorm, d_obs and those outputs are null, L is
+//   m_out).  Its bound: M's lower triangle in and L out whole (~6 k^2 bytes
+//   a sample in float32) against k^3/6 FMAs, bytes at every k of the tile
+//   at the tensor cores' rate.  KP in {8, 16}: lane r holds row r of M's
+//   lower triangle and the segment runs the column step with shuffles
+//   (d = A[j][j], column j becomes A[:,j] / sqrt(d) at rows >= j, the rows
+//   below take -L[i][j] L[l][j]); its rows go out as full's do.  KP in {32,
+//   64, 128}: the steps of llk and states (rows below block J active, three
+//   barriers a step), with the pivot block the Cholesky block:
+//   (1) warp 0 factors S = L11 L11^T in registers by the same column step,
+//       lane r (and r + NB beside it) row r, one reciprocal square root a
+//       pivot; writes L11 into block J and L11^{-1} (lane c forms column c
+//       by forward substitution) into P;
+//   (2) L21 = U L11^{-T} on the tensor cores (the form this design uses),
+//       stored in Y and as block column J;
+//   (3) A22 -= L21 L21^T over the active lower triangle, Y both operands.
+//   Rows J0 .. J0 + NB - 1 of L are final after step J's (1): they go out
+//   then (zeros above the diagonal, 16-byte stores where a row is aligned)
+//   and the next sample's rows are staged in their place, so the copies
+//   overlap the steps after.  Whether the sample factored is known at the
+//   last step's (1), which warp 0 publishes before its barrier: a failed
+//   sample's earlier rows are then written again, NaN on and below the
+//   diagonal (a rewrite only for a bad sample).  Identity padding rows are
+//   never written out.  In double KP=128 (k 65..128) is instantiated for
+//   kChol alone: its ~176 KB of shared memory leave one CTA a
+//   multiprocessor.
 // * Offsets are size_t; B fits an int (spd_estep.cu checks it).
 
 #pragma once
@@ -91,6 +122,7 @@ constexpr int kStates = 1;
 constexpr int kLlk = 2;
 constexpr int kInfer = 3;
 constexpr int kFull = 4;
+constexpr int kChol = 5;  // spd_chol: M in, L out
 
 constexpr double kLn2Pi = 1.8378770664093453;
 constexpr unsigned kAll = 0xffffffffu;
@@ -200,21 +232,44 @@ __device__ __forceinline__ void stage_row(T* dst, const T* src, int n, int k, in
 // elements a row: lane l takes row r0 + l / Q and its chunk l % Q, and
 // copies the part of it on or below the diagonal (the lower triangle) into
 // row r of A (row stride LD) by cp.async: one 16-byte copy where the row
-// starts 16-byte aligned in device memory, element copies otherwise.
+// starts 16-byte aligned in device memory, element copies otherwise.  Where
+// a row has more than 32 chunks (double at KP=128, kChol only) a pass is
+// the one row r0, lane l taking its chunks l, l + 32, ...
 template <typename T, int KP, int LD>
 __device__ __forceinline__ void stage_rows(T* A, const T* Gn, int r0, int k, int lane) {
   constexpr int V = 16 / static_cast<int>(sizeof(T)), Q = KP / V;
-  static_assert(Q <= 32 && 32 % Q == 0, "a warp pass covers whole rows");
-  const int r = r0 + lane / Q, c = (lane % Q) * V;
-  if (r >= k || c > r) return;
-  const T* src = Gn + static_cast<size_t>(r) * k;
-  T* dst = A + r * LD;
-  if ((reinterpret_cast<size_t>(src) & 15) == 0) {
-    panel::cp_async16(dst + c, src + c, cmin(V, k - c) * static_cast<int>(sizeof(T)));
-  } else {
+  if constexpr (Q <= 32) {
+    static_assert(32 % Q == 0, "a warp pass covers whole rows");
+    const int r = r0 + lane / Q, c = (lane % Q) * V;
+    if (r >= k || c > r) return;
+    const T* src = Gn + static_cast<size_t>(r) * k;
+    T* dst = A + r * LD;
+    if ((reinterpret_cast<size_t>(src) & 15) == 0) {
+      panel::cp_async16(dst + c, src + c, cmin(V, k - c) * static_cast<int>(sizeof(T)));
+    } else {
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-      if (c + e <= r) panel::cp_async_elem(dst + c + e, src + c + e);
+      for (int e = 0; e < V; ++e)
+        if (c + e <= r) panel::cp_async_elem(dst + c + e, src + c + e);
+    }
+  } else {
+    static_assert(Q % 32 == 0, "a warp pass covers one row");
+    const int r = r0;
+    if (r >= k) return;
+    const T* src = Gn + static_cast<size_t>(r) * k;
+    T* dst = A + r * LD;
+    const bool vec = (reinterpret_cast<size_t>(src) & 15) == 0;
+#pragma unroll
+    for (int h = 0; h < Q / 32; ++h) {
+      const int c = (lane + 32 * h) * V;
+      if (c > r) break;
+      if (vec) {
+        panel::cp_async16(dst + c, src + c, cmin(V, k - c) * static_cast<int>(sizeof(T)));
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          if (c + e <= r) panel::cp_async_elem(dst + c + e, src + c + e);
+      }
+    }
   }
 }
 
@@ -244,6 +299,31 @@ __device__ __forceinline__ void write_chunk(T* row, int c0, int ncols, bool vec,
 #pragma unroll
     for (int e = 0; e < V; ++e)
       if (c0 + e < ncols) __stcs(row + c0 + e, o[e]);
+  }
+}
+
+// kChol's rows of L out (Ln the sample's k x k output), on the lanes and
+// chunks of stage_rows' warp pass from row r0, so that each lane may stage
+// the next sample's chunks in place of those it has just written: on and
+// below the diagonal A + poison (from_a) or poison alone, zeros above it;
+// nothing at rows or columns k and beyond.
+template <typename T, int KP, int LD>
+__device__ __forceinline__ void chol_rows_out(T* Ln, const T* A, int r0, int k, int lane,
+                                              T poison, bool from_a) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T)), Q = KP / V, QW = Q < 32 ? Q : 32;
+  const int r = r0 + lane / QW;
+  if (r >= k) return;
+  T* row = Ln + static_cast<size_t>(r) * k;
+  const bool vec = (reinterpret_cast<size_t>(row) & 15) == 0;
+#pragma unroll
+  for (int h = 0; h < Q / QW; ++h) {
+    const int c0 = (lane % QW + QW * h) * V;
+    if (c0 >= k) break;
+    T o[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o[e] = c0 + e <= r ? (from_a ? A[r * LD + c0 + e] : T(0)) + poison : T(0);
+    write_chunk<T, V>(row, c0, k, vec, o);
   }
 }
 
@@ -290,6 +370,51 @@ spd_estep_small_kernel(const T* __restrict__ sigma, long long sigma_stride,
   cp_async_commit();
   cp_async_wait<0>();
   __syncwarp();
+
+  if constexpr (WANT == kChol) {
+    // row r of M's lower triangle, zeros above it, the identity past k
+    T a[KP];
+#pragma unroll
+    for (int c = 0; c < KP; ++c)
+      a[c] = c > r ? T(0) : live && r < k ? S[r][c] : c == r ? T(1) : T(0);
+    // the column step: d = A[j][j]; column j becomes A[:,j] / sqrt(d) at
+    // rows >= j (0 above), and each row i takes -L[i][j] L[l][j] at l > j
+    // (what a row keeps right of its diagonal is zeroed at that column's step)
+    T piv = T(1);
+#pragma unroll
+    for (int j = 0; j < KP; ++j) {
+      const T d = __shfl_sync(kAll, a[j], j, KP);
+      const T u = r >= j ? a[j] * rsqrt_t(d) : T(0);
+      a[j] = u;
+#pragma unroll
+      for (int l = j + 1; l < KP; ++l) a[l] = fma(-u, __shfl_sync(kAll, u, l, KP), a[l]);
+      piv = r == j ? d : piv;
+    }
+    T logdet = r < k ? log_t(piv) : T(0);
+#pragma unroll
+    for (int off = KP / 2; off > 0; off >>= 1) logdet += __shfl_xor_sync(kAll, logdet, off, KP);
+    if (!live) return;  // the segment's lanes share their sample
+    // A pivot <= 0 (M not positive definite) or NaN: NaN on and below the diagonal.
+    const T poison = isfinite(logdet) ? T(0) : nan_like(logdet);
+    // lane r puts row r in its staging row (it read that row alone); the
+    // segment writes the rows a chunk a lane, as full's
+    const unsigned seg = ((1u << KP) - 1u) << (threadIdx.x & 31 & ~(KP - 1));
+#pragma unroll
+    for (int c = 0; c < KP; ++c) S[r][c] = c <= r ? a[c] + poison : T(0);
+    __syncwarp(seg);
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int row = V * i + r / Q, c0 = (r % Q) * V;
+      if (row < k) {
+        T o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) o[e] = S[row][c0 + e];
+        T* dst = m_out + n * kk + static_cast<size_t>(row) * k;
+        write_chunk<T, V>(dst, c0, k, (reinterpret_cast<size_t>(dst) & 15) == 0, o);
+      }
+    }
+    return;
+  }
 
   const T sig = live ? sigma[n * sigma_stride] : T(1);
   const T s2 = sig * sig;
@@ -485,6 +610,82 @@ __device__ __noinline__ PivotOut<T> pivot_block(T* A, T* x, T* P, T* xJ, int J0)
   return {log_t(piv), z * z};
 }
 
+// kChol's (1), by one warp: the pivot block S at J0 of the working matrix A
+// (row stride LD) factored as L11 L11^T in registers, lane r and r + NB row
+// r (the same work, so that every shuffle reads a lane of the first half):
+// the column step, one reciprocal square root a pivot.  L11 goes into block
+// J on and below the diagonal, L11^{-1} into P (row stride LDP, zeros above
+// the diagonal; lane c forms column c by forward substitution on e_c, lanes
+// c and c + NB a half of its rows each).  Returns lane r's log pivot.
+// Inlined at KP=32 and not above (chol_pivot_call): on an H100, inlined,
+// k=64 and 128 ran 3-8% slower; at KP=32, not inlined, the kernel spilled.
+template <typename T, int NB, int LD, int LDP>
+__device__ __forceinline__ T chol_pivot_block(T* A, T* P, int J0) {
+  static_assert(2 * NB == 32, "two lanes a row fill one warp");
+  const int lane = threadIdx.x & 31;
+  const int r = lane % NB, h = lane / NB;
+  T* Sb = A + J0 * LD + J0;
+  T a[NB];
+#pragma unroll
+  for (int c = 0; c < NB; ++c) a[c] = c <= r ? Sb[r * LD + c] : T(0);
+  T piv = T(1), rs_own = T(1);
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    const T d = __shfl_sync(kAll, a[c], c);
+    const T rs = rsqrt_t(d);
+    const T u = r >= c ? a[c] * rs : T(0);
+    a[c] = u;
+#pragma unroll
+    for (int l = c + 1; l < NB; ++l) a[l] = fma(-u, __shfl_sync(kAll, u, l), a[l]);
+    piv = r == c ? d : piv;
+    rs_own = r == c ? rs : rs_own;
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+    if (c / (NB / 2) == h && c <= r) Sb[r * LD + c] = a[c];
+  __syncwarp();
+  T xc[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) xc[i] = i == r ? T(1) : T(0);
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    xc[i] *= __shfl_sync(kAll, rs_own, i);
+#pragma unroll
+    for (int l = i + 1; l < NB; ++l) xc[l] = fma(-Sb[l * LD + i], xc[i], xc[l]);
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+    if (i / (NB / 2) == h) P[i * LDP + r] = xc[i];
+  return log_t(piv);
+}
+
+template <typename T, int NB, int LD, int LDP>
+__device__ __noinline__ T chol_pivot_call(T* A, T* P, int J0) {
+  return chol_pivot_block<T, NB, LD, LDP>(A, P, J0);
+}
+
+// kChol after step J's (1): block J's rows of L are final.  They go out
+// (Ln the sample's output) and the next sample's rows (Gx, null if none) are
+// staged in their place, each lane the chunks it has just written.  At the
+// last step the sample's poison is known (flag): a failed sample's earlier
+// rows go out again, NaN, on the same lanes.
+template <typename T, int KP>
+__device__ __forceinline__ void chol_block_out(T* Ln, T* A, const T* Gx, const T* flag, int J0, int k) {
+  using S = Blocked<T, KP>;
+  constexpr int NB = S::NB, LD = S::LD, NW = S::NW, Q = KP / S::V, RP = Q < 32 ? 32 / Q : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T poison = J0 == KP - NB ? *flag : T(0);
+  if (isnan(poison)) {
+    for (int I0 = 0; I0 < J0; I0 += NB)
+      for (int r0 = I0 + warp * RP; r0 < I0 + NB && r0 < k; r0 += NW * RP)
+        chol_rows_out<T, KP, LD>(Ln, A, r0, k, lane, poison, false);
+  }
+  for (int r0 = J0 + warp * RP; r0 < J0 + NB && r0 < k; r0 += NW * RP) {
+    chol_rows_out<T, KP, LD>(Ln, A, r0, k, lane, poison, true);
+    if (Gx != nullptr) stage_rows<T, KP, LD>(A, Gx, r0, k, lane);
+  }
+}
+
 template <typename T, int KP, int WANT>
 __global__ void __launch_bounds__(Blocked<T, KP>::THREADS, Blocked<T, KP>::CTAS)
 spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
@@ -495,12 +696,14 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
   using S = Blocked<T, KP>;
   using F = panel::Mma<T>;
   constexpr int NB = S::NB, LD = S::LD, LDP = S::LDP, NW = S::NW, V = S::V;
-  constexpr int Q = KP / V, RP = 32 / Q;  // chunks a row, rows a warp pass
+  // chunks a row, rows a warp pass (stage_rows; one row from 32 chunks on)
+  constexpr int Q = KP / V, RP = Q < 32 ? 32 / Q : 1;
   constexpr int MI = Acc16<T>::MI, NI = Acc16<T>::NI;
   constexpr int H = F::NC == 4 ? 2 : 1;  // rows of an mma tile a lane holds
   constexpr bool kInverse = is_inverse(WANT);
   constexpr bool kSecond = WANT == kFullT || WANT == kFull;
-  constexpr bool kPanelOut = kInverse || WANT == kStates;  // block column J keeps Y
+  // block column J keeps Y (kChol: L21)
+  constexpr bool kPanelOut = kInverse || WANT == kStates || WANT == kChol;
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* A = reinterpret_cast<T*>(smem);
@@ -551,7 +754,8 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
           acc.c[i][j][2 * h] = v.x;
           acc.c[i][j][2 * h + 1] = v.y;
         }
-    product16<T, LDP>(acc, Y + 16 * R * LDP, U + 16 * C * LDP, true);
+    // Y U^T = U P U^T, or for kChol L21 L21^T
+    product16<T, LDP>(acc, Y + 16 * R * LDP, (WANT == kChol ? Y : U) + 16 * C * LDP, true);
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -577,12 +781,18 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
   // out; llk a pivot block's rows once the step has read them; states after
   // its back substitution), its b into the other x buffer; sigma, rnorm and
   // d_obs are read a sample ahead.  So a sample's copies from device memory
-  // overlap the end of the sample before it.
+  // overlap the end of the sample before it.  (kChol: M staged as G is,
+  // block J's rows restaged once they are out; nothing else read.)
   long long n = blockIdx.x;
-  T sig = sigma[n * sigma_stride], rn = rnorm[n], dob = d_obs[n];
+  T sig = T(1), rn = T(0), dob = T(0);
+  if constexpr (WANT != kChol) {
+    sig = sigma[n * sigma_stride];
+    rn = rnorm[n];
+    dob = d_obs[n];
+  }
   int cur = 0;
   for (int r0 = warp * RP; r0 < k; r0 += NW * RP) stage_rows<T, KP, LD>(A, G + n * kk, r0, k, lane);
-  stage_row(xb, b + n * k, k, k, tid, S::THREADS);
+  if constexpr (WANT != kChol) stage_row(xb, b + n * k, k, k, tid, S::THREADS);
   cp_async_commit();
   for (; n < B; n += gridDim.x) {
     const long long next = n + gridDim.x;
@@ -590,21 +800,28 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
     const T* Gx = G + (more ? next : n) * kk;
     T* x = xb + cur * KP;
     T sig_next = T(1), rn_next = T(0), dob_next = T(0);
-    if (more) {
-      sig_next = sigma[next * sigma_stride];
-      rn_next = rnorm[next];
-      dob_next = d_obs[next];
+    if constexpr (WANT != kChol) {
+      if (more) {
+        sig_next = sigma[next * sigma_stride];
+        rn_next = rnorm[next];
+        dob_next = d_obs[next];
+      }
     }
     cp_async_wait<0>();
     __syncthreads();
-    if (more) stage_row(xb + (cur ^ 1) * KP, b + next * k, k, k, tid, S::THREADS);
-    cp_async_commit();
+    if constexpr (WANT != kChol) {
+      if (more) stage_row(xb + (cur ^ 1) * KP, b + next * k, k, k, tid, S::THREADS);
+      cp_async_commit();
+    }
 
     // M = G + sigma^2 I, padded with an identity block; x = b, padded with 0
+    // (kChol: M itself, padded)
     const T s2 = sig * sig;
-    for (int i = tid; i < KP; i += S::THREADS) {
-      if (i < k) A[i * LD + i] += s2;
-      else x[i] = T(0);
+    if constexpr (WANT != kChol) {
+      for (int i = tid; i < KP; i += S::THREADS) {
+        if (i < k) A[i * LD + i] += s2;
+        else x[i] = T(0);
+      }
     }
     for (int e = tid; e < (KP - k) * KP; e += S::THREADS) {
       const int i = k + e / KP, c = e % KP;
@@ -616,13 +833,26 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
     for (int J0 = 0; J0 < KP; J0 += NB) {
       const Step s = step_at(J0);
       const int mt = s.m / 16;
-      // (1) warp 0 inverts the pivot block while the other warps (or, alone,
-      // warp 0 after it) stage the active rows' panel entries U, a 16-row
-      // block a warp
+      // (1) warp 0 inverts the pivot block (kChol: factors it) while the
+      // other warps (or, alone, warp 0 after it) stage the active rows'
+      // panel entries U, a 16-row block a warp
       if (warp == 0) {
-        const PivotOut<T> o = pivot_block<T, NB, LD, LDP, kInverse>(A, x, P, xJ, J0);
-        logdet += o.logpiv;
-        quad += o.z2;
+        if constexpr (WANT == kChol) {
+          if constexpr (KP == 32) logdet += chol_pivot_block<T, NB, LD, LDP>(A, P, J0);
+          else logdet += chol_pivot_call<T, NB, LD, LDP>(A, P, J0);
+          if (J0 == KP - NB) {
+            // the last pivot: whether the sample factored, for every warp
+            // after this step's barrier
+            T ld = lane < NB ? logdet : T(0);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) ld += __shfl_xor_sync(kAll, ld, off);
+            if (lane == 0) *flag = isfinite(ld) ? T(0) : nan_like(ld);
+          }
+        } else {
+          const PivotOut<T> o = pivot_block<T, NB, LD, LDP, kInverse>(A, x, P, xJ, J0);
+          logdet += o.logpiv;
+          quad += o.z2;
+        }
       }
       constexpr int W0 = NW > 1 ? 1 : 0;  // the first staging warp
       for (int blk = warp - W0; warp >= W0 && blk < mt; blk += NW - W0) {
@@ -646,10 +876,15 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
           stage_rows<T, KP, LD>(A, Gx, r0, k, lane);
         cp_async_commit();
       }
+      if constexpr (WANT == kChol) {
+        chol_block_out<T, KP>(m_out + n * kk, A, more ? Gx : nullptr, flag, J0, k);
+        cp_async_commit();
+      }
       if (s.m == 0) continue;
 
-      // (2) Y = U P, a 16-row block a warp; x_i -= Y_i . x_J; Y stored for
-      // (3) and (inverse variants, states) as block column J
+      // (2) Y = U P^T, a 16-row block a warp (P = S^{-1}, or for kChol
+      // L11^{-1}: Y = L21); x_i -= Y_i . x_J; Y stored for (3) and (inverse
+      // variants, states, kChol) as block column J
       for (int blk = warp; blk < mt; blk += NW) {
         const int c0 = blk * 16;
         Acc16<T> acc;
@@ -676,21 +911,23 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
               const int rr = i * F::M + F::crow(e), cc = j * F::N + F::ccol(e);
               const T y = acc.c[i][j][e];
               Y[(c0 + rr) * LDP + cc] = y;
-              part[i][F::NC == 4 ? e / 2 : 0] += y * xJ[cc];
+              if constexpr (WANT != kChol) part[i][F::NC == 4 ? e / 2 : 0] += y * xJ[cc];
               if (kPanelOut) {
                 if (col) A[(J0 + cc) * LD + c0 + rr] = y;
                 else A[(rbase + rr) * LD + J0 + cc] = y;
               }
             }
+        if constexpr (WANT != kChol) {
 #pragma unroll
-        for (int i = 0; i < MI; ++i)
+          for (int i = 0; i < MI; ++i)
 #pragma unroll
-          for (int h = 0; h < H; ++h) {
-            T sum = part[i][h];
-            sum += __shfl_xor_sync(kAll, sum, 1);
-            sum += __shfl_xor_sync(kAll, sum, 2);
-            if (tq == 0) x[rbase + i * F::M + g + 8 * h] -= sum;
-          }
+            for (int h = 0; h < H; ++h) {
+              T sum = part[i][h];
+              sum += __shfl_xor_sync(kAll, sum, 1);
+              sum += __shfl_xor_sync(kAll, sum, 2);
+              if (tq == 0) x[rbase + i * F::M + g + 8 * h] -= sum;
+            }
+        }
       }
       __syncthreads();
 
@@ -702,6 +939,7 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
           if (p % NW == warp) update_tile(s, R, C);
       __syncthreads();
     }
+    if constexpr (WANT == kChol) continue;  // L is out, the next sample's rows in
 
     // log det M, b^T M^{-1} b and (inverse variants) tr M^{-1}: warp 0
     if (warp == 0) {
@@ -850,15 +1088,17 @@ cudaError_t launch_tile_want(int want, const T* sigma, long long sigma_stride, c
     PPCA_TILE_CASE(kLlk)
     PPCA_TILE_CASE(kInfer)
     PPCA_TILE_CASE(kFull)
+    PPCA_TILE_CASE(kChol)
     default:
       return cudaErrorInvalidValue;
   }
 #undef PPCA_TILE_CASE
 }
 
-// The tile design for 1 <= k <= estep_tile_max_k<T>(), on the smallest
-// padded size that holds k.  Arguments as spd_estep.cu's entry points take
-// them.
+// The tile design for 1 <= k <= estep_tile_max_k<T>() (want kChol: k <=
+// chol_tile_max_k<T>()), on the smallest padded size that holds k.
+// Arguments as spd_estep.cu's entry points take them; for kChol M is G and
+// L is m, the rest null.
 template <typename T>
 cudaError_t spd_estep_tile(int want, const void* sigma, long long sigma_stride, const void* G,
                            const void* b, const void* rnorm, const void* d_obs, void* s,
@@ -878,16 +1118,20 @@ cudaError_t spd_estep_tile(int want, const void* sigma, long long sigma_stride, 
   if (k <= 64) return launch_tile_want<T, 64>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
   if constexpr (estep_tile_max_k<T>() > 64) {
     if (k <= estep_tile_max_k<T>()) return launch_tile_want<T, 128>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
+  } else {
+    // double: KP=128 serves kChol alone
+    if (want == kChol && k <= chol_tile_max_k<T>())
+      return launch_tile<T, 128, kChol>(sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-// The tile's residency at state size k on the current device: CTAs a
-// multiprocessor holds, warps a CTA, samples a CTA works on at once (the
-// blocked body's persistent grid measured for fullt; the small body's
-// blocks from their shared memory and threads).
-template <typename T>
-cudaError_t estep_tile_occupancy(int k, int& ctas_per_sm, int& warps, int& samples) {
+// The residency of the tile's variant W at state size k on the current
+// device: CTAs a multiprocessor holds, warps a CTA, samples a CTA works on
+// at once (the blocked body's persistent grid; the small body's blocks from
+// their shared memory and threads).
+template <typename T, int W>
+cudaError_t tile_occupancy(int k, int& ctas_per_sm, int& warps, int& samples) {
   auto small = [&](auto kernel, int kp) {
     warps = kSmallThreads / 32;
     samples = kSmallThreads / kp;
@@ -898,17 +1142,25 @@ cudaError_t estep_tile_occupancy(int k, int& ctas_per_sm, int& warps, int& sampl
     int sms = 0;
     warps = Blocked<T, KP>::NW;
     samples = 1;
-    return blocked_slots<T, KP, kFullT>(ctas_per_sm, sms);
+    return blocked_slots<T, KP, W>(ctas_per_sm, sms);
   };
+  constexpr int kMaxK = W == kChol ? chol_tile_max_k<T>() : estep_tile_max_k<T>();
   if (k < 1) return cudaErrorInvalidValue;
-  if (k <= 8) return small(spd_estep_small_kernel<T, 8, kFullT>, 8);
-  if (k <= 16) return small(spd_estep_small_kernel<T, 16, kFullT>, 16);
+  if (k <= 8) return small(spd_estep_small_kernel<T, 8, W>, 8);
+  if (k <= 16) return small(spd_estep_small_kernel<T, 16, W>, 16);
   if (k <= 32) return blocked(std::integral_constant<int, 32>{});
   if (k <= 64) return blocked(std::integral_constant<int, 64>{});
-  if constexpr (estep_tile_max_k<T>() > 64) {
-    if (k <= estep_tile_max_k<T>()) return blocked(std::integral_constant<int, 128>{});
+  if constexpr (kMaxK > 64) {
+    if (k <= kMaxK) return blocked(std::integral_constant<int, 128>{});
   }
   return cudaErrorInvalidValue;
+}
+
+// The E-step's residency (measured for fullt) or, chol true, spd_chol's.
+template <typename T>
+cudaError_t estep_tile_occupancy(int k, bool chol, int& ctas_per_sm, int& warps, int& samples) {
+  return chol ? tile_occupancy<T, kChol>(k, ctas_per_sm, warps, samples)
+              : tile_occupancy<T, kFullT>(k, ctas_per_sm, warps, samples);
 }
 
 }  // namespace tile

@@ -1,5 +1,6 @@
-// The tile design of the E-step (spd_estep_tile.cuh) in float, in a source of its
-// own so that nvcc builds it beside the other sources.
+// The tile design of the E-step and of spd_chol (spd_estep_tile.cuh) in
+// float, in a source of its own so that nvcc builds it beside the other
+// sources.
 #include "spd_estep_tile.cuh"
 
 extern "C" int ppca_spd_estep_tile_f32(int want, const void* sigma, long long sigma_stride,
@@ -11,8 +12,8 @@ extern "C" int ppca_spd_estep_tile_f32(int want, const void* sigma, long long si
       static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int ppca_spd_estep_tile_occupancy_f32(int k, int* ctas_per_sm, int* warps,
+extern "C" int ppca_spd_estep_tile_occupancy_f32(int k, int chol, int* ctas_per_sm, int* warps,
                                                   int* samples) {
   return static_cast<int>(
-      ppca::tile::estep_tile_occupancy<float>(k, *ctas_per_sm, *warps, *samples));
+      ppca::tile::estep_tile_occupancy<float>(k, chol != 0, *ctas_per_sm, *warps, *samples));
 }

@@ -1,5 +1,5 @@
 // Panel design of the batched SPD E-step and Cholesky factor (sm_90a), for
-// every k above the register tiles' limits (estep_tile_max_k<T>(),
+// every k above the tile design's limits (estep_tile_max_k<T>(),
 // chol_tile_max_k<T>()), with no upper limit but device memory.
 //
 // Replaces, with the entry points of spd_estep.cu and spd_chol.cu, the
@@ -37,8 +37,9 @@
 // * Panel steps of NB columns (32 in float, 16 in double), the last one
 //   ragged.  Step J, pivot block S = A[J][J], m active rows:
 //   (a) one warp factors S = L11 L11^T in registers (lane r holds row r:
-//       the column step of spd_chol_tile.cuh with shuffles) and inverts
-//       L11 into shared memory, with its transpose (lane c holds column c);
+//       the column step with shuffles, as spd_estep_tile.cuh's kChol) and
+//       inverts L11 into shared memory, with its transpose (lane c holds
+//       column c);
 //       where step J - 1's (c) has kAheadTiles tiles or more, it does so
 //       during that (c), once it has updated the tile that holds S
 //       (look-ahead), else after step J - 1;

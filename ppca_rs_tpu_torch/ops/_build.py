@@ -135,10 +135,10 @@ def load() -> ctypes.CDLL:
                 fn.argtypes = [ctypes.c_int]   # bytes per element
                 fn.restype = ctypes.c_int
             ip = ctypes.POINTER(ctypes.c_int)
-            # bytes per element, device, k; CTAs per multiprocessor, warps,
-            # samples a CTA (outputs)
+            # bytes per element, device, k, spd_chol (1) or the E-step (0);
+            # CTAs per multiprocessor, warps, samples a CTA (outputs)
             lib.spd_estep_tile_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                                     ip, ip, ip]
+                                                     ctypes.c_int, ip, ip, ip]
             lib.spd_estep_tile_occupancy.restype = ctypes.c_int
             lib.spd_estep_error_string.argtypes = [ctypes.c_int]
             lib.spd_estep_error_string.restype = ctypes.c_char_p

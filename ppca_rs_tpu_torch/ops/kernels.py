@@ -45,8 +45,9 @@ the JAX package leaves k = 0 to XLA.
 :func:`spd_chol` is the batched lower Cholesky factor ``L (B, k, k)`` of SPD
 matrices ``M (B, k, k)`` behind the posterior sampler: the kernel behind
 ``csrc/spd_chol.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:spd_chol``)
-on CUDA tensors -- the register tile of ``csrc/spd_chol_tile.cuh`` up to
-the tile limit, the panel design above it -- and
+on CUDA tensors -- up to the tile limit the E-step tile's sixth variant
+(``kChol`` in ``csrc/spd_estep_tile.cuh``: the same two bodies, the
+products on the tensor cores above k=16), the panel design above it -- and
 :func:`spd_chol_reference` on CPU tensors.
 """
 
@@ -78,9 +79,9 @@ def reset_launch_counts() -> None:
 def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) -> str:
     """Which design serves state size k on the card for ``kernel``
     ("estep": every spd_estep variant; "chol": spd_chol) and ``dtype``:
-    "tile" (the E-step: a sample in one warp's registers up to k=16, one
-    CTA a sample with its matrix in shared memory above; the Cholesky: a
-    register tile over one or more warps) or "panel" (one CTA a sample,
+    "tile" (a sample in one warp's registers up to k=16, one CTA a sample
+    with its matrix in shared memory above; spd_chol is the tile's sixth
+    variant) or "panel" (one CTA a sample,
     the working matrix in device memory, each panel step's columns staged
     once in shared memory and its products on the tensor cores, any k), by
     the tile limit that the kernel library reports for that kernel and
@@ -94,8 +95,10 @@ def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) ->
     return "tile" if k <= limit(dtype.itemsize) else "panel"
 
 
-def tile_occupancy(k: int, dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
-    """The E-step tile's residency at state size k on the current card:
+def tile_occupancy(k: int, dtype: torch.dtype = torch.float32,
+                   kernel: str = "estep") -> Tuple[int, int, int]:
+    """The tile's residency at state size k on the current card for
+    ``kernel`` ("estep": its fullt instantiation; "chol": spd_chol's):
     ``(CTAs per multiprocessor, warps per CTA, samples per CTA)``, as the
     CUDA occupancy calculator gives it for the kernel serving k (the
     blocked body's persistent grid runs that many CTAs a multiprocessor).
@@ -104,12 +107,13 @@ def tile_occupancy(k: int, dtype: torch.dtype = torch.float32) -> Tuple[int, int
 
     from . import _build
 
-    if design(k, "estep", dtype) != "tile" or k < 1:
-        raise ValueError(f"k={k} is not served by the E-step tile in {dtype}")
+    if design(k, kernel, dtype) != "tile" or k < 1:
+        raise ValueError(f"k={k} is not served by the tile for {kernel} in {dtype}")
     index = torch.cuda.current_device()
     out = [ctypes.c_int(0) for _ in range(3)]
     lib = _build.load()
-    err = lib.spd_estep_tile_occupancy(dtype.itemsize, index, k, *(ctypes.byref(v) for v in out))
+    err = lib.spd_estep_tile_occupancy(dtype.itemsize, index, k, int(kernel == "chol"),
+                                       *(ctypes.byref(v) for v in out))
     if err != 0:
         raise RuntimeError(f"spd_estep_tile_occupancy failed (k={k}): "
                            f"{lib.spd_estep_error_string(err).decode()}")

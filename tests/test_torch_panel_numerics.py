@@ -14,11 +14,15 @@ panel's blocked right-looking Cholesky factor and blocked symmetric
 Gauss-Jordan inverse at NB=32, and the tile's (``tile_estep``, a
 transcription of the kernel's steps: the pivot block inverted by the
 Gauss-Jordan sweep, Y = U P, the active lower triangle taking -Y U^T) at
-its NB=16, as the block LDL^T solve of ``states`` and the inverse of
-``infer``.  The split must hold the kernels' float32 tolerance (1e-4
-relative to each output's largest magnitude); one TF32 product alone must
-not be close to it.  ``tile_estep`` with exact float64 products is also
-held against the plain version at 1e-10 in every variant.
+its NB=16, as the block LDL^T solve of ``states``, the inverse of
+``infer`` and the Cholesky factor of ``chol`` (spd_chol: the pivot block
+factored by the column step into L11 and L11^{-1}, L21 = U L11^{-T}, the
+active lower triangle taking -L21 L21^T).  The split must hold the
+kernels' float32 tolerance (1e-4 relative to each output's largest
+magnitude); one TF32 product alone must not be close to it.
+``tile_estep`` with exact float64 products is also held against the plain
+version at 1e-10 in every variant, and its ``chol`` against numpy's
+Cholesky, failed samples included.
 """
 
 import math
@@ -123,6 +127,80 @@ def gj_sweep(S: torch.Tensor, x: torch.Tensor):
     return a, x, piv, z
 
 
+def chol_sweep(S: torch.Tensor):
+    """The tile's Cholesky column step on a block S (lane r holds row r of
+    its lower triangle, zeros above): d = A[j][j], column j becomes
+    A[:,j] / sqrt(d) at rows >= j (0 above), every row r takes
+    -u_r u_l at l > j.  ``(L with zeros above the diagonal, pivots,
+    1 / sqrt(pivots))``."""
+    n = S.shape[0]
+    low = torch.ones(n, n, dtype=torch.bool).tril()
+    a = torch.where(low, S, torch.zeros((), dtype=S.dtype))
+    rows = torch.arange(n)
+    piv, rs = torch.empty(n, dtype=S.dtype), torch.empty(n, dtype=S.dtype)
+    for j in range(n):
+        d = a[j, j].clone()
+        r = torch.rsqrt(d)
+        u = torch.where(rows >= j, a[:, j] * r, torch.zeros((), dtype=S.dtype))
+        a[:, j] = u
+        a[:, j + 1:] -= u[:, None] * u[None, j + 1:]
+        piv[j], rs[j] = d, r
+    return a, piv, rs
+
+
+def forward_inverse(L11: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
+    """L11^{-1} as the kernel forms it, lane c column c by forward
+    substitution on e_c with the pivots' 1/sqrt(d): zeros above the
+    diagonal."""
+    X = torch.eye(L11.shape[0], dtype=L11.dtype)
+    for i in range(L11.shape[0]):
+        X[i] *= rs[i]
+        X[i + 1:] -= L11[i + 1:, i:i + 1] * X[i:i + 1]
+    return X
+
+
+def tile_cholesky(M: torch.Tensor, split, nb: int = TILE_NB):
+    """The tile's ``chol`` (spd_chol at k <= 128) on one sample, in M's
+    dtype, on the kernel's storage: M's lower triangle only (NaN above it),
+    padded with an identity block to KP.  Up to KP=16 one column sweep of
+    the whole block; above, steps of nb columns: the pivot block's sweep
+    gives L11 (written into block J) and L11^{-1}; the rows below block J
+    stage U; L21 = U L11^{-T} becomes block column J; the active lower
+    triangle takes -L21 L21^T.  A pivot <= 0 or NaN (log det not finite)
+    makes L NaN on and below the diagonal; above it L is 0.
+    Returns ``(L, log det M)``."""
+    k = M.shape[0]
+    KP = next(p for p in TILE_SIZES if p >= k)
+    dtype = M.dtype
+    low = torch.ones(KP, KP, dtype=torch.bool).tril()
+    A = torch.eye(KP, dtype=dtype)
+    A[:k, :k] = M
+    A = torch.where(low, A, torch.full_like(A, math.nan))
+    if KP <= 16:
+        A, piv, _ = chol_sweep(A)
+        logdet = torch.log(piv).sum()
+    else:
+        lnb = low[:nb, :nb]
+        logdet = torch.zeros((), dtype=dtype)
+        for j0 in range(0, KP, nb):
+            j1 = j0 + nb
+            blk = A[j0:j1, j0:j1]
+            L11, piv, rs = chol_sweep(blk)
+            logdet = logdet + torch.log(piv).sum()
+            A[j0:j1, j0:j1] = torch.where(lnb, L11, blk)
+            if j1 == KP:
+                continue
+            U = A[j1:, j0:j1].clone()
+            Y = product(U, forward_inverse(L11, rs), split)   # U L11^{-T}
+            A[j1:, j0:j1] = Y
+            sub = A[j1:, j1:]
+            lower = torch.ones(KP - j1, KP - j1, dtype=torch.bool).tril()
+            A[j1:, j1:] = torch.where(lower, sub - product(Y, Y, split), sub)
+    poison = 0.0 if bool(torch.isfinite(logdet)) else math.nan
+    L = torch.where(low[:k, :k], A[:k, :k] + poison, torch.zeros((), dtype=dtype))
+    return L, logdet
+
+
 def tile_estep(M: torch.Tensor, b: torch.Tensor, want: str, split, nb: int = TILE_NB):
     """The E-step tile's algorithm on one sample, M = sigma^2 I + G (k, k),
     in M's dtype, with the kernel's storage: M padded with an identity block
@@ -207,6 +285,9 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 # (k=13 is one diagonal block of the tile, KP=16: no product is taken)
 CASES = [pytest.param(NB, k, id=str(k)) for k in (131, 160, 256)] + [
     pytest.param(TILE_NB, k, id=f"tile-nb{TILE_NB}-{k}") for k in (13, 50, 64, 128)]
+# ... and for the Cholesky factor also the tile's chol (spd_chol at k <= 128)
+CHOL_CASES = [pytest.param(*case.values, False, id=case.id) for case in CASES] + [
+    pytest.param(TILE_NB, k, True, id=f"tile-nb{TILE_NB}-chol-{k}") for k in (50, 64, 128)]
 
 
 def check_split(errs, nb, k, what):
@@ -220,9 +301,17 @@ def check_split(errs, nb, k, what):
         assert errs[False] > 10 * errs[True], msg
 
 
-@pytest.mark.parametrize("nb,k", CASES)
-def test_blocked_cholesky_in_3xtf32_holds_the_float32_tolerance(nb, k):
+@pytest.mark.parametrize("nb,k,chol", CHOL_CASES)
+def test_blocked_cholesky_in_3xtf32_holds_the_float32_tolerance(nb, k, chol):
     M, G, b, mask = masked_spd(k, seed=k)
+    if chol:
+        # the tile's chol: L of M itself
+        ref = tk.spd_chol_reference(M)
+        errs = {split: max(rel_err(tile_cholesky(M[n].float(), split, nb)[0], ref[n])
+                           for n in range(N_SAMPLES))
+                for split in (True, False)}
+        check_split(errs, nb, k, "L")
+        return
     if nb == NB:
         ref = tk.spd_chol_reference(M)
         errs = {split: max(rel_err(blocked_cholesky(M[n].float(), split, nb), ref[n])
@@ -283,6 +372,30 @@ def test_tile_algorithm_matches_the_plain_version(k):
             for g, r in zip(got, ref):
                 assert bool(torch.isfinite(g).all()), (want, k)
                 assert rel_err(g.reshape(-1), r[n].reshape(-1)) <= TOL_F64, (want, k)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 13, 24, 50, 64, 99, 100, 128])
+def test_tile_cholesky_matches_numpy(rng, k):
+    """The tile's chol steps with exact float64 products factor SPD samples
+    as numpy does (1e-10), reading M's lower triangle only (NaN stored
+    above it); a negative-definite and an indefinite sample go NaN on and
+    below the diagonal, alone, with zeros above it."""
+    B = 6
+    V = rng.normal(size=(B, k, 2 * k)) / np.sqrt(2 * k)
+    M = V @ np.swapaxes(V, -1, -2) + 0.1 * np.eye(k)
+    M[1] = -M[1]                                   # negative definite
+    if k > 1:
+        M[4, k - 1, k - 1] = -1.0                  # indefinite: fails at the last pivot
+    else:
+        M[4] = -1.0
+    stored = np.where(np.triu(np.ones((k, k), bool), 1), np.nan, M)
+    L = np.stack([tile_cholesky(torch.from_numpy(stored[n]), None)[0].numpy() for n in range(B)])
+    good = [0, 2, 3, 5]
+    np.testing.assert_allclose(L[good], np.linalg.cholesky(M[good]), rtol=TOL_F64, atol=TOL_F64)
+    assert np.all(np.triu(L, 1) == 0)
+    lower = np.tril_indices(k)
+    for bad in (1, 4):
+        assert np.isnan(L[bad][lower]).all()
 
 
 def test_tf32_rounds_to_nearest_ties_away():

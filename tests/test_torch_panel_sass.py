@@ -1,5 +1,6 @@
 """tools/torch_panel_sass.py: the tensor-core and spill counts of the panel
-and E-step tile kernels read from a cuobjdump listing (a small hand-made
+and tile kernels (the E-step's variants and spd_chol's) read from a
+cuobjdump listing (a small hand-made
 listing here; the real one is made on the card, SKILL.md's ptxas command)."""
 
 import importlib.util
@@ -25,7 +26,10 @@ LISTING = """
         /*0000*/                   DMMA.8x8x4 R4, R8, R12, R4 ;
         /*0010*/                   DMMA.8x8x4 R4, R8, R12, R4 ;
         /*0020*/                   EXIT ;
-		Function : _ZN4ppca4tile20spd_chol_tile_kernelIfLi64EEEvPKT_PS2_xi
+		Function : _ZN4ppca4tile21spd_estep_tile_kernelIfLi64ELi5EEEvPKT_xS4_S4_S4_S4_PS2_S5_S5_S5_xi
+        /*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0010*/                   EXIT ;
+		Function : _ZN4ppca4tile9stage_rowIfEEvPT_PKS2_iiii
         /*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 		Function : _ZN4ppca4tile21spd_estep_tile_kernelIfLi64ELi0EEEvPKT_xS4_S4_S4_S4_PS2_S5_S5_S5_xi
         /*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
@@ -42,7 +46,7 @@ def test_counts_per_panel_kernel(tmp_path, capsys):
     path.write_text(LISTING)
     sass.main([str(path)])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 4  # the Cholesky tile kernel is neither a panel nor an E-step tile kernel
+    assert len(lines) == 5  # a function that is no kernel of either design is not counted
     assert lines[0].startswith("spd_panel_kernel<float, 0>: HMMA.TF32 3, DMMA 0, local loads+stores 2")
     assert "runs: 3 mma/1 spill" in lines[0]  # the LDL between the products
     assert lines[1].startswith("spd_panel_kernel<double, 5>: HMMA.TF32 0, DMMA 2, local loads+stores 0")
@@ -57,14 +61,18 @@ def test_runs_split_at_long_gaps():
 
 
 def test_counts_per_estep_tile_kernel(tmp_path, capsys):
-    """The E-step tile's blocked body (float, KP=64, fullt) and one-block
-    body (double, KP=16, llk) are reported by their template arguments."""
+    """The tile's blocked body (float, KP=64: spd_chol's want 5 and fullt)
+    and one-block body (double, KP=16, llk) are reported by their template
+    arguments."""
     path = tmp_path / "listing.sass"
     path.write_text(LISTING)
     sass.main([str(path)])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[2].startswith("spd_estep_tile_kernel<float, 64, 0>: HMMA.TF32 2, DMMA 0, "
+    assert lines[2].startswith("spd_estep_tile_kernel<float, 64, 5>: HMMA.TF32 1, DMMA 0, "
                                "local loads+stores 0")
-    assert "runs: 2 mma/0 spill" in lines[2]
-    assert lines[3].startswith("spd_estep_small_kernel<double, 16, 2>: HMMA.TF32 0, DMMA 0, "
+    assert "runs: 1 mma/0 spill" in lines[2]
+    assert lines[3].startswith("spd_estep_tile_kernel<float, 64, 0>: HMMA.TF32 2, DMMA 0, "
+                               "local loads+stores 0")
+    assert "runs: 2 mma/0 spill" in lines[3]
+    assert lines[4].startswith("spd_estep_small_kernel<double, 16, 2>: HMMA.TF32 0, DMMA 0, "
                                "local loads+stores 0")

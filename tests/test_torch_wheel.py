@@ -46,7 +46,7 @@ def test_wheel_carries_the_ports_runtime_files(tmp_path):
     names = set(zipfile.ZipFile(wheel).namelist())
 
     want = runtime_files()
-    assert len([f for f in want if "/csrc/" in f]) >= 13
+    assert len([f for f in want if "/csrc/" in f]) >= 10
     assert f"{PORT}/native/packing.cpp" in want
     assert not [f for f in want if f not in names]
     modules = sorted(str(f.relative_to(ROOT)) for f in (ROOT / PORT).rglob("*.py"))

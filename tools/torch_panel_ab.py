@@ -5,13 +5,15 @@ another version of the kernel sources.
 
     python3 tools/torch_panel_ab.py check
     python3 tools/torch_panel_ab.py time --other DIR[:LABEL] [--other ...] [--cases ...]
+    python3 tools/torch_panel_ab.py sampler --other DIR[:LABEL] [--other ...]
 
 ``check`` launches every spd_estep variant and spd_chol through the
 package's wrappers at state sizes served by the tile design (float32 k in
 {2, 8, 13, 16, 24, 50, 64, 99, 128}, float64 k in {2, 8, 13, 16, 24, 50,
-64}: each padded size, ragged and not) and by the panel design (float32 k
-in {131, 160, 257, 512, 704}, float64 k in {65, 99, 160, 257, 704}; 704
-takes the chunked staging), on inputs with three all-masked samples and one negative-definite
+64}, and spd_chol also at float64 k in {65, 99, 128}: each padded size,
+ragged and not) and by the panel design (float32 k in {131, 160, 257, 512,
+704}, float64 k in {65, 99, 128, 160, 257, 704} for spd_estep, {160, 257,
+704} for spd_chol; 704 takes the chunked staging), on inputs with three all-masked samples and one negative-definite
 sample, into NaN-prefilled outputs, and holds each against its plain
 version in float64 (1e-4 relative to each output's largest magnitude in
 float32, 1e-10 in float64): the negative-definite sample must come back
@@ -25,7 +27,8 @@ points) into a library of its own and times the same launches through
 every library into the same preallocated outputs, in turns (the others,
 this checkout twice, the others in reverse order), CUDA events around 10
 back-to-back launches after one (30 for the tile's shapes); the cases at
-launch scale (k <= 16, or B <= 4096) are also timed as those launches
+launch scale (k <= 16, B <= 4096, or chol at k <= 32: the mixture's
+sampler) are also timed as those launches
 captured in a CUDA graph and replayed, the device's time without the
 host's cost of each launch between them.  By default the
 tile's shapes -- every variant at float32 k in {50, 64, 128} (B=8192) and
@@ -36,8 +39,22 @@ mixture tables), states at k=64 B=1024
 and k=32 B=4096), and every variant at k in {8, 16} (the one-block
 sizes) -- then every variant at float32 k in {160, 256, 512} (B 8192,
 8192, 512), float64 fullt at k in {96, 128, 160} (B 8192), and chol beside
-torch.linalg.cholesky_ex (which the port never calls) at k in {131, 160,
-256, 257, 512}.  Prints one ``[ab]`` line per case and a JSON list.
+torch.linalg.cholesky_ex (which the port never calls) and its bound
+(chip_smoke.py's): the tile's float32 k
+in {8, 16, 32, 50, 64, 99, 128} and float64 k in {64, 99, 128} (B 8192),
+then the panel design's float32 k in {131, 160, 256, 257, 512}.  Prints
+one ``[ab]`` line per case and a JSON list.
+
+``sampler`` times the posterior sampler end to end through each library in
+the same turns (the package's loaded library swapped, host clock around
+calls ending in a device sync, three calls a turn): chip_smoke.py's
+``[k128]`` readout -- ``infer`` + ``posterior_sampler`` + one draw of
+8,192 rows at D=1024, k=128, 50% missing -- and ``posterior_sampler``
+alone, and the mixture's sampler readout of ``mix_readouts`` --
+``posterior_sampler`` (one spd_chol launch a component) and one draw of
+8,192 rows at D=512, k=32, M=8, 80% observed -- with models from one
+seeded init (chip_smoke.py trains them first; the factor's work does not
+depend on it).
 
 It needs a CUDA card and nvcc; the library of this checkout is built by the
 package itself.
@@ -67,12 +84,16 @@ SIGMA = 0.7
 #: Noise levels cycled over the batch where a case takes a sigma per sample.
 SIGMA_LEVELS = (0.4, 0.7, 1.0, 1.3)
 CHECK_F32 = (2, 8, 13, 16, 24, 50, 64, 99, 128, 131, 160, 257, 512, 704)
-CHECK_F64 = (2, 8, 13, 16, 24, 50, 64, 65, 99, 160, 257, 704)
+CHECK_F64 = (2, 8, 13, 16, 24, 50, 64, 65, 99, 128, 160, 257, 704)
 #: The sample made negative definite in the check.
 NOT_PD = 5
 TIME_F32 = ((160, 8192), (256, 8192), (512, 512))
 TIME_F64 = ((96, 8192), (128, 8192), (160, 8192))
-TIME_CHOL = ((131, 8192), (160, 8192), (256, 2048), (257, 1024), (512, 512))
+#: spd_chol: (k, B, dtype name), the tile's shapes, then the panel design's.
+TIME_CHOL = ([(k, 8192, "f32") for k in (8, 16, 32, 50, 64, 99, 128)]
+             + [(k, 8192, "f64") for k in (64, 99, 128)]
+             + [(131, 8192, "f32"), (160, 8192, "f32"), (256, 2048, "f32"), (257, 1024, "f32"),
+                (512, 512, "f32")])
 #: The tile's shapes: (want, k, B, dtype name, sigma per sample).
 TIME_TILE = ([(w, k, 8192, "f32", False) for k in (50, 64, 128) for w in kernels.WANTS]
              + [(w, 32, 65536, "f32", True) for w in kernels.WANTS]
@@ -280,7 +301,7 @@ def default_cases():
     cases = [(want, k, B, DTYPES[dt], ps) for want, k, B, dt, ps in TIME_TILE]
     cases += [(want, k, B, torch.float32, False) for k, B in TIME_F32 for want in kernels.WANTS]
     cases += [("fullt", k, B, torch.float64, False) for k, B in TIME_F64]
-    return cases + [("chol", k, B, torch.float32, False) for k, B in TIME_CHOL]
+    return cases + [("chol", k, B, DTYPES[dt], False) for k, B, dt in TIME_CHOL]
 
 
 def parse_cases(text: str):
@@ -295,6 +316,8 @@ def parse_cases(text: str):
 def time_ab(others, cases) -> list:
     """Each case through every library in turns: the others in order, this
     checkout twice, the others in reverse order; two readings each."""
+    import chip_smoke as cs
+
     libs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for csrc, label in others:
@@ -308,7 +331,7 @@ def time_ab(others, cases) -> list:
         rows = []
         for want, k, B, dtype, per_sample in cases:
             reps = TILE_REPS if k <= 128 else REPS
-            graphed = k <= 16 or B <= 4096
+            graphed = k <= 16 or B <= 4096 or (want == "chol" and k <= 32)
             if want == "chol":
                 M = spd_inputs(B, k, k + 1).to(dtype).contiguous()
                 L = torch.empty_like(M)
@@ -345,6 +368,11 @@ def time_ab(others, cases) -> list:
                 row["library_ms"] = [events_ms(fn, reps), events_ms(fn, reps)]
                 line += (", torch.linalg.cholesky_ex "
                          + "/".join(f"{t:.4f}" for t in row["library_ms"]) + " ms")
+                # chip_smoke.time_chol's bound: M's lower triangle in, L out whole
+                peak = cs.peak_flops(k, "chol", dtype)
+                row["bound_ms"], row["bound_by"] = cs.bound(
+                    B * (k * (k + 1) // 2 + k * k) * dtype.itemsize, B * k ** 3 / 3, peak)
+                line += "; " + cs.bound_note(row["bound_ms"], row["bound_by"], peak)
             rows.append(row)
             print(f"[ab] {want} k={k} B={B} {str(dtype)[6:]}"
                   f"{', sigma per sample' if per_sample else ''}: {line}", flush=True)
@@ -353,11 +381,70 @@ def time_ab(others, cases) -> list:
     return rows
 
 
+def time_sampler(others) -> list:
+    """The sampler readouts through every library in turns (the others,
+    this checkout twice, the others in reverse order)."""
+    import chip_smoke as cs
+    from ppca_rs_tpu_torch import PPCAMix, PPCAModel
+
+    libs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for csrc, label in others:
+            (Path(tmp) / label).mkdir()
+            libs[label] = build_other(csrc, Path(tmp) / label, label)
+        libs["this"] = _build.load()
+        order = [label for _, label in others]
+        order = order + ["this", "this"] + order[::-1]
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+        rows = cs.make_main_dataset(cs.N_WIDE_SAMPLER, cs.WIDE_K, cs.SEED + 10)
+        model = PPCAModel.init(cs.WIDE_K, rows, generator=gen)
+        mix_rows = cs.make_mix_dataset(n=cs.N_MIX_READOUT)
+        mix = PPCAMix.init(cs.M_MIX, cs.K_MIX, mix_rows, generator=gen)
+        mix_inferred = mix.infer(mix_rows)
+        draw_gen = torch.Generator(device="cuda")
+
+        def k128():
+            inferred = model.infer(rows)
+            inferred.posterior_sampler().sample(generator=draw_gen.manual_seed(1))
+
+        def k128_sampler():
+            return model.infer(rows)
+
+        cases = {
+            f"[k128] infer + posterior_sampler + one draw of {len(rows)} rows": (k128, None),
+            "[k128] posterior_sampler alone": (lambda inf: inf.posterior_sampler(), k128_sampler),
+            f"[mix] posterior_sampler of {len(mix_rows)} rows": (
+                lambda inf: inf.posterior_sampler(), lambda: mix_inferred),
+            f"[mix] posterior_sampler + one draw of {len(mix_rows)} rows": (
+                lambda inf: inf.posterior_sampler().sample(generator=draw_gen.manual_seed(2)),
+                lambda: mix_inferred),
+        }
+        out = []
+        for name, (fn, setup) in cases.items():
+            secs = {label: [] for label in libs}
+            for label in order:
+                _build._lib = libs[label]
+                arg = setup() if setup else None
+                for _ in range(4):   # one warm-up call, three timed
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(arg) if setup else fn()
+                    torch.cuda.synchronize()
+                    secs[label].append(time.perf_counter() - t0)
+                secs[label] = secs[label][:-4] + secs[label][-3:]
+            _build._lib = libs["this"]
+            print(f"[ab] {name}: " + ", ".join(
+                f"{label} {'/'.join(f'{t * 1e3:.2f}' for t in v)} ms" for label, v in secs.items()),
+                flush=True)
+            out.append(dict(case=name, seconds=secs))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("check", "time"))
+    ap.add_argument("mode", choices=("check", "time", "sampler"))
     ap.add_argument("--other", action="append", default=[], metavar="DIR[:LABEL]",
-                    help="another version's csrc directory (time; repeatable)")
+                    help="another version's csrc directory (time, sampler; repeatable)")
     ap.add_argument("--cases", help="want:k:B:f32|f64[:ps],... (time; default: the list above)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -372,11 +459,14 @@ def main() -> int:
     if args.mode == "check":
         return 0 if check() else 1
     if not args.other:
-        ap.error("time needs --other")
+        ap.error(f"{args.mode} needs --other")
     others = []
     for i, spec in enumerate(args.other):
         path, _, label = spec.partition(":")
         others.append((Path(path), label or f"other{i}"))
+    if args.mode == "sampler":
+        print(json.dumps(time_sampler(others)))
+        return 0
     cases = parse_cases(args.cases) if args.cases else default_cases()
     print(json.dumps(time_ab(others, cases)))
     return 0
