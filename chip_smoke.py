@@ -31,13 +31,23 @@ fourteen phases; any failed check raises and the script exits non-zero:
    ``full`` also at B=32 and ``states`` at
    B=1024, the pattern tables' and the row solve's shapes; fullt also at
    k=50 (rows not 16-byte aligned, beside k=64) and in float64 at k in
-   {96, 128, 160}, and states and llk at k=96 (phase 11c's);
+   {96, 128, 160}, and states and llk at k=96 (phase 11c's); G as slabs
+   (the layout the masked and general mixture routes build,
+   ``kernels.uses_slabs``): every variant at float32 k in {24, 32, 40, 64,
+   72, 104, 128} and float64 k in {32, 40, 64}, with NaN in the slab
+   entries above the diagonal (never read) and every output element
+   NaN-prefilled and checked, against the plain version and bit for bit
+   against square G, slab G refused at k=16 and above the tile, and
+   fullt, llk, states and infer on slab G timed in turns with square G at
+   k=32 (B=65,536, a sigma per sample), 64 and 128;
 3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
    missing at random, N=1,048,576 float32 rows made on the card from a
    seed (pattern detection must demote them), five trainer iterations,
    then the llk, infer, covariance-diagonal, smooth and extrapolate
-   readouts, with the kernel launch counts of that run, and a profile of
-   one more EM iteration (spd_estep, matmuls, the rest, device idle share);
+   readouts, with the kernel launch counts of that run (and of them those
+   on slab G: every E-step; the M-step's row solves are square), and a
+   profile of one more EM iteration (spd_estep, matmuls, the rest, device
+   idle share);
 4. one EM step and the per-sample llks of a 16,384-row slice on the card in
    float32 against the port's plain path on the CPU in float64;
 5. the pattern path at full width: N=1,000,000, D=1024, k=64, rows drawn
@@ -160,7 +170,9 @@ fourteen phases; any failed check raises and the script exits non-zero:
 The line before the last is the JSON kernel summary (the tile's kernels
 on the main path, with phase 12's ``full`` and ``states`` under
 ``at_patmix`` and spd_chol's float64 times under ``at_f64``, then the panel
-design's kernels on phase 11's path); the
+design's kernels on phase 11's path; fullt, llk, states and infer, which
+the routes launch on slab G, carry ``slab_launches``, ``layout`` and the
+same launches' times on square G under ``square``); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -419,6 +431,23 @@ FUZZ_WORK = 1e9
 TOL_FUZZ_F64 = 1e-8
 SEED = 20261016
 
+#: Phase 2's checks of G as slabs (``kernels.uses_slabs``): the float32 and
+#: float64 state sizes, 40, 72 and 104 ragged on the tensor-core tiles
+#: (multiples of 8, of neither 16 nor 32), each variant on B=SLAB_BATCH
+#: samples; and the state sizes refused slabs: the one-block body (16) and
+#: the panel design (float32 136, float64 72).
+SLAB_KS = {torch.float32: (24, 32, 40, 64, 72, 104, 128), torch.float64: (32, 40, 64)}
+SLAB_BATCH = 2048
+SLAB_REFUSED = ((16, torch.float32), (136, torch.float32), (72, torch.float64))
+#: The variants the masked and mixture routes launch on slab G, and the
+#: shapes at which they are timed on slab G in turns with square G: phase
+#: 8's (k=32, M_MIX x 8,192 samples, a sigma per sample), phase 3's and
+#: phase 7's (B=BATCH).
+SLAB_WANTS = ("fullt", "llk", "states", "infer")
+SLAB_TIMED = ((K_MIX, M_MIX * 8192, True), (TIMED_K, BATCH, False), (WIDE_K, BATCH, False))
+#: Slab launches of the main runs of phases 3, 7 and 8 (kernels.SLAB_LAUNCHES).
+SLAB_COUNTS: dict = {}
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -488,10 +517,11 @@ def kernel_inputs(B: int, k: int, gen):
 
 
 #: torch.profiler kernel names -> the kernel they time and its element
-#: type: by the ``want`` template argument of the tile's kernels (its last
-#: one) and the panel design's: 0-4 an spd_estep variant, 5 spd_chol.
+#: type: by the ``want`` template argument of the tile's kernels (the
+#: blocked body's third, before its layout; the one-block body's last) and
+#: the panel design's: 0-4 an spd_estep variant, 5 spd_chol.
 _KERNEL_NAME = re.compile(
-    r"spd_(?:estep_(?:tile|small)_kernel<(float|double), \d+, (\d)>"
+    r"spd_(?:estep_(?:tile|small)_kernel<(float|double), \d+, (\d)(?:, (?:true|false))?>"
     r"|panel_kernel<(float|double), (\d)>)")
 
 
@@ -557,21 +587,22 @@ def bound_note(b_ms: float, by: str, peak: float) -> str:
     return f"bound {b_ms * 1e3:.2f} us ({by}{f' at {peak / 1e12:g} TFLOP/s' if by == 'operations' else ''})"
 
 
-def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1):
+def estep_work(want: str, B: int, k: int, itemsize: int, n_sigma: int = 1, slab: bool = False):
     """(bytes, FLOPs) of one spd_estep launch.  Bytes: each input (G, b,
     rnorm, d_obs, ``n_sigma`` sigmas) read once and each output written
     once, where of the symmetric G only the lower triangle need be read,
-    k(k+1)/2 elements a sample, and of fullt's SM only the lower triangle
-    need be written, since its consumers (masked_linalg.em_stats and
-    mix_fused.mix_em_stats, through their M-steps) rebuild S from it.
-    FLOPs: the Cholesky factor k^3/3, M^{-1} from it 2k^3/3 more, k^2 for
-    each triangular solve and for s s^T."""
+    k(k+1)/2 elements a sample, and of fullt's square SM only the lower
+    triangle need be written, since its consumers (masked_linalg.em_stats
+    and mix_fused.mix_em_stats, through their M-steps) rebuild S from it;
+    fullt's slab SM (``slab``) is written whole, slab_width(k) elements a
+    sample.  FLOPs: the Cholesky factor k^3/3, M^{-1} from it 2k^3/3 more,
+    k^2 for each triangular solve and for s s^T."""
     from ppca_rs_tpu_torch.ops import kernels
 
     tri = k * (k + 1) // 2
     elems = B * tri + B * k + 2 * B + n_sigma
-    for sh in kernels.output_shapes(want, B, k):
-        elems += B * tri if want == "fullt" and len(sh) == 3 else math.prod(sh)
+    for i, sh in enumerate(kernels.output_shapes(want, B, k, slab)):
+        elems += B * tri if want == "fullt" and i == 1 and not slab else math.prod(sh)
     if want == "llk":
         flops = k ** 3 / 3 + k * k
     elif want == "states":
@@ -595,9 +626,10 @@ def design_note(k: int, kernel: str, dtype) -> str:
 
 
 def defined(want: str, outs) -> list:
-    """The output elements a kernel defines: fullt's SM (its second output)
-    on and below the diagonal, as (B, k(k+1)/2); every other output whole."""
-    if want != "fullt":
+    """The output elements a kernel defines: fullt's square SM (its second
+    output) on and below the diagonal, as (B, k(k+1)/2); every other output,
+    and fullt's slab SM, whole."""
+    if want != "fullt" or outs[1].ndim == 2:
         return list(outs)
     sm = outs[1]
     k = sm.shape[-1]
@@ -606,11 +638,18 @@ def defined(want: str, outs) -> list:
 
 
 def check_above_untouched(tag: str, want: str, outs) -> None:
-    """fullt writes nothing above SM's diagonal: the NaN it was prefilled
-    with is still there."""
+    """fullt writes nothing above square SM's diagonal: the NaN it was
+    prefilled with is still there; slab SM is written 0 above it."""
+    from ppca_rs_tpu_torch.ops import kernels
+
     if want != "fullt":
         return
     sm = outs[1]
+    if sm.ndim == 2:
+        rows, cols = kernels.slab_coords(outs[0].shape[-1], sm.device)
+        check(bool((sm[:, cols > rows] == 0).all()),
+              f"{tag}: fullt's slab SM is not 0 above the diagonal")
+        return
     k = sm.shape[-1]
     up = torch.ones(k, k, dtype=torch.bool, device=sm.device).triu(1)
     check(bool(torch.isnan(sm[:, up]).all()), f"{tag}: fullt wrote above the diagonal of SM")
@@ -631,12 +670,12 @@ def time_estep(k: int, x, wants, sigma=None) -> dict:
     from ppca_rs_tpu_torch.ops import kernels
 
     G, b, rn, do = x["G"], x["b"], x["rnorm"], x["d_obs"]
-    B, dtype = G.shape[0], G.dtype
+    B, dtype, slab = G.shape[0], G.dtype, G.ndim == 2
     reps = kernel_reps(k)
     sig = torch.full((1,), SIGMA, dtype=dtype, device="cuda") if sigma is None else sigma
     rows, launchers = {}, {}
     for want in wants:
-        outs = kernels.empty_outputs(want, B, k, G)
+        outs = kernels.empty_outputs(want, B, k, G, slab=slab)
         scratch = kernels.empty_scratch(want, B, k, G)
         kern = functools.partial(kernels.launch, want, sig, G, b, rn, do, outs, scratch)
         plain = functools.partial(kernels.spd_estep_reference, sig, G, b, rn, do, want)
@@ -649,17 +688,18 @@ def time_estep(k: int, x, wants, sigma=None) -> dict:
     for want, r in rows.items():
         (k1, k2), (p1, p2) = r["events"], r["plains"]
         peak = peak_flops(k, "estep", dtype)
-        b_ms, by = bound(*estep_work(want, B, k, dtype.itemsize, sig.numel()), peak)
+        b_ms, by = bound(*estep_work(want, B, k, dtype.itemsize, sig.numel(), slab), peak)
         dev = device[want]
         print(f"[time] {want} k={k} B={B} {str(dtype)[6:]}"
-              f"{', sigma per sample' if sig.numel() > 1 else ''}, "
+              f"{', sigma per sample' if sig.numel() > 1 else ''}{', slab G' if slab else ''}, "
               f"{design_note(k, 'estep', dtype)}: kernel "
               f"{k1:.4f}/{k2:.4f} ms (events, {reps} launches), "
               f"{'not measured' if dev is None else f'{dev:.4f} ms'} device time (profiler); "
               f"plain {p1:.4f}/{p2:.4f} ms; {bound_note(b_ms, by, peak)}")
         out[want] = dict(ms=(k1 + k2) / 2, device_ms=dev, plain_ms=(p1 + p2) / 2,
                          bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by, library_ms=None,
-                         design=kernels.design(k, "estep", dtype), B=B, k=k)
+                         design=kernels.design(k, "estep", dtype), B=B, k=k,
+                         layout="slabs" if slab else "square")
     return out
 
 
@@ -760,11 +800,180 @@ def check_row_solve(gen, k: int) -> None:
         del S, cross, outs, want
 
 
+def slab_of(G, poison_above: bool = False):
+    """Square G (B, k, k) as the kernel's slabs (B, slab_width(k)): what the
+    routes' slab Gram holds, the entries above the diagonal inside a
+    diagonal block included; with ``poison_above`` those are NaN, which the
+    kernel must never read."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    rows, cols = kernels.slab_coords(G.shape[-1], G.device)
+    slabs = G[:, rows, cols]
+    if poison_above:
+        slabs[:, cols > rows] = math.nan
+    return slabs.contiguous()
+
+
+def check_same_as_square(tag: str, want: str, outs, square) -> None:
+    """A launch on slab G equals the same launch on square G bit for bit
+    (fullt's SM as the slabs of the square SM's lower triangle)."""
+    if want == "fullt":
+        square = (square[0], slab_of(torch.tril(square[1].nan_to_num())), *square[2:])
+    check(all(torch.equal(a, b) for a, b in zip(outs, square)),
+          f"{tag}: differs from the same launch on square G")
+
+
+def check_slabs(gen) -> None:
+    """Every spd_estep variant on slab G (NaN above the diagonal inside the
+    diagonal blocks) into NaN-prefilled outputs, at SLAB_KS: against its
+    plain version in float64 (fullt's slab SM entry by entry, 0 above the
+    diagonal), with no NaN left in any output element, and equal bit for
+    bit to the same launch on square G; then slab G refused at
+    SLAB_REFUSED by the library and by the wrapper."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    for dtype, ks in SLAB_KS.items():
+        tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+        for k in ks:
+            check(kernels.uses_slabs(k, dtype) and kernels.design(k, "estep", dtype) == "tile",
+                  f"slab k={k} {dtype}: not taken as slabs by the tile")
+            inputs64, empty = kernel_inputs(SLAB_BATCH, k, gen)
+            x = {n: t.to(dtype).contiguous() for n, t in inputs64.items()}
+            x64 = {n: t.double() for n, t in x.items()}
+            slabs = slab_of(x["G"], poison_above=True)
+            worst = 0.0
+            for want in kernels.WANTS:
+                tag = f"slab {want} k={k} {str(dtype)[6:]}"
+                outs = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
+                             for sh in kernels.output_shapes(want, SLAB_BATCH, k, slab=True))
+                kernels.launch(want, SIGMA, slabs, x["b"], x["rnorm"], x["d_obs"], outs)
+                square = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda")
+                               for sh in kernels.output_shapes(want, SLAB_BATCH, k))
+                kernels.launch(want, SIGMA, x["G"], x["b"], x["rnorm"], x["d_obs"], square)
+                torch.cuda.synchronize()
+                ref = kernels.spd_estep_reference(SIGMA, slab_of(x64["G"]), x64["b"],
+                                                  x64["rnorm"], x64["d_obs"], want)
+                check_above_untouched(tag, want, outs)
+                check(all(bool(torch.isfinite(o).all()) for o in outs),
+                      f"{tag}: an output element was left unwritten or is non-finite")
+                errs = [rel_err(o, r) for o, r in zip(outs, ref)]
+                check(max(errs) <= tol, f"{tag}: relative errors {errs} above {tol}")
+                if want != "llk":
+                    check(bool((outs[0][empty] == 0).all()), f"{tag}: all-masked samples' states")
+                check_same_as_square(tag, want, outs, square)
+                worst = max(worst, max(errs))
+                del outs, square, ref
+            print(f"[kernels] slab G k={k} B={SLAB_BATCH} {str(dtype)[6:]} "
+                  f"({kernels.slab_width(k)} elements a sample, {kernels.slab_width(k) / k ** 2:.4f}"
+                  f" of k^2; NaN above the diagonal in its diagonal blocks): every variant, every "
+                  f"output element written, max rel err {worst:.3e} (tol {tol:g}); fullt's slab "
+                  "SM 0 above the diagonal; equal bit for bit to square G")
+            del inputs64, x, x64, slabs
+    for k, dtype in SLAB_REFUSED:
+        B = 4
+        z = dict(G=torch.zeros(B, kernels.slab_width(k), dtype=dtype, device="cuda"),
+                 b=torch.zeros(B, k, dtype=dtype, device="cuda"),
+                 rnorm=torch.ones(B, dtype=dtype, device="cuda"),
+                 d_obs=torch.ones(B, dtype=dtype, device="cuda"))
+        outs = kernels.empty_outputs("fullt", B, k, z["G"], slab=True)
+        refused = []
+        for fn, err in ((functools.partial(kernels.launch, "fullt", SIGMA, *z.values(), outs),
+                         RuntimeError),
+                        (functools.partial(kernels.spd_estep, SIGMA, *z.values()), ValueError)):
+            try:
+                fn()
+            except err as e:
+                refused.append(str(e).split(":")[-1].strip())
+        torch.cuda.synchronize()
+        check(len(refused) == 2, f"slab G at k={k} {dtype} was not refused: {refused}")
+        print(f"[kernels] slab G at k={k} {str(dtype)[6:]} ({kernels.design(k, 'estep', dtype)} "
+              f"design) refused: library {refused[0]!r}; wrapper {refused[1]!r}")
+
+
+def time_layouts(k: int, x, sigma, empty) -> dict:
+    """fullt, llk, states and infer on slab G at a shape the routes give
+    them.  First each is checked there: launched into NaN-prefilled outputs
+    on slab G and on square G, against its plain version in float64 on the
+    same slab inputs (relative error within TOL_F32, no output element left
+    NaN, fullt's slab SM 0 above the diagonal, the all-masked samples
+    ``empty`` with states 0), and bit for bit against the square launch.
+    Then it is timed in turns with square G (slab, square, square, slab:
+    CUDA events around kernel_reps(k) launches into those outputs), each
+    layout's device time from a profiler window of its own, beside the plain
+    version on slab G and the bound of slab G.  Returns the slab rows, with
+    this check's largest absolute error, each with the square layout's times
+    under ``square``."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    G, b, rn, do = x["G"], x["b"], x["rnorm"], x["d_obs"]
+    slabs = slab_of(G)
+    B, dtype = G.shape[0], G.dtype
+    reps = kernel_reps(k)
+    sig = torch.full((1,), SIGMA, dtype=dtype, device="cuda") if sigma is None else sigma
+    launchers = {"slab": {}, "square": {}}
+    out = {}
+    for want in SLAB_WANTS:
+        tag = f"slab {want} k={k} B={B} {str(dtype)[6:]}"
+        outs = {}
+        for layout, g in (("slab", slabs), ("square", G)):
+            outs[layout] = tuple(torch.full(sh, math.nan, dtype=dtype, device="cuda") for sh in
+                                 kernels.output_shapes(want, B, k, slab=layout == "slab"))
+            launchers[layout][want] = functools.partial(kernels.launch, want, sig, g, b, rn, do,
+                                                        outs[layout])
+            launchers[layout][want]()
+        torch.cuda.synchronize()
+        got = outs["slab"]
+        ref = kernels.spd_estep_reference(sig.double(), slabs.double(), b.double(), rn.double(),
+                                          do.double(), want)
+        check_above_untouched(tag, want, got)
+        check(all(bool(torch.isfinite(o).all()) for o in got),
+              f"{tag}: an output element was left unwritten or is non-finite")
+        errs = [rel_err(o, r) for o, r in zip(got, ref)]
+        abs_err = max(float((o.double() - r).abs().max()) for o, r in zip(got, ref))
+        check(max(errs) <= TOL_F32, f"{tag}: relative errors {errs} above {TOL_F32}")
+        if want != "llk":
+            check(bool((got[0][empty] == 0).all()), f"{tag}: all-masked samples' states")
+        check_same_as_square(tag, want, got, outs["square"])
+        print(f"[kernels] {tag}{', sigma per sample' if sig.numel() > 1 else ''}: every output "
+              f"element written, max rel err {max(errs):.3e} (tol {TOL_F32:g}), max abs err "
+              f"{abs_err:.3e}; equal bit for bit to square G")
+        del ref, got
+        plain = functools.partial(kernels.spd_estep_reference, sig, slabs, b, rn, do, want)
+        a1, s1, s2, a2 = (cuda_ms(launchers["slab"][want], reps),
+                          cuda_ms(launchers["square"][want], reps),
+                          cuda_ms(launchers["square"][want], reps),
+                          cuda_ms(launchers["slab"][want], reps))
+        p1, p2 = cuda_ms(plain, PLAIN_REPS), cuda_ms(plain, PLAIN_REPS)
+        out[want] = dict(ms=(a1 + a2) / 2, plain_ms=(p1 + p2) / 2, events=(a1, a2),
+                         max_abs_err=abs_err, square=dict(ms=(s1 + s2) / 2, events=(s1, s2)))
+    device = {layout: profiled_ms(fns, reps, dtype) for layout, fns in launchers.items()}
+    peak = peak_flops(k, "estep", dtype)
+    for want, row in out.items():
+        b_ms, by = bound(*estep_work(want, B, k, dtype.itemsize, sig.numel(), slab=True), peak)
+        sq_ms, sq_by = bound(*estep_work(want, B, k, dtype.itemsize, sig.numel()), peak)
+        (a1, a2), (s1, s2) = row.pop("events"), row["square"].pop("events")
+        dev, dev_sq = device["slab"][want], device["square"][want]
+        print(f"[time] {want} k={k} B={B} {str(dtype)[6:]}"
+              f"{', sigma per sample' if sig.numel() > 1 else ''}, slab G in turns with square G "
+              f"(events, {reps} launches): slab {a1:.4f}/{a2:.4f} ms, square {s1:.4f}/{s2:.4f} ms "
+              f"(slab/square {(a1 + a2) / (s1 + s2):.4f}); device time slab "
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'}, square "
+              f"{'not measured' if dev_sq is None else f'{dev_sq:.4f} ms'} (profiler); plain on "
+              f"slab G {row['plain_ms']:.4f} ms; slab {bound_note(b_ms, by, peak)}, square "
+              f"{bound_note(sq_ms, sq_by, peak)}")
+        row.update(device_ms=dev, bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by,
+                   library_ms=None, design=kernels.design(k, "estep", dtype), B=B, k=k,
+                   layout="slabs")
+        row["square"].update(device_ms=dev_sq, bound_ms=sq_ms, bound_by=sq_by)
+    return out
+
+
 def phase_kernels():
     """Phase 2.  Returns the float32 kernel rows at TIMED_K (summary), at
     WIDE_K (wide), at each of PANEL_KS (panel), and the float64 fullt rows
     at F64_TIMED_KS (keyed by k) with the states and llk rows at K_LK64
-    (keyed by (want, k))."""
+    (keyed by (want, k)); at TIMED_K and WIDE_K the SLAB_WANTS rows are
+    those on slab G (time_layouts)."""
     from ppca_rs_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -835,6 +1044,26 @@ def phase_kernels():
         del inputs64
         torch.cuda.empty_cache()
 
+    # G as slabs: every variant checked; fullt, llk, states and infer timed
+    # in turns with square G at the routes' shapes; the slab rows stand for
+    # the main path's in the kernels line (phase 8 times its own shapes)
+    check_slabs(gen)
+    for k, B, per_sample in SLAB_TIMED:
+        inputs64, empty = kernel_inputs(B, k, gen)
+        x = {n: t.float().contiguous() for n, t in inputs64.items()}
+        del inputs64
+        sig = None
+        if per_sample:
+            levels = torch.tensor(SIGMA_LEVELS, device="cuda")
+            sig = levels[torch.arange(B, device="cuda") % len(SIGMA_LEVELS)].contiguous()
+        rows = time_layouts(k, x, sig, empty)
+        if k == TIMED_K:
+            summary.update(rows)
+        if k == WIDE_K:
+            wide.update(rows)
+        del x
+        torch.cuda.empty_cache()
+
     f64 = {}
     for k in F64_TIMED_KS:
         inputs64, _ = kernel_inputs(BATCH, k, gen)
@@ -854,14 +1083,16 @@ def phase_kernels():
               f"({'faster' if chol['ms'] < chol['library_ms'] else 'NOT faster'}); fullt "
               f"{fullt['ms']:.4f} ms vs its plain version {fullt['plain_ms']:.4f} ms "
               f"({'faster' if fullt['ms'] < fullt['plain_ms'] else 'NOT faster'}) (CUDA events)")
-    print(f"[kernels] fullt float32 B={BATCH}: k={RAGGED_K} {ragged['ms']:.4f} ms beside "
-          f"k={TIMED_K} {summary['fullt']['ms']:.4f} ms (CUDA events; device time "
-          f"{ragged['device_ms']} / {summary['fullt']['device_ms']} ms): rows of {RAGGED_K} "
+    square = summary["fullt"]["square"]
+    print(f"[kernels] fullt float32 B={BATCH}, square G: k={RAGGED_K} {ragged['ms']:.4f} ms beside "
+          f"k={TIMED_K} {square['ms']:.4f} ms (CUDA events; device time "
+          f"{ragged['device_ms']} / {square['device_ms']} ms): rows of {RAGGED_K} "
           "elements are staged by element copies where they start unaligned, rows of "
           f"{TIMED_K} by 16-byte copies")
     for want in kernels.WANTS:
-        summary[want]["max_abs_err"] = errors[want, TIMED_K]
-        wide[want]["max_abs_err"] = errors[want, WIDE_K]
+        if want not in SLAB_WANTS:
+            summary[want]["max_abs_err"] = errors[want, TIMED_K]
+            wide[want]["max_abs_err"] = errors[want, WIDE_K]
         for k in PANEL_KS:
             panel[k][want]["max_abs_err"] = errors[want, k]
     return summary, wide, panel, f64
@@ -1014,7 +1245,8 @@ def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None
     check(all(math.isfinite(v) for v in llks), f"{tag}: non-finite llk in {llks}")
     for a, b in zip(llks, llks[1:]):
         check(b >= a - LLK_SLACK * abs(a), f"{tag}: llk decreased: {a} -> {b}")
-    print(f"[{tag}] launches during training: {launches}")
+    print(f"[{tag}] launches during training: {launches}, of them on slab G "
+          f"{dict(kernels.SLAB_LAUNCHES)}")
     print(f"[{tag}] seconds per EM iteration at N={len(dataset)}: "
           + ", ".join(f"{s:.4f}" for s in per_iter)
           + f"; mean of iterations 2-{n_iters}: {sum(per_iter[1:]) / (n_iters - 1):.4f} s "
@@ -1058,12 +1290,25 @@ def check_readouts(tag: str, model, sub, k: int = K_MAIN):
     return inferred
 
 
-def profile_iteration(tag: str, model, dataset, top: int = 0) -> None:
+def gram_note(model) -> str:
+    """The Gram's columns a sample on the masked and general mixture routes
+    at the model's (largest) state size."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    k = max(model.state_sizes) if hasattr(model, "state_sizes") else model.state_size
+    if not kernels.uses_slabs(k, torch.float32):
+        return f"; Gram and S square, {k * k} columns"
+    return (f"; Gram and S as slabs, {kernels.slab_width(k)} columns of {k * k} "
+            f"({kernels.slab_width(k) / k ** 2:.4f})")
+
+
+def profile_iteration(tag: str, model, dataset, top: int = 0, gram: bool = False) -> None:
     """One EM step over ``dataset`` under torch.profiler: device time of the
     SPD kernels (spd_estep's and spd_chol's designs), of the matmuls and of
     everything else, and the device's idle share of the window (one stream,
     so kernels do not overlap); with ``top``, also the ``top`` device
-    kernels by time."""
+    kernels by time; with ``gram`` (the masked and general mixture routes),
+    the Gram's columns a sample."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1087,11 +1332,26 @@ def profile_iteration(tag: str, model, dataset, top: int = 0) -> None:
         print(f"[{tag}] profile of one EM iteration: the profiler shows no device time "
               f"({wall:.4f} s of wall time)")
         return
-    print(f"[{tag}] profile of one EM iteration ({wall:.4f} s of wall time under the profiler): "
+    print(f"[{tag}] profile of one EM iteration ({wall:.4f} s of wall time under the profiler"
+          f"{gram_note(model) if gram else ''}): "
           + ", ".join(f"{g} {t:.4f} s ({t / wall:.1%})" for g, t in groups.items())
           + f"; device idle {max(0.0, 1 - busy / wall):.1%}")
     for t, count, name in sorted(kernels_by_time, reverse=True)[:top]:
         print(f"[{tag}]   {t:.4f} s in {count} launches: {name[:150]}")
+
+
+def check_slab_launches(tag: str, want: dict) -> None:
+    """The launches on slab G since the counts were last set to 0 are
+    exactly ``want`` (the variants not named: none), and are kept in
+    SLAB_COUNTS under ``tag``."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    want = {name: want.get(name, 0) for name in kernels.WANTS}
+    got = dict(kernels.SLAB_LAUNCHES)
+    check(got == want, f"{tag}: launches on slab G {got} != {want}")
+    SLAB_COUNTS[tag] = got
+    print(f"[{tag}] launches on slab G (Gram built as slabs, "
+          f"{'S summed as slabs, ' if got['fullt'] else ''}the rest square): {got}")
 
 
 def phase_main(smi: str):
@@ -1120,7 +1380,9 @@ def phase_main(smi: str):
     want = {"fullt": N_ITERS * n_blocks, "states": N_ITERS + 2 * n_sub, "llk": n_blocks,
             "infer": n_sub, "full": 0, "chol": 0}
     check(launches == want, f"masked path launches {launches} != {want}")
-    profile_iteration("main", model, dataset)
+    # every E-step on slab G; the M-step's row solves (states, B=D) square
+    check_slab_launches("main", dict(want, states=2 * n_sub))
+    profile_iteration("main", model, dataset, gram=True)
     return model, dataset, launches
 
 
@@ -1409,13 +1671,14 @@ def phase_wide(smi: str):
     want = {"fullt": N_ITERS * n_blocks, "states": N_ITERS + n_sub, "llk": n_blocks,
             "infer": 2 * n_sub, "full": 0, "chol": 2}
     check(launches == want, f"k128: launches {launches} != {want}")
+    check_slab_launches("k128", dict(want, states=n_sub))
     served = {"fullt": "estep", "states": "estep", "llk": "estep", "infer": "estep", "chol": "chol"}
     designs = {name: kernels.design(WIDE_K, kern) for name, kern in served.items()}
     check(all(d == "tile" for d in designs.values()), f"k128: not all served by the tile: {designs}")
     print(f"[k128] launches of the k={WIDE_K} path (training, llk, infer, sampler): {launches}; "
           + ", ".join(f"{name} by the {d} design" for name, d in designs.items()))
     del inferred, sampler, draw
-    profile_iteration("k128", model, dataset)
+    profile_iteration("k128", model, dataset, gram=True)
     card_vs_cpu("k128", model, dataset.slice(0, N_WIDE_CPU), used=("fullt", "llk"))
     return launches
 
@@ -1567,10 +1830,13 @@ def phase_mix(smi: str):
                 chol=2 * M_MIX)
     check(launches == want, f"mix: launches {launches} != {want}")
     print(f"[mix] launches of the mixture path (training, llk, readouts, sampler): {launches}")
+    check_slab_launches("mix", dict(want, states=3 * n_sub))
 
-    profile_iteration("mix", mix, dataset, top=8)
-    flops = 2 * 2 * N_MIX * D_MIX * M_MIX * K_MIX ** 2
-    print(f"[mix] the Gram and S matmuls do {flops / 1e12:.3f} TFLOP per iteration: at least "
+    profile_iteration("mix", mix, dataset, top=8, gram=True)
+    width = kernels.slab_width(K_MIX) if kernels.uses_slabs(K_MIX, torch.float32) else K_MIX ** 2
+    flops = 2 * 2 * N_MIX * D_MIX * M_MIX * width
+    print(f"[mix] the Gram and S matmuls over {width} columns a sample ({width / K_MIX ** 2:.4f} of "
+          f"k^2) do {flops / 1e12:.3f} TFLOP per iteration: at least "
           f"{flops / PEAK_F32_FLOPS * 1e3:.1f} ms at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32")
 
     rows_cpu = dataset.slice(0, N_MIX_CPU)
@@ -1727,7 +1993,8 @@ def check_estep_at(tag: str, want: str, inp: dict, sigma, k: int) -> float:
     from ppca_rs_tpu_torch.ops import kernels
 
     n = inp["G"].shape[0]
-    outs = tuple(torch.full(sh, math.nan, device="cuda") for sh in kernels.output_shapes(want, n, k))
+    outs = tuple(torch.full(sh, math.nan, device="cuda")
+                 for sh in kernels.output_shapes(want, n, k, inp["G"].ndim == 2))
     kernels.launch(want, sigma, inp["G"], inp["b"], inp["rnorm"], inp["d_obs"], outs)
     torch.cuda.synchronize()
     ref = kernels.spd_estep_reference(sigma.double(), *(inp[n_].double() for n_ in
@@ -1765,7 +2032,9 @@ def check_mix_kernels(mix, dataset, sub) -> dict:
     block = dataset.slice(0, rows)
     mask_f = block.mask.float()
     _, b, rnorm = mf._projections(Cs, mf._center_prep(Cs, means), block.data, mask_f)
-    x = dict(G=torch.matmul(mask_f, ml.outer_flat(Cs)).reshape(B, k, k), b=b.reshape(B, k),
+    # the Gram as the route builds it: slabs where the kernel takes them
+    G = torch.matmul(mask_f, ml.gram_columns(Cs, torch.float32))
+    x = dict(G=kernels.estep_gram(G, B, k), b=b.reshape(B, k),
              rnorm=rnorm.reshape(B), d_obs=mask_f.sum(-1).repeat(M_MIX))
     sig = sigmas.repeat_interleave(rows)
 
@@ -2390,15 +2659,25 @@ def par_model_axis(rank: int, out: Path) -> dict:
 
     (model, llks, extrapolated), launches, _ = par_counts(run)
     k = K_MAIN
-    block_bytes = config_block_size() * (k * k + k + 2) * 4
-    reduce_ms = par_reduce_ms(block_bytes, axis_group(mesh, MODEL_AXIS))
+    # a block's E-step inputs: G (slabs where the kernel takes them), b,
+    # |r|^2 and the observed counts; beside it the size with square G
+    from ppca_rs_tpu_torch.ops import kernels
+
+    width = kernels.slab_width(k) if kernels.uses_slabs(k, torch.float32) else k * k
+    block_bytes = config_block_size() * (width + k + 2) * 4
+    square_bytes = config_block_size() * (k * k + k + 2) * 4
+    group = axis_group(mesh, MODEL_AXIS)
+    reduce_ms = par_reduce_ms(block_bytes, group)
+    square_ms = par_reduce_ms(square_bytes, group)
     par_print("10c", rank, f"columns {sds.data.shape[1]} of {sds.output_size()}; seconds per "
               "iteration " + ", ".join(f"{s:.4f}" for s in secs) + f"; per-block E-step "
-              f"all_reduce over the model axis ({block_bytes / 2**20:.1f} MiB, gloo through "
-              f"the host) alone {reduce_ms:.1f} ms, {-(-len(sds.data) // config_block_size())} "
-              f"blocks a pass; launches {launches}")
+              f"all_reduce over the model axis ({block_bytes / 2**20:.1f} MiB, G as {width} "
+              f"columns, gloo through the host) alone {reduce_ms:.1f} ms (square G's "
+              f"{square_bytes / 2**20:.1f} MiB {square_ms:.1f} ms), "
+              f"{-(-len(sds.data) // config_block_size())} blocks a pass; launches {launches}")
     return dict(params=par_host(model), llks=llks.cpu(), extrapolated=extrapolated.cpu(),
                 secs=secs, launches=launches, reduce_ms=reduce_ms, reduce_bytes=block_bytes,
+                square_ms=square_ms, square_bytes=square_bytes,
                 columns=(rank * sds.data.shape[1], (rank + 1) * sds.data.shape[1]))
 
 
@@ -2742,7 +3021,9 @@ def phase_parallel(smi: str) -> dict:
     print(f"[parallel] 10c: seconds per iteration " + ", ".join(
         f"{s:.4f}" for s in ranks[0]["10c"]["secs"]) + f"; per-block all_reduce "
           f"{ranks[0]['10c']['reduce_bytes'] / 2**20:.1f} MiB alone "
-          f"{ranks[0]['10c']['reduce_ms']:.1f} ms (gloo through the host) ({smi})")
+          f"{ranks[0]['10c']['reduce_ms']:.1f} ms (with square G "
+          f"{ranks[0]['10c']['square_bytes'] / 2**20:.1f} MiB "
+          f"{ranks[0]['10c']['square_ms']:.1f} ms) (gloo through the host) ({smi})")
 
     # 10d
     for rank, res in enumerate(ranks):
@@ -3228,9 +3509,9 @@ def launch_log():
     seen = []
     launch, launch_chol = kernels.launch, kernels.launch_chol
 
-    def logged(want, sigma, G, *args, **kwargs):
-        seen.append((want, G.shape[-1]))
-        return launch(want, sigma, G, *args, **kwargs)
+    def logged(want, sigma, G, b, *args, **kwargs):
+        seen.append((want, b.shape[-1]))   # k: G may be slabs
+        return launch(want, sigma, G, b, *args, **kwargs)
 
     def logged_chol(M, L):
         seen.append(("chol", M.shape[-1]))
@@ -3812,11 +4093,22 @@ def main() -> int:
     # (launches from those runs), its launches in phase 9's and phase 10's
     # counted runs (phase 10: rank 0's), and the kernels of phase 12's path
     # at its shapes
+    # the variants the routes launch on slab G carry their slab launches
+    # (SLAB_COUNTS) and their times on slab G, with square G's under "square"
+    def layout(rows, key, tag):
+        row = rows[key]
+        out = {"slab_launches": SLAB_COUNTS[tag][key]} if key in SLAB_COUNTS[tag] else {}
+        out.update({name: row[name] for name in ("layout", "square") if name in row})
+        return out
+
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], **{f: summary[key][f] for f in fields},
-         f"at_k{WIDE_K}": {"launches": wide_launches[key], **{f: wide[key][f] for f in fields}},
-         "at_mix": {"launches": mix_launches[key], **{f: mix_rows[key][f] for f in fields}},
+         **layout(summary, key, "main"),
+         f"at_k{WIDE_K}": {"launches": wide_launches[key], **{f: wide[key][f] for f in fields},
+                           **layout(wide, key, "k128")},
+         "at_mix": {"launches": mix_launches[key], **{f: mix_rows[key][f] for f in fields},
+                    **layout(mix_rows, key, "mix")},
          "at_stream": {"launches": sum(part[key] for part in stream_launches.values()),
                        **{part: counts[key] for part, counts in stream_launches.items()}},
          "at_parallel": {"launches": sum(part[key] for part in parallel_launches.values()),

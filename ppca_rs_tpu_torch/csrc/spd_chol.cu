@@ -44,10 +44,12 @@ extern "C" {
 // spd_estep_tile_f32.cu, spd_estep_tile_f64.cu: the tile design (want 5 is spd_chol).
 int ppca_spd_estep_tile_f32(int want, const void* sigma, long long sigma_stride, const void* G,
                             const void* b, const void* rnorm, const void* d_obs, void* s,
-                            void* m, void* llk, void* sq, long long B, int k, void* stream);
+                            void* m, void* llk, void* sq, long long B, int k, int layout,
+                            void* stream);
 int ppca_spd_estep_tile_f64(int want, const void* sigma, long long sigma_stride, const void* G,
                             const void* b, const void* rnorm, const void* d_obs, void* s,
-                            void* m, void* llk, void* sq, long long B, int k, void* stream);
+                            void* m, void* llk, void* sq, long long B, int k, int layout,
+                            void* stream);
 // spd_panel_f32.cu, spd_panel_f64.cu: the panel design.
 int ppca_spd_panel_f32(int want, int device, const void* sigma, long long sigma_stride,
                        const void* G, const void* b, const void* rnorm, const void* d_obs,
@@ -74,9 +76,9 @@ int dispatch(int device, const void* M, void* L, long long B, int k, void* strea
   constexpr bool f32 = sizeof(T) == 4;
   if (k <= chol_tile_max_k<T>()) {
     return f32 ? ppca_spd_estep_tile_f32(kChol, nullptr, 0, M, nullptr, nullptr, nullptr, nullptr,
-                                         L, nullptr, nullptr, B, k, stream)
+                                         L, nullptr, nullptr, B, k, 0, stream)
                : ppca_spd_estep_tile_f64(kChol, nullptr, 0, M, nullptr, nullptr, nullptr, nullptr,
-                                         L, nullptr, nullptr, B, k, stream);
+                                         L, nullptr, nullptr, B, k, 0, stream);
   }
   return f32 ? ppca_spd_panel_f32(kChol, device, nullptr, 0, M, nullptr, nullptr, nullptr,
                                   nullptr, nullptr, nullptr, nullptr, L, B, k, stream)

@@ -22,7 +22,14 @@
 // Layout is batch-major: G (B,k,k), b and s (B,k), SM (B,k,k), rnorm, d_obs,
 // llk, sq (B,), all contiguous; sigma is one device scalar (stride 0) or one
 // per sample (stride 1), on the device, so the caller never synchronises to
-// read it.
+// read it.  With `layout` 1 (slabs; k a multiple of 8 above 16 and within
+// the tile's limit) G is (B, 32 m (m+1)) for m = k/8, its rows in blocks of
+// 8, row r of block j = r/8 holding its first 8 (j+1) entries (the lower
+// triangle and the upper part of the diagonal block; spd_estep_tile.cuh),
+// and fullt's SM comes back in the same layout, written whole, zeros above
+// the diagonal: the port of the TPU kernel's wedge-slab input
+// (`ppca_rs_tpu/ops/kernels.py:g_slabs`), whose callers build only the
+// Gram's wedge.  The panel design takes square G only and refuses slabs.
 //
 // What bounds it on this card: one fullt launch must read G's lower
 // triangle and write SM's, all that its consumer reads (~4 k(k+1) bytes per
@@ -64,10 +71,12 @@ int ppca_spd_estep_tile_occupancy_f32(int k, int chol, int* ctas_per_sm, int* wa
 int ppca_spd_estep_tile_occupancy_f64(int k, int chol, int* ctas_per_sm, int* warps, int* samples);
 int ppca_spd_estep_tile_f32(int want, const void* sigma, long long sigma_stride, const void* G,
                             const void* b, const void* rnorm, const void* d_obs, void* s,
-                            void* m, void* llk, void* sq, long long B, int k, void* stream);
+                            void* m, void* llk, void* sq, long long B, int k, int layout,
+                            void* stream);
 int ppca_spd_estep_tile_f64(int want, const void* sigma, long long sigma_stride, const void* G,
                             const void* b, const void* rnorm, const void* d_obs, void* s,
-                            void* m, void* llk, void* sq, long long B, int k, void* stream);
+                            void* m, void* llk, void* sq, long long B, int k, int layout,
+                            void* stream);
 // spd_panel_f32.cu, spd_panel_f64.cu: the panel design (want 5 is spd_chol).
 int ppca_spd_panel_f32(int want, int device, const void* sigma, long long sigma_stride,
                        const void* G, const void* b, const void* rnorm, const void* d_obs,
@@ -86,20 +95,22 @@ using namespace ppca;
 template <typename T>
 int dispatch(int want, int device, const void* sigma, long long sigma_stride, const void* G,
              const void* b, const void* rnorm, const void* d_obs, void* s, void* m, void* llk,
-             void* sq, void* work, long long B, int k, void* stream) {
+             void* sq, void* work, long long B, int k, int layout, void* stream) {
   const cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0) return 0;
   if (k < 1 || want < 0 || want > 4 || B > 0x7fffffffLL ||
-      (sigma_stride != 0 && sigma_stride != 1))
+      (sigma_stride != 0 && sigma_stride != 1) || (layout != 0 && layout != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr bool f32 = sizeof(T) == 4;
   if (k <= estep_tile_max_k<T>()) {
     return f32 ? ppca_spd_estep_tile_f32(want, sigma, sigma_stride, G, b, rnorm, d_obs, s, m,
-                                         llk, sq, B, k, stream)
+                                         llk, sq, B, k, layout, stream)
                : ppca_spd_estep_tile_f64(want, sigma, sigma_stride, G, b, rnorm, d_obs, s, m,
-                                         llk, sq, B, k, stream);
+                                         llk, sq, B, k, layout, stream);
   }
+  // the panel design: square G only
+  if (layout != 0) return static_cast<int>(cudaErrorNotSupported);
   return f32 ? ppca_spd_panel_f32(want, device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m,
                                   llk, sq, work, B, k, stream)
              : ppca_spd_panel_f64(want, device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m,
@@ -113,21 +124,24 @@ extern "C" {
 // want: 0 fullt, 1 states, 2 llk, 3 infer, 4 full.  Unused outputs may be
 // null; `work` is the panel design's (B, k+1, k) scratch for llk and states
 // above the tile limit, and null otherwise.  sigma_stride: 0 for one sigma
-// for the batch, 1 for one per sample.  Returns a cudaError_t (0 on success).
+// for the batch, 1 for one per sample.  layout: 0 square G, 1 slabs (the
+// tile's blocked body alone: k a multiple of 8, 16 < k <= the tile limit;
+// elsewhere cudaErrorInvalidValue, and the panel design's k
+// cudaErrorNotSupported).  Returns a cudaError_t (0 on success).
 int spd_estep_f32(int want, int device, const void* sigma, long long sigma_stride,
                   const void* G, const void* b, const void* rnorm, const void* d_obs,
                   void* s, void* m, void* llk, void* sq, void* work, long long B, int k,
-                  void* stream) {
+                  int layout, void* stream) {
   return dispatch<float>(want, device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq,
-                         work, B, k, stream);
+                         work, B, k, layout, stream);
 }
 
 int spd_estep_f64(int want, int device, const void* sigma, long long sigma_stride,
                   const void* G, const void* b, const void* rnorm, const void* d_obs,
                   void* s, void* m, void* llk, void* sq, void* work, long long B, int k,
-                  void* stream) {
+                  int layout, void* stream) {
   return dispatch<double>(want, device, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq,
-                          work, B, k, stream);
+                          work, B, k, layout, stream);
 }
 
 // Largest k that the tile design serves for elements of

@@ -72,6 +72,20 @@
 //   aligned: fullt's SM = s s^T + sigma^2 M^{-1} on and below the diagonal
 //   only (nothing above it is written), full's SM and infer's
 //   Sigma = sigma^2 M^{-1} whole.
+// * G's layout is a template argument of the blocked body, SLAB (chosen by
+//   spd_estep.cu's `layout`; a runtime argument measured 3-8% slower on
+//   square G for fullt on an H100, PERF.md): square, or slabs (k a multiple
+//   of 8): blocks of 8 rows, row r
+//   of block j = r / 8 holding its first 8 (j + 1) entries, the lower
+//   triangle and the upper part of its 8 x 8 diagonal block, rows one after
+//   another, 32 m (m + 1) elements a sample for m = k / 8 (row_offset).  Only
+//   where a row starts changes: every slab row starts 16-byte aligned, and
+//   its chunks on or below the diagonal lie inside it, so stage_rows takes
+//   16-byte copies.  Under slabs fullt's SM is written in the same layout,
+//   each row's whole slab width: SM on and below the diagonal, zeros above
+//   it.  The one-block body and kChol take square matrices only, so the
+//   slab instantiations are the five E-step variants at KP in {32, 64, 128}
+//   (float) and {32, 64} (double).
 // * A sample whose M is not positive definite has a pivot <= 0 (or NaN): its
 //   log det is not finite and every output element of that sample is written
 //   NaN.  Nothing reduces across samples.
@@ -228,21 +242,37 @@ __device__ __forceinline__ void stage_row(T* dst, const T* src, int n, int k, in
   }
 }
 
+// Where row r of a sample's k x k matrix starts, from the sample's start:
+// r k in the square layout; in the slab layout (k a multiple of 8), block
+// j = r / 8 starts at 32 j (j + 1) and its rows are 8 (j + 1) wide, so row r
+// at 8 (j + 1) (r - 4 j).
+__device__ __forceinline__ size_t row_offset(int r, int k, bool slab) {
+  const int j = r >> 3;
+  return slab ? static_cast<size_t>(8 * (j + 1) * (r - 4 * j)) : static_cast<size_t>(r) * k;
+}
+
+// Elements of one sample's slabs.
+__host__ __device__ constexpr long long slab_width(int k) {
+  return 32LL * (k / 8) * (k / 8 + 1);
+}
+
 // One warp pass over RP = 32 / Q rows of G, Q = KP / V chunks of V
 // elements a row: lane l takes row r0 + l / Q and its chunk l % Q, and
 // copies the part of it on or below the diagonal (the lower triangle) into
 // row r of A (row stride LD) by cp.async: one 16-byte copy where the row
 // starts 16-byte aligned in device memory, element copies otherwise.  Where
 // a row has more than 32 chunks (double at KP=128, kChol only) a pass is
-// the one row r0, lane l taking its chunks l, l + 32, ...
+// the one row r0, lane l taking its chunks l, l + 32, ...  Gn is the
+// sample's G, square or (slab) in slabs.
 template <typename T, int KP, int LD>
-__device__ __forceinline__ void stage_rows(T* A, const T* Gn, int r0, int k, int lane) {
+__device__ __forceinline__ void stage_rows(T* A, const T* Gn, int r0, int k, int lane,
+                                           bool slab = false) {
   constexpr int V = 16 / static_cast<int>(sizeof(T)), Q = KP / V;
   if constexpr (Q <= 32) {
     static_assert(32 % Q == 0, "a warp pass covers whole rows");
     const int r = r0 + lane / Q, c = (lane % Q) * V;
     if (r >= k || c > r) return;
-    const T* src = Gn + static_cast<size_t>(r) * k;
+    const T* src = Gn + row_offset(r, k, slab);
     T* dst = A + r * LD;
     if ((reinterpret_cast<size_t>(src) & 15) == 0) {
       panel::cp_async16(dst + c, src + c, cmin(V, k - c) * static_cast<int>(sizeof(T)));
@@ -255,7 +285,7 @@ __device__ __forceinline__ void stage_rows(T* A, const T* Gn, int r0, int k, int
     static_assert(Q % 32 == 0, "a warp pass covers one row");
     const int r = r0;
     if (r >= k) return;
-    const T* src = Gn + static_cast<size_t>(r) * k;
+    const T* src = Gn + row_offset(r, k, slab);
     T* dst = A + r * LD;
     const bool vec = (reinterpret_cast<size_t>(src) & 15) == 0;
 #pragma unroll
@@ -686,13 +716,15 @@ __device__ __forceinline__ void chol_block_out(T* Ln, T* A, const T* Gx, const T
   }
 }
 
-template <typename T, int KP, int WANT>
+template <typename T, int KP, int WANT, bool SLAB>
 __global__ void __launch_bounds__(Blocked<T, KP>::THREADS, Blocked<T, KP>::CTAS)
 spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
                       const T* __restrict__ G, const T* __restrict__ b,
                       const T* __restrict__ rnorm, const T* __restrict__ d_obs,
                       T* __restrict__ s_out, T* __restrict__ m_out,
                       T* __restrict__ llk_out, T* __restrict__ sq_out, long long B, int k) {
+  static_assert(!(SLAB && WANT == kChol), "kChol takes square M");
+  constexpr bool slab = SLAB;
   using S = Blocked<T, KP>;
   using F = panel::Mma<T>;
   constexpr int NB = S::NB, LD = S::LD, LDP = S::LDP, NW = S::NW, V = S::V;
@@ -716,6 +748,9 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane / 4, tq = lane & 3;
   const size_t kk = static_cast<size_t>(k) * k;
+  // elements of a sample's G, and of fullt's SM, which takes G's layout
+  const size_t gk = slab ? static_cast<size_t>(slab_width(k)) : kk;
+  const size_t mk = WANT == kFullT ? gk : kk;
 
   // Step J0's active rows, in compressed order: `above` rows stored as
   // columns (the inverse variants' rows above block J), then the rest;
@@ -791,13 +826,13 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
     dob = d_obs[n];
   }
   int cur = 0;
-  for (int r0 = warp * RP; r0 < k; r0 += NW * RP) stage_rows<T, KP, LD>(A, G + n * kk, r0, k, lane);
+  for (int r0 = warp * RP; r0 < k; r0 += NW * RP) stage_rows<T, KP, LD>(A, G + n * gk, r0, k, lane, slab);
   if constexpr (WANT != kChol) stage_row(xb, b + n * k, k, k, tid, S::THREADS);
   cp_async_commit();
   for (; n < B; n += gridDim.x) {
     const long long next = n + gridDim.x;
     const bool more = next < B;
-    const T* Gx = G + (more ? next : n) * kk;
+    const T* Gx = G + (more ? next : n) * gk;
     T* x = xb + cur * KP;
     T sig_next = T(1), rn_next = T(0), dob_next = T(0);
     if constexpr (WANT != kChol) {
@@ -873,7 +908,7 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
       if (WANT == kLlk && more) {
         // llk reads block J's rows no more: the next sample's go there
         for (int r0 = J0 + warp * RP; r0 < J0 + NB && r0 < k; r0 += NW * RP)
-          stage_rows<T, KP, LD>(A, Gx, r0, k, lane);
+          stage_rows<T, KP, LD>(A, Gx, r0, k, lane, slab);
         cp_async_commit();
       }
       if constexpr (WANT == kChol) {
@@ -991,30 +1026,33 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
     }
     __syncthreads();
     if (WANT == kStates && more) {
-      for (int r0 = warp * RP; r0 < k; r0 += NW * RP) stage_rows<T, KP, LD>(A, Gx, r0, k, lane);
+      for (int r0 = warp * RP; r0 < k; r0 += NW * RP) stage_rows<T, KP, LD>(A, Gx, r0, k, lane, slab);
       cp_async_commit();
     }
     const T poison = *flag;
     for (int i = tid; i < k; i += S::THREADS) __stcs(s_out + n * k + i, x[i] + poison);
     if (kInverse) {
       // rows of SM = s s^T + sigma^2 M^{-1} (fullt: on and below the
+      // diagonal; under slabs the row's whole slab width, zeros above the
       // diagonal) or Sigma = sigma^2 M^{-1}, on stage_rows' lanes: each lane
       // writes its chunk, then stages the next sample's chunk in its place
+      constexpr bool slab_out = WANT == kFullT && slab;
       for (int r0 = warp * RP; r0 < k; r0 += NW * RP) {
         const int r = r0 + lane / Q, c0 = (lane % Q) * V;
-        const int ncols = WANT == kFullT ? r + 1 : k;
+        const int ncols = WANT != kFullT ? k : slab_out ? 8 * ((r >> 3) + 1) : r + 1;
         if (r < k && c0 < ncols) {
-          T* row = m_out + n * kk + static_cast<size_t>(r) * k;
+          T* row = m_out + n * mk + row_offset(r, k, slab_out);
           const T si = x[r];
           T o[V];
 #pragma unroll
           for (int e = 0; e < V; ++e) {
             const T cov = s2 * -A[r * LD + c0 + e];
             o[e] = (kSecond ? fma(si, x[c0 + e], cov) : cov) + poison;
+            if (slab_out && c0 + e > r) o[e] = T(0);
           }
           write_chunk<T, V>(row, c0, ncols, (reinterpret_cast<size_t>(row) & 15) == 0, o);
         }
-        if (more) stage_rows<T, KP, LD>(A, Gx, r0, k, lane);
+        if (more) stage_rows<T, KP, LD>(A, Gx, r0, k, lane, slab);
       }
       cp_async_commit();
     }
@@ -1024,7 +1062,7 @@ spd_estep_tile_kernel(const T* __restrict__ sigma, long long sigma_stride,
 // CTAs a multiprocessor of the current device holds for one instantiation of
 // the blocked body, with its dynamic shared memory limit raised (above the
 // default 48 KB) once per instantiation and device.
-template <typename T, int KP, int WANT>
+template <typename T, int KP, int WANT, bool SLAB = false>
 cudaError_t blocked_slots(int& per_sm, int& sms) {
   using S = Blocked<T, KP>;
   static int cached_per_sm[kMaxDevices] = {};
@@ -1034,13 +1072,13 @@ cudaError_t blocked_slots(int& per_sm, int& sms) {
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cached_per_sm[device] == 0) {
-    err = cudaFuncSetAttribute(spd_estep_tile_kernel<T, KP, WANT>,
+    err = cudaFuncSetAttribute(spd_estep_tile_kernel<T, KP, WANT, SLAB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(S::BYTES));
     if (err != cudaSuccess) return err;
     int blocks = 0, count = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, spd_estep_tile_kernel<T, KP, WANT>,
-                                                        S::THREADS, S::BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, spd_estep_tile_kernel<T, KP, WANT, SLAB>, S::THREADS, S::BYTES);
     if (err != cudaSuccess) return err;
     if (blocks < 1) return cudaErrorInvalidConfiguration;
     err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
@@ -1053,35 +1091,52 @@ cudaError_t blocked_slots(int& per_sm, int& sms) {
   return cudaSuccess;
 }
 
+template <typename T, int KP, int WANT, bool SLAB>
+cudaError_t launch_blocked(const T* sigma, long long sigma_stride, const T* G, const T* b,
+                           const T* rnorm, const T* d_obs, T* s, T* m, T* llk, T* sq, long long B,
+                           int k, cudaStream_t stream) {
+  using S = Blocked<T, KP>;
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = blocked_slots<T, KP, WANT, SLAB>(per_sm, sms);
+  if (err != cudaSuccess) return err;
+  const long long slots = static_cast<long long>(per_sm) * sms;
+  const unsigned grid = static_cast<unsigned>(B < slots ? B : slots);
+  spd_estep_tile_kernel<T, KP, WANT, SLAB><<<grid, S::THREADS, S::BYTES, stream>>>(
+      sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k);
+  return cudaGetLastError();
+}
+
 template <typename T, int KP, int WANT>
 cudaError_t launch_tile(const T* sigma, long long sigma_stride, const T* G, const T* b,
                         const T* rnorm, const T* d_obs, T* s, T* m, T* llk, T* sq, long long B,
-                        int k, cudaStream_t stream) {
+                        int k, bool slab, cudaStream_t stream) {
+  if constexpr (KP <= 16 || WANT == kChol) {
+    if (slab) return cudaErrorInvalidValue;  // square matrices only
+  }
   if constexpr (KP <= 16) {
     constexpr int per_block = kSmallThreads / KP;
     const long long blocks = (B + per_block - 1) / per_block;
     spd_estep_small_kernel<T, KP, WANT><<<static_cast<unsigned>(blocks), kSmallThreads, 0, stream>>>(
         sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k);
+    return cudaGetLastError();
+  } else if constexpr (WANT == kChol) {
+    return launch_blocked<T, KP, WANT, false>(sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk,
+                                              sq, B, k, stream);
   } else {
-    using S = Blocked<T, KP>;
-    int per_sm = 0, sms = 0;
-    const cudaError_t err = blocked_slots<T, KP, WANT>(per_sm, sms);
-    if (err != cudaSuccess) return err;
-    const long long slots = static_cast<long long>(per_sm) * sms;
-    const unsigned grid = static_cast<unsigned>(B < slots ? B : slots);
-    spd_estep_tile_kernel<T, KP, WANT><<<grid, S::THREADS, S::BYTES, stream>>>(
-        sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k);
+    return slab ? launch_blocked<T, KP, WANT, true>(sigma, sigma_stride, G, b, rnorm, d_obs, s, m,
+                                                   llk, sq, B, k, stream)
+                : launch_blocked<T, KP, WANT, false>(sigma, sigma_stride, G, b, rnorm, d_obs, s,
+                                                    m, llk, sq, B, k, stream);
   }
-  return cudaGetLastError();
 }
 
 template <typename T, int KP>
 cudaError_t launch_tile_want(int want, const T* sigma, long long sigma_stride, const T* G,
                              const T* b, const T* rnorm, const T* d_obs, T* s, T* m, T* llk,
-                             T* sq, long long B, int k, cudaStream_t stream) {
+                             T* sq, long long B, int k, bool slab, cudaStream_t stream) {
 #define PPCA_TILE_CASE(W) \
   case W:                 \
-    return launch_tile<T, KP, W>(sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, stream);
+    return launch_tile<T, KP, W>(sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, slab, stream);
   switch (want) {
     PPCA_TILE_CASE(kFullT)
     PPCA_TILE_CASE(kStates)
@@ -1097,12 +1152,16 @@ cudaError_t launch_tile_want(int want, const T* sigma, long long sigma_stride, c
 
 // The tile design for 1 <= k <= estep_tile_max_k<T>() (want kChol: k <=
 // chol_tile_max_k<T>()), on the smallest padded size that holds k.
-// Arguments as spd_estep.cu's entry points take them; for kChol M is G and
-// L is m, the rest null.
+// Arguments as spd_estep.cu's entry points take them (slab: G in slabs,
+// and fullt's SM, for k a multiple of 8 above 16, the E-step variants; the
+// one-block body and kChol refuse it in launch_tile); for kChol M is G and L
+// is m, the rest null.
 template <typename T>
 cudaError_t spd_estep_tile(int want, const void* sigma, long long sigma_stride, const void* G,
                            const void* b, const void* rnorm, const void* d_obs, void* s,
-                           void* m, void* llk, void* sq, long long B, int k, cudaStream_t stream) {
+                           void* m, void* llk, void* sq, long long B, int k, bool slab,
+                           cudaStream_t stream) {
+  if (slab && k % 8 != 0) return cudaErrorInvalidValue;
   const T* sg = static_cast<const T*>(sigma);
   const T* g = static_cast<const T*>(G);
   const T* bb = static_cast<const T*>(b);
@@ -1112,16 +1171,16 @@ cudaError_t spd_estep_tile(int want, const void* sigma, long long sigma_stride, 
   T* mo = static_cast<T*>(m);
   T* lo = static_cast<T*>(llk);
   T* qo = static_cast<T*>(sq);
-  if (k <= 8) return launch_tile_want<T, 8>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
-  if (k <= 16) return launch_tile_want<T, 16>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
-  if (k <= 32) return launch_tile_want<T, 32>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
-  if (k <= 64) return launch_tile_want<T, 64>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
+  if (k <= 8) return launch_tile_want<T, 8>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, slab, stream);
+  if (k <= 16) return launch_tile_want<T, 16>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, slab, stream);
+  if (k <= 32) return launch_tile_want<T, 32>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, slab, stream);
+  if (k <= 64) return launch_tile_want<T, 64>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, slab, stream);
   if constexpr (estep_tile_max_k<T>() > 64) {
-    if (k <= estep_tile_max_k<T>()) return launch_tile_want<T, 128>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
+    if (k <= estep_tile_max_k<T>()) return launch_tile_want<T, 128>(want, sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, slab, stream);
   } else {
     // double: KP=128 serves kChol alone
     if (want == kChol && k <= chol_tile_max_k<T>())
-      return launch_tile<T, 128, kChol>(sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, stream);
+      return launch_tile<T, 128, kChol>(sg, sigma_stride, g, bb, rn, dob, so, mo, lo, qo, B, k, false, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -6,9 +6,9 @@
 extern "C" int ppca_spd_estep_tile_f64(int want, const void* sigma, long long sigma_stride,
                                         const void* G, const void* b, const void* rnorm,
                                         const void* d_obs, void* s, void* m, void* llk, void* sq,
-                                        long long B, int k, void* stream) {
+                                        long long B, int k, int layout, void* stream) {
   return static_cast<int>(ppca::tile::spd_estep_tile<double>(
-      want, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k,
+      want, sigma, sigma_stride, G, b, rnorm, d_obs, s, m, llk, sq, B, k, layout != 0,
       static_cast<cudaStream_t>(stream)));
 }
 

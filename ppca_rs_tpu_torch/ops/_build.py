@@ -122,9 +122,10 @@ def load() -> ctypes.CDLL:
             for name in ("spd_estep_f32", "spd_estep_f64"):
                 fn = getattr(lib, name)
                 # want, device, sigma, sigma's stride, G, b, rnorm, d_obs,
-                # s, m, llk, sq, the panel design's scratch, B, k, stream
+                # s, m, llk, sq, the panel design's scratch, B, k, G's
+                # layout (0 square, 1 slabs), stream
                 fn.argtypes = [ctypes.c_int, ctypes.c_int, p, ctypes.c_longlong, p, p, p, p,
-                               p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
+                               p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
                 fn.restype = ctypes.c_int
             for name in ("spd_chol_f32", "spd_chol_f64"):
                 fn = getattr(lib, name)

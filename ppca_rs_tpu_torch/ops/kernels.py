@@ -24,6 +24,19 @@ Layout is batch-major: ``G (B, k, k)``, ``b (B, k)``, ``rnorm, d_obs (B,)``;
 tensor) or one per sample (a tensor of B elements, as the mixtures stack
 their components on the batch axis).
 
+Where :func:`uses_slabs` holds (k a multiple of 8, 16 < k <= the tile's
+limit), G may instead be a 2-D ``(B, slab_width(k))`` tensor of **slabs**,
+the port of the JAX kernel's wedge slabs (``ppca_rs_tpu/ops/kernels.py:
+g_slabs``) fitted to the tile, which reads G's lower triangle: k is split
+into blocks of 8 rows, and row r of block j = r // 8 holds its first
+8 (j + 1) entries (the lower triangle and the upper part of its 8 x 8
+diagonal block), rows one after another (:func:`slab_pack`).  Every row
+starts 16-byte aligned.  A Gram built as slabs computes
+``slab_width(k) / k^2`` of the square one's columns (0.5625 at k=64).  With
+slab G, ``"fullt"``'s SM comes back in the same layout, ``(B,
+slab_width(k))``, written whole: SM on and below the diagonal, zeros above
+it; every other output keeps its shape.
+
 On a CUDA tensor the wrapper launches the kernel behind
 ``csrc/spd_estep.cu`` (the port of ``ppca_rs_tpu/ops/kernels.py:_make_kernel``
 / ``spd_estep``) or raises: up to the tile limit the library reports
@@ -63,17 +76,133 @@ LN_2PI = 1.8378770664093453
 
 WANTS = ("fullt", "states", "llk", "infer", "full")
 _WANT_CODE = {"fullt": 0, "states": 1, "llk": 2, "infer": 3, "full": 4}
+#: G's layout as the library takes it (``csrc/spd_estep.cu``).
+LAYOUT_SQUARE, LAYOUT_SLABS = 0, 1
 
 #: Every kernel: the spd_estep variants and the Cholesky factor.
 KERNELS = WANTS + ("chol",)
 
 #: Kernel launches per kernel, counted where the kernel is launched.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+#: Of those, the spd_estep launches that took slab G, per variant.
+SLAB_LAUNCHES: Dict[str, int] = {name: 0 for name in WANTS}
+
+#: The largest k the tile design serves a spd_estep variant, by element
+#: size (``estep_tile_max_k`` in ``csrc/spd_common.cuh``); :func:`launch`
+#: checks them against the library once.
+TILE_MAX_K = {4: 128, 8: 64}
+#: Rows of a slab block.
+SLAB_ROWS = 8
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for name in WANTS:
+        SLAB_LAUNCHES[name] = 0
+
+
+def uses_slabs(k: int, dtype: torch.dtype) -> bool:
+    """Whether spd_estep takes G as slabs at state size k in ``dtype``: k a
+    multiple of 8 above 16 (the blocked body of the tile) and within the
+    tile's limit (the panel design and the one-block body take square G).
+    The JAX package's gate (``ppca_rs_tpu/ops/masked_linalg.py:
+    _kernel_prep``) with the port's tile limits; it loads no library."""
+    return k % SLAB_ROWS == 0 and 16 < k <= TILE_MAX_K.get(dtype.itemsize, 0)
+
+
+def slab_width(k: int) -> int:
+    """Elements of one sample's slabs: 32 m (m + 1) for m = k / 8."""
+    if k % SLAB_ROWS:
+        raise ValueError(f"slabs need k a multiple of {SLAB_ROWS}, got k={k}")
+    m = k // SLAB_ROWS
+    return 32 * m * (m + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_coords_cpu(k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    rows = [r for r in range(k) for _ in range(8 * (r // 8 + 1))]
+    cols = [c for r in range(k) for c in range(8 * (r // 8 + 1))]
+    return torch.tensor(rows), torch.tensor(cols)
+
+
+def slab_coords(k: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, column) of each slab element, in order: two (slab_width(k),)
+    index tensors on ``device``."""
+    slab_width(k)
+    rows, cols = _slab_coords_cpu(k)
+    return rows.to(device), cols.to(device)
+
+
+def slab_pack(G: torch.Tensor) -> torch.Tensor:
+    """(..., k, k) -> (..., slab_width(k)): the lower triangle in the slab
+    layout, zeros above the diagonal."""
+    k = G.shape[-1]
+    rows, cols = slab_coords(k, G.device)
+    return torch.where(cols <= rows, G[..., rows, cols], torch.zeros((), dtype=G.dtype,
+                                                                      device=G.device))
+
+
+def slab_unpack_lower(slabs: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., slab_width(k)) -> (..., k, k): the lower triangle, zeros above
+    the diagonal (what the slabs hold above it inside a diagonal block is
+    not read)."""
+    if slabs.shape[-1] != slab_width(k):
+        raise ValueError(f"slabs of k={k} must have {slab_width(k)} elements, "
+                         f"got {slabs.shape[-1]}")
+    rows, cols = slab_coords(k, slabs.device)
+    out = slabs.new_zeros((*slabs.shape[:-1], k, k))
+    out[..., rows, cols] = slabs
+    return torch.tril(out)
+
+
+def gram_width(k: int, dtype: torch.dtype) -> int:
+    """The columns of one sample's Gram as the routes build it for the
+    kernel: slab_width(k) where :func:`uses_slabs` holds, else k^2."""
+    return slab_width(k) if uses_slabs(k, dtype) else k * k
+
+
+def estep_gram(G: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """``n`` Grams as :func:`spd_estep` takes them: slabs ``(n,
+    slab_width(k))`` where :func:`uses_slabs` holds and ``G`` holds n
+    slabs (the columns ``masked_linalg.gram_columns`` builds), else square
+    ``(n, k, k)`` from any shape of n k^2 elements (flat ``(..., k*k)`` or
+    ``(..., k, k)``)."""
+    if uses_slabs(k, G.dtype) and G.numel() == n * slab_width(k):
+        return G.reshape(n, slab_width(k))
+    if G.numel() != n * k * k:
+        raise ValueError(f"{n} Grams at k={k} in {G.dtype} must be {n * gram_width(k, G.dtype)} "
+                         f"or {n * k * k} elements, got {tuple(G.shape)}")
+    return G.reshape(n, k, k)
+
+
+def unpack_stats(S: torch.Tensor, k: int) -> torch.Tensor:
+    """M-step statistics summed over the kernel's second moments, ``(...,
+    gram_width(k, S.dtype))``, as ``(..., k*k)``: sums of slab SM unpacked
+    to the lower triangle once (the JAX package's ``_s_unpack``), sums of
+    square SM as they are."""
+    if not uses_slabs(k, S.dtype):
+        return S
+    return slab_unpack_lower(S, k).reshape(*S.shape[:-1], k * k)
+
+
+def _library():
+    """The kernel library, its tile limits checked once against
+    :data:`TILE_MAX_K` (which :func:`uses_slabs` reads without it)."""
+    from . import _build
+
+    lib = _build.load()
+    if id(lib) not in _CHECKED_LIBRARIES:
+        for itemsize, limit in TILE_MAX_K.items():
+            got = lib.spd_estep_tile_max_k(itemsize)
+            if got != limit:
+                raise RuntimeError(f"the kernel library's tile serves k <= {got} for "
+                                   f"{itemsize}-byte elements, TILE_MAX_K says {limit}")
+        _CHECKED_LIBRARIES.add(id(lib))
+    return lib
+
+
+_CHECKED_LIBRARIES: set = set()
 
 
 def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) -> str:
@@ -86,11 +215,9 @@ def design(k: int, kernel: str = "estep", dtype: torch.dtype = torch.float32) ->
     once in shared memory and its products on the tensor cores, any k), by
     the tile limit that the kernel library reports for that kernel and
     element size."""
-    from . import _build
-
     if kernel not in ("estep", "chol"):
         raise ValueError(f"kernel must be 'estep' or 'chol', got {kernel!r}")
-    lib = _build.load()
+    lib = _library()
     limit = lib.spd_estep_tile_max_k if kernel == "estep" else lib.spd_chol_tile_max_k
     return "tile" if k <= limit(dtype.itemsize) else "panel"
 
@@ -105,13 +232,11 @@ def tile_occupancy(k: int, dtype: torch.dtype = torch.float32,
     Needs the card; k within the tile limit (:func:`design`)."""
     import ctypes
 
-    from . import _build
-
     if design(k, kernel, dtype) != "tile" or k < 1:
         raise ValueError(f"k={k} is not served by the tile for {kernel} in {dtype}")
     index = torch.cuda.current_device()
     out = [ctypes.c_int(0) for _ in range(3)]
-    lib = _build.load()
+    lib = _library()
     err = lib.spd_estep_tile_occupancy(dtype.itemsize, index, k, int(kernel == "chol"),
                                        *(ctypes.byref(v) for v in out))
     if err != 0:
@@ -173,8 +298,15 @@ def spd_estep_reference(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple
 
     Built on ``torch.linalg.cholesky_ex``: a sample whose M does not factor
     gets a NaN factor (as ``jnp.linalg.cholesky`` gives), so its outputs are
-    non-finite and no exception is raised."""
+    non-finite and no exception is raised.  Slab G (2-D) is unpacked and
+    mirrored from its lower triangle, and ``"fullt"``'s SM packed back, zeros
+    above the diagonal, as the kernel writes it."""
     _check_want(want)
+    if G.ndim == 2:
+        k = b.shape[-1]
+        low = slab_unpack_lower(G, k)
+        out = spd_estep_reference(sigma, low + torch.tril(low, -1).mT, b, rnorm, d_obs, want)
+        return (out[0], slab_pack(out[1]), *out[2:]) if want == "fullt" else out
     B, k, _ = G.shape
     dtype, device = G.dtype, G.device
     sigma, _ = sigma_arg(sigma, B, dtype, device)
@@ -253,47 +385,58 @@ def spd_estep(sigma, G, b, rnorm, d_obs, want: str = "fullt") -> Tuple[torch.Ten
 
     k = 0 takes :func:`spd_estep_state_size_zero`; otherwise CPU tensors
     take :func:`spd_estep_reference` and CUDA tensors launch the kernel,
-    which raises on anything it does not take.  Of ``"fullt"``'s SM only
-    the lower triangle (diagonal included) is defined: on the card the
-    elements above the diagonal are never written."""
+    which raises on anything it does not take.  Of ``"fullt"``'s square SM
+    only the lower triangle (diagonal included) is defined: on the card the
+    elements above the diagonal are never written.  Slab G (2-D, see the
+    module docstring) is taken where :func:`uses_slabs` holds, on every
+    device, and raises elsewhere."""
     _check_want(want)
     _check_shapes(G, b, rnorm, d_obs)
-    if G.shape[-1] == 0:
+    B, k = b.shape
+    slab = G.ndim == 2
+    if slab and not uses_slabs(k, G.dtype):
+        raise ValueError(f"slab G needs k a multiple of {SLAB_ROWS} in 16 < k <= "
+                         f"{TILE_MAX_K.get(G.dtype.itemsize, 0)} for {G.dtype}, got k={k}")
+    if k == 0:
         return spd_estep_state_size_zero(sigma, G, b, rnorm, d_obs, want)
     if G.device.type == "cpu":
         return spd_estep_reference(sigma, G, b, rnorm, d_obs, want)
-    B, k, _ = G.shape
-    outs = empty_outputs(want, B, k, G)
+    outs = empty_outputs(want, B, k, G, slab=slab)
     launch(want, sigma, G, b, rnorm, d_obs, outs)
     return outs
 
 
-def output_shapes(want: str, B: int, k: int):
+def output_shapes(want: str, B: int, k: int, slab: bool = False):
+    """The outputs' shapes; with ``slab``, fullt's SM is (B, slab_width(k))."""
     if want == "llk":
         return [(B,)]
     if want == "states":
         return [(B, k), (B,)]
+    if want == "fullt" and slab:
+        return [(B, k), (B, slab_width(k)), (B,), (B,)]
     return [(B, k), (B, k, k), (B,), (B,)]   # fullt, full, infer
 
 
-def empty_outputs(want: str, B: int, k: int, like: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def empty_outputs(want: str, B: int, k: int, like: torch.Tensor,
+                  slab: bool = False) -> Tuple[torch.Tensor, ...]:
     """Uninitialised output tensors for ``want`` (the kernel writes every
-    element but those above the diagonal of ``"fullt"``'s SM)."""
+    element but those above the diagonal of ``"fullt"``'s square SM)."""
     return tuple(torch.empty(sh, dtype=like.dtype, device=like.device)
-                 for sh in output_shapes(want, B, k))
+                 for sh in output_shapes(want, B, k, slab))
 
 
 def launch(want: str, sigma, G, b, rnorm, d_obs, outs, scratch=None) -> None:
     """Launch the CUDA kernel into caller-provided outputs ``outs`` (as
     returned by :func:`empty_outputs`) on the current stream.  The panel
     design's scratch for ``llk`` and ``states`` (:func:`empty_scratch`) is
-    allocated here unless the caller passes it.  Raises on any input the
-    kernel does not take and on a failed launch."""
-    from . import _build
-
+    allocated here unless the caller passes it.  G is square (B, k, k) or
+    slabs (B, slab_width(k)); the library refuses slabs where the tile does
+    not serve k in the blocked body.  Raises on any input the kernel does
+    not take and on a failed launch."""
     _check_want(want)
     _check_shapes(G, b, rnorm, d_obs)
-    B, k, _ = G.shape
+    B, k = b.shape
+    slab = G.ndim == 2
     dtype, device = G.dtype, G.device
     if device.type != "cuda":
         raise ValueError(f"the spd_estep kernel needs CUDA tensors, got {device}")
@@ -302,7 +445,7 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs, scratch=None) -> None:
     if k < 1:
         raise ValueError(f"the spd_estep kernel takes k >= 1, got k={k}")
     sigma, sigma_stride = sigma_arg(sigma, B, dtype, device)
-    shapes = output_shapes(want, B, k)
+    shapes = output_shapes(want, B, k, slab)
     if len(outs) != len(shapes) or any(
         tuple(o.shape) != sh or o.dtype != dtype or o.device != device
         for o, sh in zip(outs, shapes)
@@ -329,26 +472,27 @@ def launch(want: str, sigma, G, b, rnorm, d_obs, outs, scratch=None) -> None:
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _build.load()
+    lib = _library()
     fn = lib.spd_estep_f32 if dtype == torch.float32 else lib.spd_estep_f64
     stream = torch.cuda.current_stream(device).cuda_stream
     index = device.index if device.index is not None else torch.cuda.current_device()
     err = fn(_WANT_CODE[want], index, ptr(sigma), sigma_stride, ptr(G), ptr(b), ptr(rnorm),
-             ptr(d_obs), ptr(s), ptr(m), ptr(llk), ptr(sq), ptr(scratch), B, k, stream)
+             ptr(d_obs), ptr(s), ptr(m), ptr(llk), ptr(sq), ptr(scratch), B, k,
+             LAYOUT_SLABS if slab else LAYOUT_SQUARE, stream)
     if err != 0:
         raise RuntimeError(
-            f"spd_estep kernel launch failed (want={want!r}, B={B}, k={k}): "
-            f"{lib.spd_estep_error_string(err).decode()}"
+            f"spd_estep kernel launch failed (want={want!r}, B={B}, k={k}"
+            f"{', slab G' if slab else ''}): {lib.spd_estep_error_string(err).decode()}"
         )
     LAUNCHES[want] += 1
+    if slab:
+        SLAB_LAUNCHES[want] += 1
 
 
 def launch_chol(M: torch.Tensor, L: torch.Tensor) -> None:
     """Launch the Cholesky kernel into a caller-provided ``L`` (same shape,
     dtype and device as ``M``) on the current stream.  Raises on any input
     the kernel does not take and on a failed launch."""
-    from . import _build
-
     _check_chol_shape(M)
     B, k, _ = M.shape
     dtype, device = M.dtype, M.device
@@ -362,7 +506,7 @@ def launch_chol(M: torch.Tensor, L: torch.Tensor) -> None:
         raise ValueError(f"L must be a {dtype} tensor of shape {tuple(M.shape)} on {device}")
     if not (M.is_contiguous() and L.is_contiguous()):
         raise ValueError("the spd_chol kernel takes contiguous tensors only")
-    lib = _build.load()
+    lib = _library()
     fn = lib.spd_chol_f32 if dtype == torch.float32 else lib.spd_chol_f64
     stream = torch.cuda.current_stream(device).cuda_stream
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -386,9 +530,19 @@ def _check_want(want: str) -> None:
 
 
 def _check_shapes(G, b, rnorm, d_obs) -> None:
-    if G.ndim != 3 or G.shape[1] != G.shape[2]:
+    if G.ndim == 2:
+        # slabs: k is read from b
+        if b.ndim != 2 or b.shape[0] != G.shape[0]:
+            raise ValueError(f"b must be ({G.shape[0]}, k) beside slab G, got {tuple(b.shape)}")
+        B, k = b.shape
+        if k % SLAB_ROWS or G.shape[1] != slab_width(k):
+            width = f"({B}, {slab_width(k)})" if k % SLAB_ROWS == 0 else "undefined"
+            raise ValueError(f"G must be (B, k, k) or its slabs (B, slab_width(k)), {width} "
+                             f"at k={k}, got {tuple(G.shape)}")
+    elif G.ndim != 3 or G.shape[1] != G.shape[2]:
         raise ValueError(f"G must be (B, k, k), got {tuple(G.shape)}")
-    B, k, _ = G.shape
+    else:
+        B, k, _ = G.shape
     if tuple(b.shape) != (B, k):
         raise ValueError(f"b must be ({B}, {k}), got {tuple(b.shape)}")
     if tuple(rnorm.shape) != (B,) or tuple(d_obs.shape) != (B,):

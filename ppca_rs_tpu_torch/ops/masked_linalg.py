@@ -6,13 +6,19 @@ observed rows of ``C``:
 
 * the masked Gram ``G_n = C^T diag(m_n) C`` is linear in the 0/1 mask, so
   with the flattened per-row outer products ``CC in R^{D x k^2}`` the Grams
-  of a whole block are ONE matmul ``mask @ CC``;
+  of a whole block are ONE matmul ``mask @ CC``; where the kernel takes its
+  G as slabs (``kernels.uses_slabs``, the JAX package's
+  ``config.g_slab_inputs``), CC holds only the slab columns
+  (:func:`outer_slab`, ``slab_width(k)`` of the k^2: 0.5625 at k=64), and
+  the matmul builds only the lower wedge the kernel reads;
 * the per-sample factorization of ``M_n = sigma^2 I + G_n`` and everything
   derived from it (posterior state, covariance or second moment,
   log-likelihood, noise-update trace) is :func:`ops.kernels.spd_estep`: the
   CUDA kernel on the card, its plain version on the CPU;
 * the M-step statistic ``S[d] = sum_n w_n m_nd (s_n s_n^T + Sigma_n)`` is
-  the transposed matmul ``(w*m)^T @ SM``, and the M-step's row solves
+  the transposed matmul ``(w*m)^T @ SM`` (with slab G, over fullt's slab
+  SM, accumulated as slabs and unpacked once: the JAX package's
+  ``config.s_slab_stats``), and the M-step's row solves
   ``(S[d] + lambda I) c_d = cross[d]`` are the same kernel with
   ``sigma = sqrt(lambda)``.
 
@@ -81,6 +87,22 @@ def outer_flat(C: torch.Tensor) -> torch.Tensor:
     return (C[..., :, None] * C[..., None, :]).reshape(*C.shape[:-1], k * k)
 
 
+def outer_slab(C: torch.Tensor) -> torch.Tensor:
+    """The slab columns of :func:`outer_flat` (``kernels.slab_pack``'s
+    layout, the entries above the diagonal inside a diagonal block
+    included): (D, slab_width(k)), or (M, D, slab_width(k)) for a stack."""
+    rows, cols = kernels.slab_coords(C.shape[-1], C.device)
+    return C[..., rows] * C[..., cols]
+
+
+def gram_columns(C: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The columns ``mask @ CC`` contracts for the kernel's G at the compute
+    ``dtype``: :func:`outer_slab` where the kernel takes slabs
+    (``kernels.uses_slabs``), else :func:`outer_flat`:
+    ``kernels.gram_width(k, dtype)`` columns."""
+    return outer_slab(C) if kernels.uses_slabs(C.shape[-1], dtype) else outer_flat(C)
+
+
 class BlockPosterior(NamedTuple):
     """E-step quantities of one block of samples."""
 
@@ -94,13 +116,14 @@ class BlockPosterior(NamedTuple):
 def block_posterior(C, CC, mean, sigma, data, mask_f, want: str, group=None) -> BlockPosterior:
     """The E-step of one block (`ppca_model.rs:195-208`, batched): the
     matmul prep, summed over the model ``group`` if given, then the SPD
-    kernel's ``want`` variant."""
+    kernel's ``want`` variant.  ``CC`` is :func:`gram_columns` at the
+    compute dtype: G goes to the kernel as slabs where it takes them."""
     k = C.shape[1]
     n = data.shape[0]
     R = mask_f * (data - mean)
     b, G, rnorm, d_obs = all_reduce_sum((R @ C, mask_f @ CC, (R * R).sum(-1), mask_f.sum(-1)),
                                         group)
-    out = kernels.spd_estep(sigma, G.reshape(n, k, k), b, rnorm, d_obs, want=want)
+    out = kernels.spd_estep(sigma, kernels.estep_gram(G, n, k), b, rnorm, d_obs, want=want)
     return BlockPosterior(R, b, rnorm, d_obs, out)
 
 
@@ -116,7 +139,7 @@ def _compute_dtype(data: torch.Tensor, C: torch.Tensor) -> torch.dtype:
 def llks(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.Tensor:
     """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
     dtype = _compute_dtype(data, C)
-    CC = outer_flat(C)
+    CC = gram_columns(C, dtype)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
         post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
@@ -129,7 +152,7 @@ def infer(C, mean, sigma, data, mask, *, block_size: int, group=None):
     """Posterior states and covariances ``(states (N,k), covs (N,k,k))``
     (`ppca_model.rs:221-227`)."""
     dtype = _compute_dtype(data, C)
-    CC = outer_flat(C)
+    CC = gram_columns(C, dtype)
     states_, covs = [], []
     for lo, hi in _blocks(data.shape[0], block_size):
         post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
@@ -144,7 +167,7 @@ def states(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.
     """Posterior state means only, (N, k) — the path behind smooth and
     extrapolate (`ppca_model.rs:231-261`)."""
     dtype = _compute_dtype(data, C)
-    CC = outer_flat(C)
+    CC = gram_columns(C, dtype)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
         post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
@@ -164,7 +187,7 @@ class EMStats(NamedTuple):
     """Sufficient statistics of one EM iteration."""
 
     cross: torch.Tensor         # (D, k)   sum w r s^T        (ppca_model.rs:281-293)
-    S: torch.Tensor             # (D, k*k) sum w m_d (ss^T+Sigma) (ppca_model.rs:297-308)
+    S: torch.Tensor             # (D, k*k) sum w m_d (ss^T+Sigma), tril (ppca_model.rs:297-308)
     square_error: torch.Tensor  # scalar   sum w tr(G Sigma)  (ppca_model.rs:345)
     dev_sq: torch.Tensor        # scalar   sum w |dev|^2      (ppca_model.rs:346)
     total_dev: torch.Tensor     # (D,)     sum w dev          (ppca_model.rs:347)
@@ -181,10 +204,11 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None
     E-step inputs, so they are the whole rows' already."""
     D, k = C.shape
     dtype = _compute_dtype(data, C)
-    CC = outer_flat(C)
+    CC = gram_columns(C, dtype)
     sigma2 = sigma * sigma
     cross = torch.zeros((D, k), dtype=dtype, device=data.device)
-    S = torch.zeros((D, k * k), dtype=dtype, device=data.device)
+    # (D, k*k), or as slabs (D, slab_width(k)) where the kernel takes them
+    S = torch.zeros((D, CC.shape[-1]), dtype=dtype, device=data.device)
     total_dev = torch.zeros(D, dtype=dtype, device=data.device)
     totals = torch.zeros(D, dtype=dtype, device=data.device)
     # scalar statistics are kept per block and summed at the end
@@ -198,7 +222,7 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None
         sw = s * w[:, None]
         cross += post.R.T @ sw
         mw = mask_f * w[:, None]
-        S += mw.T @ SM.reshape(hi - lo, k * k)
+        S += mw.T @ SM.reshape(hi - lo, -1)
         sq_parts.append((w * sq_b).sum())
         # No residual materialization: with M s = b and G = M - sigma^2 I,
         # s^T G s = b.s - sigma^2 |s|^2, so the masked residual norm is
@@ -218,7 +242,7 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None
             return torch.zeros((), dtype=dtype, device=data.device)
         return torch.stack(parts).sum()
 
-    return EMStats(cross, S, total(sq_parts), total(dev_parts), total_dev, totals,
+    return EMStats(cross, kernels.unpack_stats(S, k), total(sq_parts), total(dev_parts), total_dev, totals,
                    total(llk_parts))
 
 

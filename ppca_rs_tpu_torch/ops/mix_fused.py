@@ -6,7 +6,11 @@ responsibilities and then M reweighted single-model EM passes.  Here one
 blocked pass does it all:
 
 * the per-sample masked Grams and projections of all M components are
-  batched matmuls against the stacked ``Cs (M, D, k)``;
+  batched matmuls against the stacked ``Cs (M, D, k)``; on the general
+  route the Grams are built as the kernel's slabs where it takes them
+  (``masked_linalg.gram_columns``), and the S statistic is accumulated as
+  slabs and unpacked once (the JAX package's ``config.g_slab_inputs`` and
+  ``s_slab_stats``); the table route keeps square tables;
 * the SPD kernel is independent per sample, so the M components' blocks
   are stacked on its batch axis, component-major (sample ``m * B + n`` is
   row n under component m), with one sigma per sample
@@ -106,9 +110,10 @@ def _projections(Cs, center: _Center, datab, mask_f):
 
 
 def _general_inputs(Cs, CCs, center: _Center, datab, mask_f, group):
-    """``(md0, G (M, B, k*k), b, rnorm, d_obs)`` of one block of the general
-    route: :func:`_projections`, the Gram ``mask @ CC_m`` (already in the
-    kernel's component-major order) and the observed counts, the last four
+    """``(md0, G (M, B, CCs' width), b, rnorm, d_obs)`` of one block of the
+    general route: :func:`_projections`, the Gram ``mask @ CC_m`` (already in
+    the kernel's component-major order; slabs or k*k as ``CCs`` is, from
+    ``masked_linalg.gram_columns``) and the observed counts, the last four
     summed over the model ``group`` in one all_reduce if given."""
     md0, b, rnorm = _projections(Cs, center, datab, mask_f)
     G, b, rnorm, d_obs = all_reduce_sum((torch.matmul(mask_f, CCs), b, rnorm, mask_f.sum(-1)),
@@ -124,12 +129,14 @@ def _residual(means, datab, mask_f):
 def _estep(sigmas, G, b, rnorm, d_obs, want: str):
     """One :func:`kernels.spd_estep` launch over all components, stacked
     component-major on the batch axis with a sigma per sample.  ``G`` is
-    (M, B, k*k) (or (M, B, k, k)), ``b`` (M, B, k), ``rnorm`` (M, B),
-    ``d_obs`` (B,).  Returns ``(llks (M, B), s (M, B, k), mat (M, B, k, k),
-    sq (M, B))``, None where ``want`` gives no such output; ``mat`` is the
-    second moment (fullt, full) or the covariance (infer)."""
+    (M, B, kernels.gram_width(k)) as ``masked_linalg.gram_columns`` builds
+    it, or square (M, B, k, k) (``kernels.estep_gram``), ``b`` (M, B, k),
+    ``rnorm`` (M, B), ``d_obs`` (B,).  Returns ``(llks (M, B), s
+    (M, B, k), mat (M, B, k, k), sq (M, B))``, None where ``want`` gives no
+    such output; ``mat`` is the second moment (fullt, full; fullt's as
+    (M, B, slab_width(k)) slabs with slab G) or the covariance (infer)."""
     M, B, k = b.shape
-    out = kernels.spd_estep(sigmas.repeat_interleave(B), G.reshape(M * B, k, k),
+    out = kernels.spd_estep(sigmas.repeat_interleave(B), kernels.estep_gram(G, M * B, k),
                             b.reshape(M * B, k), rnorm.reshape(M * B), d_obs.repeat(M),
                             want=want)
     if want == "llk":
@@ -138,7 +145,7 @@ def _estep(sigmas, G, b, rnorm, d_obs, want: str):
         s, llk = out
         return llk.view(M, B), s.view(M, B, k), None, None
     s, mat, llk, sq = out
-    return llk.view(M, B), s.view(M, B, k), mat.view(M, B, k, k), sq.view(M, B)
+    return llk.view(M, B), s.view(M, B, k), mat.view(M, B, *mat.shape[1:]), sq.view(M, B)
 
 
 def _responsibilities(llks, log_weights, w):
@@ -150,9 +157,10 @@ def _responsibilities(llks, log_weights, w):
 
 
 def _weighted_S(mask_f, SM, resp):
-    """``S[m] = mask^T (resp_m SM_m)``, (M, D, k*k): SM is the block's own
-    kernel output, scaled in place, and the M products are one batched
-    matmul against the shared mask (a stride-0 batch, no copy)."""
+    """``S[m] = mask^T (resp_m SM_m)``, (M, D, SM's width a sample: k*k, or
+    slab_width(k) for slab SM): SM is the block's own kernel output, scaled
+    in place, and the M products are one batched matmul against the shared
+    mask (a stride-0 batch, no copy)."""
     M, B = resp.shape
     SMw = SM.view(M, B, -1).mul_(resp[..., None])
     return torch.bmm(mask_f.T.expand(M, -1, -1), SMw)
@@ -242,8 +250,9 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
     if pidx is not None:
         return mix_em_stats_pat(Cs, means, sigmas, log_weights, data, mask, pidx, patterns,
                                 weights, block_size=block_size)
+    M, D, k = Cs.shape
     dtype = _compute_dtype(data, Cs)
-    CCs = ml.outer_flat(Cs)
+    CCs = ml.gram_columns(Cs, dtype)
     center = None if config.mix_exact_rnorm else _center_prep(Cs, means)
     acc = None
     for lo, hi in _blocks(data.shape[0], block_size):
@@ -254,10 +263,11 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
             new = _block_mix_fast(Cs, CCs, center, sigmas, log_weights, datab, mask_f, w, group)
         acc = _accumulate(acc, new)
     if acc is None:
-        M, D, k = Cs.shape
         opts = dict(dtype=dtype, device=data.device)
         acc = MixEMStats(*(torch.zeros(shape, **opts) for shape in (
             (M, D, k), (M, D, k * k), (M,), (M,), (M, D), (M, D), (M,), (M,), ())))
+    else:
+        acc = acc._replace(S=kernels.unpack_stats(acc.S, k))
     return acc
 
 
@@ -274,7 +284,7 @@ def compute_mix_tables(Cs, sigmas, patterns_f) -> PatternTables:
     M, _, k = Cs.shape
     P = patterns_f.shape[0]
     opts = dict(dtype=patterns_f.dtype, device=patterns_f.device)
-    G = torch.matmul(patterns_f, ml.outer_flat(Cs).to(patterns_f.dtype))   # (M, P, k*k)
+    G = torch.matmul(patterns_f, ml.outer_flat(Cs).to(patterns_f.dtype)).reshape(M, P, k, k)
     pat_llk, _, Sigma, sq = _estep(sigmas, G, torch.zeros((M, P, k), **opts),
                                    torch.zeros((M, P), **opts), patterns_f.sum(-1), "full")
     return PatternTables(Sigma.reshape(M, P, k * k), pat_llk, sq)
@@ -520,7 +530,7 @@ def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, p
     dtype = _compute_dtype(data, Cs)
     center = _center_prep(Cs, means)
     if pidx is None:
-        CCs = ml.outer_flat(Cs)
+        CCs = ml.gram_columns(Cs, dtype)
     else:
         tables = compute_mix_tables(Cs, sigmas, patterns.to(dtype))
     for lo, hi in _blocks(data.shape[0], block_size):

@@ -23,7 +23,9 @@ still be there (the kernels write nothing above it).
 
 ``time`` builds the ``.cu`` sources of each DIR (another checkout's
 ``ppca_rs_tpu_torch/csrc``, or a changed copy of it, with the same C entry
-points) into a library of its own and times the same launches through
+points; a DIR whose ``spd_estep.cu`` predates G's layout argument is
+called without it, on square G) into a library of its own and times the
+same launches through
 every library into the same preallocated outputs, in turns (the others,
 this checkout twice, the others in reverse order), CUDA events around 10
 back-to-back launches after one (30 for the tile's shapes); the cases at
@@ -200,9 +202,15 @@ def check() -> bool:
     return ok
 
 
+def takes_layout(csrc: Path) -> bool:
+    """Whether a version's spd_estep entry points take G's layout."""
+    return "int layout" in (csrc / "spd_estep.cu").read_text()
+
+
 def build_other(csrc: Path, out: Path, label: str) -> ctypes.CDLL:
     """Compile another version's kernel sources into ``out`` and load it
-    with this package's entry-point types.  Its panel and tile kernels are
+    with this package's entry-point types (without the layout argument
+    where its sources predate it).  Its panel and tile kernels are
     compiled under other namespaces than this checkout's, so that both
     libraries' kernels keep their own attributes (and cached launch
     shapes) in one process."""
@@ -216,17 +224,25 @@ def build_other(csrc: Path, out: Path, label: str) -> ctypes.CDLL:
     _build._run_all([[nvcc, *_build.LINK_FLAGS, "-o", str(lib_path), *map(str, objs)]])
     lib = ctypes.CDLL(str(lib_path))
     this = _build.load()
+    layout = takes_layout(csrc)
     for name in ("spd_estep_f32", "spd_estep_f64", "spd_chol_f32", "spd_chol_f64"):
-        getattr(lib, name).argtypes = getattr(this, name).argtypes
+        types = list(getattr(this, name).argtypes)
+        if name.startswith("spd_estep") and not layout:
+            del types[-2]
+        getattr(lib, name).argtypes = types
         getattr(lib, name).restype = ctypes.c_int
+    lib.takes_layout = layout
     return lib
 
 
 def estep_call(lib, want, sig, x, outs, scratch):
     """A launch of spd_estep through ``lib`` into ``outs``; ``sig`` holds one
-    sigma or one per sample."""
+    sigma or one per sample; G square, or (2-D) slabs."""
     G = x["G"]
-    B, k, _ = G.shape
+    B, k = x["b"].shape
+    layout = (kernels.LAYOUT_SLABS if G.ndim == 2 else kernels.LAYOUT_SQUARE,)
+    if not getattr(lib, "takes_layout", True):
+        layout = ()
     s = m = sq = None
     if want == "llk":
         (llk,) = outs
@@ -244,7 +260,7 @@ def estep_call(lib, want, sig, x, outs, scratch):
         err = fn(kernels._WANT_CODE[want], torch.cuda.current_device(), ptr(sig),
                  0 if sig.numel() == 1 else 1, ptr(G),
                  ptr(x["b"]), ptr(x["rnorm"]), ptr(x["d_obs"]), ptr(s), ptr(m), ptr(llk),
-                 ptr(sq), ptr(scratch), B, k, stream)
+                 ptr(sq), ptr(scratch), B, k, *layout, stream)
         if err != 0:
             raise RuntimeError(f"launch failed: {err}")
     return run
@@ -296,20 +312,23 @@ DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 
 def default_cases():
-    """(want, k, B, dtype, sigma per sample): the tile's shapes, then the
-    panel design's."""
-    cases = [(want, k, B, DTYPES[dt], ps) for want, k, B, dt, ps in TIME_TILE]
-    cases += [(want, k, B, torch.float32, False) for k, B in TIME_F32 for want in kernels.WANTS]
-    cases += [("fullt", k, B, torch.float64, False) for k, B in TIME_F64]
-    return cases + [("chol", k, B, DTYPES[dt], False) for k, B, dt in TIME_CHOL]
+    """(want, k, B, dtype, sigma per sample, slab G): the tile's shapes,
+    then the panel design's, all on square G."""
+    cases = [(want, k, B, DTYPES[dt], ps, False) for want, k, B, dt, ps in TIME_TILE]
+    cases += [(want, k, B, torch.float32, False, False)
+              for k, B in TIME_F32 for want in kernels.WANTS]
+    cases += [("fullt", k, B, torch.float64, False, False) for k, B in TIME_F64]
+    return cases + [("chol", k, B, DTYPES[dt], False, False) for k, B, dt in TIME_CHOL]
 
 
 def parse_cases(text: str):
-    """want:k:B:f32|f64[:ps],... -> cases (``ps``: a sigma per sample)."""
+    """want:k:B:f32|f64[:ps][:slab],... -> cases (``ps``: a sigma per
+    sample; ``slab``: G as slabs, through this checkout alone, beside its
+    square G)."""
     out = []
     for item in text.split(","):
         want, k, B, dt, *rest = item.split(":")
-        out.append((want, int(k), int(B), DTYPES[dt], rest == ["ps"]))
+        out.append((want, int(k), int(B), DTYPES[dt], "ps" in rest, "slab" in rest))
     return out
 
 
@@ -329,7 +348,7 @@ def time_ab(others, cases) -> list:
         order = [label for _, label in others]
         order = order + ["this", "this"] + order[::-1]
         rows = []
-        for want, k, B, dtype, per_sample in cases:
+        for want, k, B, dtype, per_sample, slab in cases:
             reps = TILE_REPS if k <= 128 else REPS
             graphed = k <= 16 or B <= 4096 or (want == "chol" and k <= 32)
             if want == "chol":
@@ -348,15 +367,21 @@ def time_ab(others, cases) -> list:
                 scratch = kernels.empty_scratch(want, B, k, x["G"])
                 makes = {name: functools.partial(estep_call, lib, want, sig, x, outs, scratch)
                          for name, lib in libs.items()}
+                if slab:
+                    xs = dict(x, G=cs.slab_of(x["G"]))
+                    makes["this, slab G"] = functools.partial(
+                        estep_call, libs["this"], want, sig, xs,
+                        kernels.empty_outputs(want, B, k, xs["G"], slab=True), None)
             runs = {name: make() for name, make in makes.items()}
-            ms = {name: [] for name in libs}
-            graph = {name: [] for name in libs}
-            for name in order:
+            turns = order + (["this, slab G", "this, slab G"] if slab else [])
+            ms = {name: [] for name in makes}
+            graph = {name: [] for name in makes}
+            for name in turns:
                 ms[name].append(events_ms(runs[name], reps))
                 if graphed:
                     graph[name].append(graph_ms(makes[name], reps))
             row = dict(kernel=want, dtype=str(dtype)[6:], k=k, B=B, sigma_per_sample=per_sample,
-                       ms=ms)
+                       slab=slab, ms=ms)
             line = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in v)} ms"
                              for name, v in ms.items())
             if graphed:
@@ -390,6 +415,9 @@ def time_sampler(others) -> list:
     libs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for csrc, label in others:
+            if not takes_layout(csrc):
+                raise SystemExit(f"sampler: {csrc} predates G's layout argument, which the "
+                                 "package's readouts pass")
             (Path(tmp) / label).mkdir()
             libs[label] = build_other(csrc, Path(tmp) / label, label)
         libs["this"] = _build.load()

@@ -6,7 +6,8 @@ from their SASS.
     python3 tools/torch_panel_sass.py f32.sass [f64.sass ...]
 
 For every ``spd_panel_kernel<T, WANT>``, ``spd_estep_tile_kernel<T, KP,
-WANT>`` (the tile's blocked body) and ``spd_estep_small_kernel<T, KP, WANT>``
+WANT, SLAB>`` (the tile's blocked body, SLAB true where G comes as slabs)
+and ``spd_estep_small_kernel<T, KP, WANT>``
 (its one-block body) in the listings it prints the count
 of HMMA instructions with TF32 operands and of DMMA instructions, the local
 memory (spill) loads and stores in the whole kernel, and for each run of
@@ -24,7 +25,7 @@ import sys
 GAP = 120
 _FUNCTION = re.compile(r"Function : (\S+)")
 _PANEL = re.compile(r"spd_panel_kernelI([fd])Li(\d)E")
-_TILE = re.compile(r"spd_estep_(tile|small)_kernelI([fd])Li(\d+)ELi(\d)E")
+_TILE = re.compile(r"spd_estep_(tile|small)_kernelI([fd])Li(\d+)ELi(\d)E(?:Lb([01])E)?")
 
 
 def kernels(path: str):
@@ -69,7 +70,9 @@ def main(paths) -> int:
                 label = f"spd_panel_kernel<{dtype}, {m.group(2)}>"
             elif t:
                 dtype = "float" if t.group(2) == "f" else "double"
-                label = f"spd_estep_{t.group(1)}_kernel<{dtype}, {t.group(3)}, {t.group(4)}>"
+                layout = "" if t.group(5) is None else (", true" if t.group(5) == "1" else ", false")
+                label = (f"spd_estep_{t.group(1)}_kernel<{dtype}, {t.group(3)}, {t.group(4)}"
+                         f"{layout}>")
             else:
                 continue
             tf32, dmma, spills, inside = summary(body)
