@@ -1,0 +1,8 @@
+"""The whole EM step's share of the card's dense TF32 peak: useful
+operations of the traced iterations over their untraced time."""
+
+from portbench import readers
+
+
+def read(view):
+    return readers.mfu_pct(view)
