@@ -36,10 +36,11 @@ from ..ops import mix_fused as mf
 from ..parallel import api
 from ..parallel.mesh import dataset_mesh
 from ..prior import Prior
+from ..utils.profiling import span
 from ..utils.rng import ensure_generator
 from ..utils.serialization import dump_bytes, load_bytes
-from .ppca import (InferredMasked, PosteriorSampler, PPCAModel, extrapolated_cov_diag,
-                   smoothed_cov_diag, smoothed_cov_full)
+from .ppca import (InferredMasked, PosteriorSampler, PPCAModel, device_priors,
+                   extrapolated_cov_diag, smoothed_cov_diag, smoothed_cov_full)
 
 
 class PPCAMix:
@@ -200,7 +201,8 @@ class PPCAMix:
     def llks(self, dataset: Dataset) -> torch.Tensor:
         """Per-sample mixture log-likelihood: logsumexp over components of
         llk + log weight (`mix.rs:147-159`)."""
-        return torch.logsumexp(self._component_llks(dataset) + self._log_weights, -1)
+        with span("ppca.readout"):
+            return torch.logsumexp(self._component_llks(dataset) + self._log_weights, -1)
 
     def llk(self, dataset: Dataset) -> float:
         """Weighted total mixture log-likelihood (`mix.rs:162-174`)."""
@@ -214,7 +216,8 @@ class PPCAMix:
         """(N, M) per-sample *log*-posterior over components: the reference
         returns the log-softmax values, though its doc comment speaks of
         probabilities (`mix.rs:179-189`); this matches the code."""
-        return torch.log_softmax(self._component_llks(dataset) + self._log_weights, -1)
+        with span("ppca.readout"):
+            return torch.log_softmax(self._component_llks(dataset) + self._log_weights, -1)
 
     # ------------------------------------------------------------------ #
     # sampling (mix.rs:121-134)
@@ -260,30 +263,33 @@ class PPCAMix:
         """Responsibilities and every component's posterior in ONE pass (the
         reference makes M llk and M infer passes, `mix.rs:205-236`); each
         component's readout is sliced back to its own k."""
-        Cs, means, sigmas = self._stacked_params()
-        if dataset_mesh(dataset) is not None:
-            log_post, states, covs = api.mix_infer(Cs, means, sigmas, self._log_weights, dataset,
-                                                   **self._route_args(dataset, Cs))
-        else:
-            log_post, states, covs = mf.mix_infer(Cs, means, sigmas, self._log_weights,
-                                                  dataset.data, dataset.mask,
-                                                  **self._route_args(dataset, Cs))
-        inferred = [InferredMasked(m, states[i, :, :m.state_size],
-                                   covs[i, :, :m.state_size, :m.state_size])
-                    for i, m in enumerate(self._models)]
-        return InferredMaskedMix(self, log_post, inferred)
+        with span("ppca.readout"):
+            Cs, means, sigmas = self._stacked_params()
+            if dataset_mesh(dataset) is not None:
+                log_post, states, covs = api.mix_infer(Cs, means, sigmas, self._log_weights,
+                                                       dataset, **self._route_args(dataset, Cs))
+            else:
+                log_post, states, covs = mf.mix_infer(Cs, means, sigmas, self._log_weights,
+                                                      dataset.data, dataset.mask,
+                                                      **self._route_args(dataset, Cs))
+            inferred = [InferredMasked(m, states[i, :, :m.state_size],
+                                       covs[i, :, :m.state_size, :m.state_size])
+                        for i, m in enumerate(self._models)]
+            return InferredMaskedMix(self, log_post, inferred)
 
     def _smooth_fused(self, dataset: Dataset, extrapolate: bool) -> Dataset:
-        Cs, means, sigmas = self._stacked_params()
-        if dataset_mesh(dataset) is not None:
-            out = api.mix_smooth(Cs, means, sigmas, self._log_weights, dataset,
-                                 extrapolate=extrapolate, **self._route_args(dataset, Cs))
-        else:
-            out = mf.mix_smooth(Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask,
-                                extrapolate=extrapolate, **self._route_args(dataset, Cs))
-        new = Dataset.unmasked(out)
-        new._shard = dataset._shard
-        return new
+        with span("ppca.readout"):
+            Cs, means, sigmas = self._stacked_params()
+            if dataset_mesh(dataset) is not None:
+                out = api.mix_smooth(Cs, means, sigmas, self._log_weights, dataset,
+                                     extrapolate=extrapolate, **self._route_args(dataset, Cs))
+            else:
+                out = mf.mix_smooth(Cs, means, sigmas, self._log_weights, dataset.data,
+                                    dataset.mask, extrapolate=extrapolate,
+                                    **self._route_args(dataset, Cs))
+            new = Dataset.unmasked(out)
+            new._shard = dataset._shard
+            return new
 
     def smooth(self, dataset: Dataset) -> Dataset:
         """Posterior-weighted mixture of the component smoothings
@@ -313,15 +319,21 @@ class PPCAMix:
         come out exactly 0)."""
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
-        params = self._stacked_params()
-        order = self._sorted(dataset)
         if dataset_mesh(dataset) is not None:
+            params = self._stacked_params()
             new, llk = api.mix_em_step(*params, self._log_weights, dataset,
-                                       _priors(prior, params[0]),
-                                       **self._route_args(dataset, params[0]), order=order)
+                                       device_priors(prior, params[0]),
+                                       **self._route_args(dataset, params[0]),
+                                       order=self._sorted(dataset))
             return self._from_stacked(*new), llk
-        stats = self._em_stats(dataset, *params, order=order)
-        return self._finalize(*params, stats, prior), stats.llk
+        with span("ppca.em_step"):
+            params = self._stacked_params()
+            order = self._sorted(dataset)
+            with span("ppca.em_stats"):
+                stats = self._em_stats(dataset, *params, order=order)
+            with span("ppca.em_finalize"):
+                new = self._finalize(*params, stats, prior)
+            return new, stats.llk
 
     def _em_stats(self, dataset: Dataset, Cs, means, sigmas, order=None) -> mf.MixEMStats:
         """The fused EM statistics of ``dataset``'s rows on its route, for
@@ -335,7 +347,7 @@ class PPCAMix:
                   prior: Optional[Prior]) -> "PPCAMix":
         """The M-step from the statistics."""
         return self._from_stacked(*mf.mix_em_finalize(Cs, means, sigmas, stats,
-                                                      **_priors(prior, Cs)))
+                                                      **device_priors(prior, Cs)))
 
     def _from_stacked(self, new_Cs, new_means, new_sigmas, new_lw) -> "PPCAMix":
         """The mixture of the new stacked parameters; each new transform is
@@ -390,11 +402,6 @@ class PPCAMix:
     def to_canonical(self) -> "PPCAMix":
         """:meth:`PPCAModel.to_canonical` of every component (`mix.rs:340-346`)."""
         return PPCAMix([m.to_canonical() for m in self._models], self._log_weights)
-
-
-def _priors(prior: Optional[Prior], like: torch.Tensor) -> dict:
-    tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(like.dtype, like.device)
-    return dict(transformation_precision=tprec, noise_prior=noise_prior, mean_prior=mean_prior)
 
 
 class InferredMaskedMix:

@@ -32,6 +32,7 @@ from ..ops import masked_linalg as ml
 from ..parallel import api
 from ..parallel.mesh import dataset_mesh
 from ..prior import Prior
+from ..utils.profiling import span
 from ..utils.rng import ensure_generator
 from ..utils.serialization import dump_bytes, load_bytes
 from . import routes
@@ -201,7 +202,8 @@ class PPCAModel(nn.Module):
 
     def llks(self, dataset: Dataset) -> torch.Tensor:
         """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
-        return self._readout("llks", dataset)
+        with span("ppca.readout"):
+            return self._readout("llks", dataset)
 
     def _readout(self, verb: str, dataset: Dataset):
         """``verb`` ("llks", "states" or "infer") of the dataset's route."""
@@ -250,22 +252,24 @@ class PPCAModel(nn.Module):
         return InferredMasked(self, state, covariance)
 
     def infer(self, dataset: Dataset) -> "InferredMasked":
-        return InferredMasked(self, *self._readout("infer", dataset))
+        with span("ppca.readout"):
+            return InferredMasked(self, *self._readout("infer", dataset))
 
     def _smoothed(self, dataset: Dataset, extrapolate: bool) -> Dataset:
         """The smoothed (or extrapolated) values, with the dataset's weights
         and place on its mesh: a sharded dataset's are this rank's rows and
         columns."""
-        if dataset_mesh(dataset) is not None:
-            out = api.smooth(*self._params(), dataset, block_size=self._block_rows(dataset),
-                             extrapolate=extrapolate)
-        else:
-            out = self._readout("states", dataset) @ self.transform.T + self.mean
-            if extrapolate:
-                out = torch.where(dataset.mask, dataset.data, out)
-        new = Dataset.unmasked(out, dataset.weights_dev)
-        new._shard = dataset._shard
-        return new
+        with span("ppca.readout"):
+            if dataset_mesh(dataset) is not None:
+                out = api.smooth(*self._params(), dataset, block_size=self._block_rows(dataset),
+                                 extrapolate=extrapolate)
+            else:
+                out = self._readout("states", dataset) @ self.transform.T + self.mean
+                if extrapolate:
+                    out = torch.where(dataset.mask, dataset.data, out)
+            new = Dataset.unmasked(out, dataset.weights_dev)
+            new._shard = dataset._shard
+            return new
 
     def smooth(self, dataset: Dataset) -> Dataset:
         """De-noise observed values and fill missing ones
@@ -298,17 +302,18 @@ class PPCAModel(nn.Module):
             # (ppca_model.rs:358); raise instead of returning a NaN model.
             raise ValueError("cannot iterate on an empty dataset")
         C, mean, sigma = self._params()
-        tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(C.dtype, C.device)
-        priors = dict(transformation_precision=tprec, noise_prior=noise_prior,
-                      mean_prior=mean_prior)
         if dataset_mesh(dataset) is not None:
-            new, llk = api.em_step(C, mean, sigma, dataset, priors,
+            new, llk = api.em_step(C, mean, sigma, dataset, device_priors(prior, C),
                                    block_size=self._block_rows(dataset))
             return PPCAModel._from_params(*new), llk
-        way = routes.route(dataset)
-        stats = routes.em_stats(way, C, mean, sigma, dataset, self._block_rows(dataset))
-        new = routes.em_finalize(way, C, mean, sigma, stats, priors)
-        return PPCAModel._from_params(*new), stats.llk
+        with span("ppca.em_step"):
+            priors = device_priors(prior, C)
+            way = routes.route(dataset)
+            with span("ppca.em_stats"):
+                stats = routes.em_stats(way, C, mean, sigma, dataset, self._block_rows(dataset))
+            with span("ppca.em_finalize"):
+                new = routes.em_finalize(way, C, mean, sigma, stats, priors)
+            return PPCAModel._from_params(*new), stats.llk
 
     def _iterate_with_llk(self, dataset: Dataset, prior: Optional[Prior]) -> Tuple["PPCAModel", float]:
         """EM step: (new model, llk of *this* model on the dataset)."""
@@ -349,6 +354,13 @@ class PPCAModel(nn.Module):
         new_C = U * svals[None, :]
         signs = torch.where(new_C.sum(0) >= 0, 1.0, -1.0).to(new_C.dtype)
         return PPCAModel._from_params(new_C * signs[None, :], self.mean, self.isotropic_noise)
+
+
+def device_priors(prior: Optional[Prior], like: torch.Tensor) -> dict:
+    """The M-step's prior arguments on ``like``'s device and dtype (no
+    prior: the flat one)."""
+    tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(like.dtype, like.device)
+    return dict(transformation_precision=tprec, noise_prior=noise_prior, mean_prior=mean_prior)
 
 
 def smoothed_cov_diag(model: PPCAModel, covs: torch.Tensor) -> torch.Tensor:

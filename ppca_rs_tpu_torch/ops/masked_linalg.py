@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
 from . import kernels
 
 
@@ -142,9 +143,10 @@ def llks(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.Te
     CC = gram_columns(C, dtype)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
-        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                               mask[lo:hi].to(dtype), "llk", group)
-        out.append(post.out[0])
+        with span("ppca.block"):
+            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
+                                   mask[lo:hi].to(dtype), "llk", group)
+            out.append(post.out[0])
     return _cat(out, data, dtype)
 
 
@@ -155,10 +157,11 @@ def infer(C, mean, sigma, data, mask, *, block_size: int, group=None):
     CC = gram_columns(C, dtype)
     states_, covs = [], []
     for lo, hi in _blocks(data.shape[0], block_size):
-        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                               mask[lo:hi].to(dtype), "infer", group)
-        states_.append(post.out[0])
-        covs.append(post.out[1])
+        with span("ppca.block"):
+            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
+                                   mask[lo:hi].to(dtype), "infer", group)
+            states_.append(post.out[0])
+            covs.append(post.out[1])
     k = C.shape[1]
     return _cat(states_, data, dtype, k), _cat(covs, data, dtype, k, k)
 
@@ -170,9 +173,10 @@ def states(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.
     CC = gram_columns(C, dtype)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
-        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                               mask[lo:hi].to(dtype), "states", group)
-        out.append(post.out[0])
+        with span("ppca.block"):
+            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
+                                   mask[lo:hi].to(dtype), "states", group)
+            out.append(post.out[0])
     return _cat(out, data, dtype, C.shape[1])
 
 
@@ -214,28 +218,29 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None
     # scalar statistics are kept per block and summed at the end
     sq_parts, dev_parts, llk_parts = [], [], []
     for lo, hi in _blocks(data.shape[0], block_size):
-        mask_f = mask[lo:hi].to(dtype)
-        w = weights[lo:hi].to(dtype)
-        post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype), mask_f, "fullt",
-                               group)
-        s, SM, llk_b, sq_b = post.out
-        sw = s * w[:, None]
-        cross += post.R.T @ sw
-        mw = mask_f * w[:, None]
-        S += mw.T @ SM.reshape(hi - lo, -1)
-        sq_parts.append((w * sq_b).sum())
-        # No residual materialization: with M s = b and G = M - sigma^2 I,
-        # s^T G s = b.s - sigma^2 |s|^2, so the masked residual norm is
-        # rnorm - b.s - sigma^2 |s|^2 (clamped: it can round below zero
-        # when the residual is ~0), and w @ dev is w @ R minus a (D, k)
-        # contraction.
-        bs = (post.b * s).sum(-1)
-        s2 = (s * s).sum(-1)
-        dev_parts.append((w * torch.clamp(post.rnorm - bs - sigma2 * s2, min=0.0)).sum())
-        msw = mask_f.T @ sw
-        total_dev += w @ post.R - (C * msw).sum(-1)
-        totals += w @ mask_f
-        llk_parts.append((w * llk_b).sum())
+        with span("ppca.block"):
+            mask_f = mask[lo:hi].to(dtype)
+            w = weights[lo:hi].to(dtype)
+            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype), mask_f, "fullt",
+                                   group)
+            s, SM, llk_b, sq_b = post.out
+            sw = s * w[:, None]
+            cross += post.R.T @ sw
+            mw = mask_f * w[:, None]
+            S += mw.T @ SM.reshape(hi - lo, -1)
+            sq_parts.append((w * sq_b).sum())
+            # No residual materialization: with M s = b and G = M - sigma^2 I,
+            # s^T G s = b.s - sigma^2 |s|^2, so the masked residual norm is
+            # rnorm - b.s - sigma^2 |s|^2 (clamped: it can round below zero
+            # when the residual is ~0), and w @ dev is w @ R minus a (D, k)
+            # contraction.
+            bs = (post.b * s).sum(-1)
+            s2 = (s * s).sum(-1)
+            dev_parts.append((w * torch.clamp(post.rnorm - bs - sigma2 * s2, min=0.0)).sum())
+            msw = mask_f.T @ sw
+            total_dev += w @ post.R - (C * msw).sum(-1)
+            totals += w @ mask_f
+            llk_parts.append((w * llk_b).sum())
 
     def total(parts):
         if not parts:

@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..config import config
+from ..utils.profiling import span
 from . import kernels
 from . import masked_linalg as ml
 from .masked_linalg import _blocks, _cat, _compute_dtype, all_reduce_sum
@@ -256,12 +257,15 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
     center = None if config.mix_exact_rnorm else _center_prep(Cs, means)
     acc = None
     for lo, hi in _blocks(data.shape[0], block_size):
-        datab, mask_f, w = data[lo:hi].to(dtype), mask[lo:hi].to(dtype), weights[lo:hi].to(dtype)
-        if center is None:
-            new = _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w, group)
-        else:
-            new = _block_mix_fast(Cs, CCs, center, sigmas, log_weights, datab, mask_f, w, group)
-        acc = _accumulate(acc, new)
+        with span("ppca.block"):
+            datab, mask_f = data[lo:hi].to(dtype), mask[lo:hi].to(dtype)
+            w = weights[lo:hi].to(dtype)
+            if center is None:
+                new = _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w, group)
+            else:
+                new = _block_mix_fast(Cs, CCs, center, sigmas, log_weights, datab, mask_f, w,
+                                      group)
+            acc = _accumulate(acc, new)
     if acc is None:
         opts = dict(dtype=dtype, device=data.device)
         acc = MixEMStats(*(torch.zeros(shape, **opts) for shape in (
@@ -534,13 +538,15 @@ def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, p
     else:
         tables = compute_mix_tables(Cs, sigmas, patterns.to(dtype))
     for lo, hi in _blocks(data.shape[0], block_size):
-        datab, mask_f = data[lo:hi].to(dtype), mask[lo:hi].to(dtype)
-        if pidx is None:
-            llks, s, Sig, _ = _block_llks_kernel(Cs, CCs, center, sigmas, datab, mask_f, want,
-                                                 group)
-        else:
-            llks, s, Sig, _, _, _ = _block_post_pat(Cs, means, sigmas, tables, datab, mask_f,
-                                                    pidx[lo:hi], center)
+        # closed before the yield: no range stays open while the caller runs
+        with span("ppca.block"):
+            datab, mask_f = data[lo:hi].to(dtype), mask[lo:hi].to(dtype)
+            if pidx is None:
+                llks, s, Sig, _ = _block_llks_kernel(Cs, CCs, center, sigmas, datab, mask_f,
+                                                     want, group)
+            else:
+                llks, s, Sig, _, _, _ = _block_post_pat(Cs, means, sigmas, tables, datab,
+                                                        mask_f, pidx[lo:hi], center)
         yield datab, mask[lo:hi], llks, s, Sig
 
 
