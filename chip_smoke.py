@@ -40,6 +40,21 @@ fourteen phases; any failed check raises and the script exits non-zero:
    against square G, slab G refused at k=16 and above the tile, and
    fullt, llk, states and infer on slab G timed in turns with square G at
    k=32 (B=65,536, a sigma per sample), 64 and 128;
+2b. the masked Gram kernel (``[gram]`` lines; ``kernels.mask_gram``, the
+   bool mask times the Gram columns' three bf16 slices on the tensor cores,
+   promoted into float32 sums): at the main path's shapes (B=8192, D=1024,
+   slab k=64 and k=128: W=2304 and 8704; the mixture's D=512, 8 x 640) and
+   ragged ones (B=131, D=80 and 257, k=24 and 40, k=13 square), its
+   NaN-prefilled output against float64 (and the split kernel's slices bit
+   for bit against its plain version), with the max relative error and
+   the signed mean relative error of the Grams' diagonals beside the SIMT
+   float32 product's and beside a library bf16 product of the K-stacked
+   slices (``torch.mm(..., out_dtype=torch.float32)``, which the port never
+   calls), each bounded (``TOL_GRAM``, ``TOL_GRAM_DIAG``: a lower-precision
+   sum fails) and at the main path's shapes held to at most 1.5x the SIMT
+   product's; the kernel timed at the main shapes and at k=256 (W=65,536,
+   B=2048, the panel path's) beside its bound, the plain version, the
+   library bf16 product (``library_ms``) and the SIMT product;
 3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
    missing at random, N=1,048,576 float32 rows made on the card from a
    seed (pattern detection must demote them), five trainer iterations,
@@ -447,6 +462,29 @@ SLAB_WANTS = ("fullt", "llk", "states", "infer")
 SLAB_TIMED = ((K_MIX, M_MIX * 8192, True), (TIMED_K, BATCH, False), (WIDE_K, BATCH, False))
 #: Slab launches of the main runs of phases 3, 7 and 8 (kernels.SLAB_LAUNCHES).
 SLAB_COUNTS: dict = {}
+#: The Gram kernel's cases (phase 2b): (B, D, k, M, square G, timed).  The
+#: main path's: k=64 and 128 slabs at B=8192, D=1024 (phases 3 and 7), the
+#: mixture's 8 components of k=32 at D=512 (phase 8), k=256's square
+#: columns at B=2048 (phase 11a, the panel path); ragged B, D and W.
+GRAM_CASES = ((8192, 1024, 64, 1, False, True), (8192, 1024, 128, 1, False, True),
+              (8192, 512, 32, 8, False, True), (2048, 1024, 256, 1, True, True),
+              (131, 80, 24, 1, False, False), (131, 257, 40, 1, False, False),
+              (131, 257, 24, 1, False, False), (131, 80, 13, 1, True, False))
+#: The main path's cases, where the kernel's errors are held to the SIMT
+#: float32 product's (at most GRAM_ERR_RATIO times each).
+GRAM_MAIN = 3
+GRAM_ERR_RATIO = 1.5
+#: Any case fails above these: the max relative error (the kernel reads up
+#: to 4.3e-7 on an H100, a bf16 product summed whole on the tensor cores
+#: 2.8e-6 and more at the main shapes) and the diagonal's signed mean
+#: relative error (the kernel up to 9.5e-9 in size; its sums left to the
+#: tensor cores' adder, unpromoted, -1.95e-7 at D=1024).
+TOL_GRAM = 1.5e-6
+TOL_GRAM_DIAG = 5e-8
+GRAM_REPS = 20
+PEAK_BF16_FLOPS = 989e12
+#: The Gram launches of the training runs (kernels.GRAM_LAUNCHES), by tag.
+GRAM_COUNTS: dict = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -473,6 +511,134 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# --------------------------------------------------------------------- #
+# phase 2b
+
+
+def gram_case(B: int, D: int, k: int, M: int, square: bool, gen):
+    """(bool mask, float32 columns (D, W) or (M, D, W), diagonal column
+    indices) for one case: C ~ N(0,1) 2/sqrt(k) as the benchmark draws it,
+    the columns as the routes build them, the mask 50% observed (80% for a
+    mixture, as phase 8's data)."""
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+
+    C = torch.randn((M, D, k) if M > 1 else (D, k), generator=gen, device="cuda") * 2 / k ** 0.5
+    CC = ml.outer_flat(C) if square else ml.outer_slab(C)
+    if square:
+        diag = torch.arange(k, device="cuda") * (k + 1)
+    else:
+        rows, cols = kernels.slab_coords(k, "cuda")
+        diag = torch.nonzero(rows == cols).flatten()
+    p = MIX_OBSERVED if M > 1 else 0.5
+    mask = torch.rand((B, D), generator=gen, device="cuda") < p
+    return mask, CC.contiguous(), diag
+
+
+def gram_errors(G, exact, diag) -> tuple:
+    """(max |G - exact| / max |exact|, the signed mean of (G - exact) /
+    exact over the Grams' diagonal entries with exact > 0)."""
+    d_got, d_exact = G[..., diag].double(), exact[..., diag]
+    pos = d_exact > 0
+    signed = float(((d_got - d_exact)[pos] / d_exact[pos]).mean())
+    return rel_err(G, exact), signed
+
+
+def phase_mask_gram(smi: str) -> dict:
+    """The Gram kernel against float64 at the main path's and at ragged
+    shapes, beside the SIMT float32 product and a library bf16 product of
+    the K-stacked slices, and timed at the timed cases.  Returns the k=64
+    case's row for the kernels line, with the others under ``at_<case>``."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    rows = {}
+    for i, (B, D, k, M, square, timed) in enumerate(GRAM_CASES):
+        mask, CC, diag = gram_case(B, D, k, M, square, gen)
+        W = CC.shape[-1]
+        tag = f"B={B} D={D} k={k}{' square' if square else ''}{f' M={M}' if M > 1 else ''} W={W}"
+        kernels.reset_launch_counts()
+        slices = kernels.gram_slices(CC)
+        check(kernels.SPLIT_LAUNCHES["kernel"] == 1
+              and torch.equal(slices, kernels.gram_slices_reference(CC)),
+              f"gram {tag}: the split kernel differs from its plain version")
+        out = torch.full((M, B, W) if M > 1 else (B, W), float("nan"), device="cuda")
+        kernels.mask_gram(mask, slices, out)
+        torch.cuda.synchronize()
+        check(kernels.GRAM_LAUNCHES == {"kernel": 1, "library": 0}, f"gram {tag}: not launched")
+        check(bool(torch.isfinite(out).all()), f"gram {tag}: an output was left unwritten")
+        mask_f = mask.float()
+        exact = torch.matmul(mask.double(), CC.double())
+        simt = torch.matmul(mask_f, CC)
+        # the library yardstick: [m m m] (B, 3D) x [hi; mid; lo] (3D, M W) in
+        # bf16 with float32 output, one product
+        stacked = slices[..., :W].reshape(3, M, D, W).permute(0, 2, 1, 3).reshape(3 * D, M * W)
+        a3 = mask.to(torch.bfloat16).repeat(1, 3)
+        lib = torch.mm(a3, stacked, out_dtype=torch.float32)
+        lib = lib.view(B, M, W).permute(1, 0, 2) if M > 1 else lib
+        err, signed = gram_errors(out, exact, diag)
+        err_simt, signed_simt = gram_errors(simt, exact, diag)
+        err_lib, signed_lib = gram_errors(lib, exact, diag)
+        check(err <= TOL_GRAM, f"gram {tag}: max rel err {err:.3e} above {TOL_GRAM}")
+        check(abs(signed) <= TOL_GRAM_DIAG,
+              f"gram {tag}: the diagonal's signed mean rel err {signed:+.3e} above "
+              f"{TOL_GRAM_DIAG} in size")
+        row = dict(B=B, D=D, k=k, M=M, W=W, max_rel_err=err, diag_signed_rel=signed,
+                   simt_max_rel_err=err_simt, simt_diag_signed_rel=signed_simt,
+                   lib_max_rel_err=err_lib, lib_diag_signed_rel=signed_lib)
+        held = (err <= GRAM_ERR_RATIO * err_simt
+                and abs(signed) <= GRAM_ERR_RATIO * abs(signed_simt))
+        note = (f"; within {GRAM_ERR_RATIO}x the SIMT product's: {'held' if held else 'MISSED'}"
+                if i < GRAM_MAIN else "")
+        print(f"[gram] {tag}: max rel err kernel {err:.3e} / SIMT f32 {err_simt:.3e} / library "
+              f"bf16 {err_lib:.3e}; diagonal signed mean rel err kernel {signed:+.3e} / SIMT "
+              f"{signed_simt:+.3e} / library {signed_lib:+.3e}{note}")
+        check(held or i >= GRAM_MAIN, f"gram {tag}: the kernel's errors are not within "
+              f"{GRAM_ERR_RATIO}x the SIMT float32 product's")
+        if timed:
+            flops = 3 * 2 * B * D * W * M
+            nbytes = B * D + 4 * M * B * W + 3 * 2 * M * D * W
+            b_ms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+            reps = GRAM_REPS if B * W * M <= 8192 * 8704 else GRAM_REPS // 2
+            ms = cuda_ms(lambda: kernels.mask_gram(mask, slices, out), reps)
+            plain_out = torch.empty_like(out)
+            plain_ms = cuda_ms(lambda: plain_out.copy_(kernels.mask_gram_reference(mask, slices, W)),
+                               max(2, reps // 4))
+            simt_out = torch.empty_like(simt)
+            simt_ms = cuda_ms(lambda: torch.matmul(mask_f, CC, out=simt_out), reps)
+            library_ms = cuda_ms(lambda: torch.mm(a3, stacked, out_dtype=torch.float32), reps)
+            row.update(ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=plain_ms,
+                       library_ms=library_ms, simt_ms=simt_ms,
+                       tflops=flops / ms / 1e9, peak_share=b_ms / ms if by == "operations" else None)
+            print(f"[time] mask_gram {tag}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of "
+                  f"slice work, {100 * flops / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1f}% of the bf16 "
+                  f"peak), {bound_note(b_ms, by, PEAK_BF16_FLOPS)}; plain {plain_ms:.4f} ms; "
+                  f"library bf16 {library_ms:.4f} ms; SIMT f32 product {simt_ms:.4f} ms ({smi})")
+        rows[tag] = row
+        del mask, CC, slices, out, exact, simt, lib, stacked, a3
+        torch.cuda.empty_cache()
+    # the kernel's name as the profiler shows it: the benchmark counts it as a
+    # product (a name with "gemm", none with "spd_")
+    from torch.profiler import ProfilerActivity, profile
+
+    mask, CC, _ = gram_case(BATCH, D_MAIN, K_MAIN, 1, False, gen)
+    slices, out = kernels.gram_slices(CC), torch.empty(BATCH, CC.shape[-1], device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(KERNEL_REPS):
+            kernels.mask_gram(mask, slices, out)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "mask_gram" in e.key
+             and getattr(e, "device_time_total", 0) > 0]
+    check(bool(names) and all("gemm" in n and "spd_" not in n for n in names),
+          f"gram: the profiler shows the kernel as {names}")
+    print(f"[gram] the profiler names the kernel {names[0]!r}")
+    keys = list(rows)
+    main = dict(rows[keys[0]])
+    main.update({f"at_{key.replace(' ', '_')}": rows[key] for key in keys[1:]})
+    return main
 
 
 # --------------------------------------------------------------------- #
@@ -1241,12 +1407,15 @@ def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None
         model = PPCAMixTrainer(dataset).train(n_models=n_models, **options)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    GRAM_COUNTS[tag] = dict(kernels.GRAM_LAUNCHES)
+    check(kernels.GRAM_LAUNCHES["library"] == 0,
+          f"{tag}: {kernels.GRAM_LAUNCHES['library']} masked Grams left the Gram kernel")
     per_iter = [b - a for a, b in zip(stamps, stamps[1:])]
     check(all(math.isfinite(v) for v in llks), f"{tag}: non-finite llk in {llks}")
     for a, b in zip(llks, llks[1:]):
         check(b >= a - LLK_SLACK * abs(a), f"{tag}: llk decreased: {a} -> {b}")
     print(f"[{tag}] launches during training: {launches}, of them on slab G "
-          f"{dict(kernels.SLAB_LAUNCHES)}")
+          f"{dict(kernels.SLAB_LAUNCHES)}; masked Grams {GRAM_COUNTS[tag]}")
     print(f"[{tag}] seconds per EM iteration at N={len(dataset)}: "
           + ", ".join(f"{s:.4f}" for s in per_iter)
           + f"; mean of iterations 2-{n_iters}: {sum(per_iter[1:]) / (n_iters - 1):.4f} s "
@@ -3692,17 +3861,18 @@ def themes_golden() -> None:
     C = torch.tensor([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]], **f64)
     sigma, mean = 0.1, torch.tensor([0.0, 1.0, 0.0], **f64)
     D, k = C.shape
-    ones = torch.ones(1, D, **f64)
+    ones = torch.ones(1, D, dtype=torch.bool, device="cuda")
     check(kernels.design(k, "estep", torch.float64) == "tile", "k=2 is not on the register tile")
     before = dict(kernels.LAUNCHES)
-    post = ml.block_posterior(C, ml.outer_flat(C), torch.zeros(D, **f64), sigma,
-                              torch.ones(1, D, **f64), ones, "infer")
+    gram = ml.gram_operand(C, torch.float64)
+    post = ml.block_posterior(C, gram, torch.zeros(D, **f64), sigma, torch.ones(1, D, **f64),
+                              ones, "infer")
     s, Sigma = post.out[0], post.out[1]
     quad = float((post.rnorm - (post.b * s).sum(-1))[0]) / sigma ** 2
     noise = 2.0 * math.log(sigma) * (D - k)
     logdet = k * 2.0 * math.log(sigma) - float(torch.logdet(Sigma[0])) + noise
     y = torch.tensor([[1.0, 2.0, 3.0]], **f64)
-    llk = float(ml.block_posterior(C, ml.outer_flat(C), mean, sigma, y, ones, "llk").out[0][0])
+    llk = float(ml.block_posterior(C, gram, mean, sigma, y, ones, "llk").out[0][0])
     torch.cuda.synchronize()
     check(kernels.LAUNCHES["infer"] == before["infer"] + 1
           and kernels.LAUNCHES["llk"] == before["llk"] + 1, "golden: infer and llk not launched")
@@ -4053,6 +4223,8 @@ def main() -> int:
     done("1")
     summary, wide, panel, f64 = phase_kernels()
     done("2")
+    gram = phase_mask_gram(smi)
+    done("2b")
     model, dataset, masked_launches = phase_main(smi)
     card_vs_cpu("card-vs-cpu", model, dataset.slice(0, N_CPU), used=("fullt", "llk"))
     del model, dataset
@@ -4143,6 +4315,12 @@ def main() -> int:
     chol_entry = next(e for e in kernels_line["kernels"] if e["name"] == "spd_chol")
     chol_entry["at_f64"] = {f"k{k}": {f: f64["chol", k][f] for f in fields}
                             for k in CHOL_F64_TIMED_KS}
+    # the Gram kernel: phase 2b's cases, launched on phases 3, 7 and 8's paths
+    kernels_line["kernels"].append(
+        {"name": "mask_gram", "route": "cuda", "source": "ppca_rs_tpu_torch/csrc/mask_gram.cu",
+         "replaces": None, "launches": GRAM_COUNTS["main"]["kernel"],
+         "at_k128_launches": GRAM_COUNTS["k128"]["kernel"],
+         "at_mix_launches": GRAM_COUNTS["mix"]["kernel"], **gram})
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched by its path")
     print(json.dumps(kernels_line))

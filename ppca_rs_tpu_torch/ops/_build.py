@@ -141,6 +141,14 @@ def load() -> ctypes.CDLL:
             lib.spd_estep_tile_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                                      ctypes.c_int, ip, ip, ip]
             lib.spd_estep_tile_occupancy.restype = ctypes.c_int
+            ll = ctypes.c_longlong
+            # device, mask, its row stride, slices, their row stride, out,
+            # B, D, W, M, stream
+            lib.mask_gram_bf16x3.argtypes = [ctypes.c_int, p, ll, p, ll, p, ll, ll, ll, ll, p]
+            lib.mask_gram_bf16x3.restype = ctypes.c_int
+            # device, CC, the slices, CC's rows, W, the slices' row width, stream
+            lib.gram_split_bf16x3.argtypes = [ctypes.c_int, p, p, ll, ll, ll, p]
+            lib.gram_split_bf16x3.restype = ctypes.c_int
             lib.spd_estep_error_string.argtypes = [ctypes.c_int]
             lib.spd_estep_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -62,6 +62,15 @@ on CUDA tensors -- up to the tile limit the E-step tile's sixth variant
 (``kChol`` in ``csrc/spd_estep_tile.cuh``: the same two bodies, the
 products on the tensor cores above k=16), the panel design above it -- and
 :func:`spd_chol_reference` on CPU tensors.
+
+:func:`mask_gram` is the masked Gram ``G = mask @ CC`` of a block in
+float32, exact to float32 sums on the bf16 tensor cores: the bool mask
+times the three bf16 slices of the Gram columns (:func:`gram_slices`, an
+exact split of each float32 value), the tensor cores' short runs of
+products promoted into float32 sums (``csrc/mask_gram.cu``, which
+replaces no TPU kernel: the JAX package leaves ``mask @ CC`` to XLA's
+dot), on CUDA tensors, and :func:`mask_gram_reference`, the same three
+products in float32, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -87,6 +96,15 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 #: Of those, the spd_estep launches that took slab G, per variant.
 SLAB_LAUNCHES: Dict[str, int] = {name: 0 for name in WANTS}
 
+#: The masked Gram of each block by the path it took: ``kernel``
+#: (:func:`mask_gram` on the card) or ``library`` (``torch.matmul``: CPU
+#: and float64 tensors, a mask that is not bool).
+GRAM_LAUNCHES: Dict[str, int] = {"kernel": 0, "library": 0}
+#: Launches of the split kernel behind :func:`gram_slices` on the card.
+SPLIT_LAUNCHES: Dict[str, int] = {"kernel": 0}
+#: bf16 slices of the exact split of a float32 Gram column (:func:`gram_slices`).
+GRAM_SLICES = 3
+
 #: The largest k the tile design serves a spd_estep variant, by element
 #: size (``estep_tile_max_k`` in ``csrc/spd_common.cuh``); :func:`launch`
 #: checks them against the library once.
@@ -100,6 +118,9 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
     for name in WANTS:
         SLAB_LAUNCHES[name] = 0
+    for name in GRAM_LAUNCHES:
+        GRAM_LAUNCHES[name] = 0
+    SPLIT_LAUNCHES["kernel"] = 0
 
 
 def uses_slabs(k: int, dtype: torch.dtype) -> bool:
@@ -517,6 +538,118 @@ def launch_chol(M: torch.Tensor, L: torch.Tensor) -> None:
             f"{lib.spd_estep_error_string(err).decode()}"
         )
     LAUNCHES["chol"] += 1
+
+
+def gram_slices(CC: torch.Tensor) -> torch.Tensor:
+    """The exact bf16 split of float32 Gram columns ``CC (..., D, W)``:
+    ``(3, ..., D, W8)`` bf16 with hi = bf16(x), mid = bf16(x - hi), lo =
+    x - hi - mid, so that hi + mid + lo == x in float32 for 0 and every
+    |x| from ~1e-33 (where lo's last bit reaches bf16's smallest
+    subnormal) to bf16's largest finite value.  Each difference is exact
+    (x - hi has at most 16 significant bits, x - hi - mid at most 8).  W8 is
+    W rounded up to a multiple of 8 (the kernel's 16-byte rows), the
+    columns past W zero.  CUDA tensors take one launch of the split kernel
+    of ``csrc/mask_gram.cu``, CPU tensors :func:`gram_slices_reference`;
+    both round to nearest even, bit for bit alike."""
+    if CC.dtype != torch.float32:
+        raise ValueError(f"the bf16 split takes float32 columns, got {CC.dtype}")
+    if CC.device.type == "cpu":
+        return gram_slices_reference(CC)
+    if CC.device.type != "cuda":
+        raise ValueError(f"the split kernel needs CUDA tensors, got {CC.device}")
+    CC = CC.contiguous()
+    W = CC.shape[-1]
+    rows = CC.numel() // W if W else 0
+    out = torch.empty((GRAM_SLICES, *CC.shape[:-1], _width8(W)), dtype=torch.bfloat16,
+                      device=CC.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(CC.device).cuda_stream
+    index = CC.device.index if CC.device.index is not None else torch.cuda.current_device()
+    err = lib.gram_split_bf16x3(index, CC.data_ptr(), out.data_ptr(), rows, W, out.shape[-1],
+                                stream)
+    if err != 0:
+        raise RuntimeError(f"gram split kernel launch failed ({tuple(CC.shape)}): "
+                           f"{lib.spd_estep_error_string(err).decode()}")
+    SPLIT_LAUNCHES["kernel"] += 1
+    return out
+
+
+def _width8(W: int) -> int:
+    return -(-W // 8) * 8
+
+
+def gram_slices_reference(CC: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gram_slices`, on any device."""
+    W = CC.shape[-1]
+    w8 = _width8(W)
+    make = torch.empty if w8 == W else torch.zeros
+    out = make((GRAM_SLICES, *CC.shape[:-1], w8), dtype=torch.bfloat16, device=CC.device)
+    rest = CC
+    for i in range(GRAM_SLICES):
+        part = out[i, ..., :W]
+        part.copy_(rest)                    # rounds to the nearest bf16
+        if i + 1 < GRAM_SLICES:
+            rest = rest - part.float()
+    return out
+
+
+def mask_gram_reference(mask: torch.Tensor, slices: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mask_gram`, on any device: the mask
+    (any dtype of 0/1) times each of the slices' first ``width`` columns in
+    float32, the three products summed: ``(B, width)``, or ``(M, B, width)``
+    for slices of M stacked column sets."""
+    m = mask.to(torch.float32)
+    G = torch.matmul(m, slices[0, ..., :width].float())
+    for i in range(1, GRAM_SLICES):
+        G += torch.matmul(m, slices[i, ..., :width].float())
+    return G
+
+
+def mask_gram(mask: torch.Tensor, slices: torch.Tensor, out: torch.Tensor) -> None:
+    """``out = mask @ (hi + mid + lo)``, the masked Gram of one block, into
+    a caller-provided float32 ``out``.
+
+    ``mask`` (B, D) bool, unit column stride; ``slices`` from
+    :func:`gram_slices`, ``(3, D, W8)`` or ``(3, M, D, W8)`` for M stacked
+    column sets; ``out`` contiguous ``(B, W)`` or ``(M, B, W)``, W <= W8.
+    CPU tensors take :func:`mask_gram_reference`; CUDA tensors launch the
+    kernel of ``csrc/mask_gram.cu`` on the current stream, which raises on
+    anything it does not take and on a failed launch."""
+    if mask.ndim != 2 or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be a (B, D) bool tensor, got {tuple(mask.shape)} {mask.dtype}")
+    B, D = mask.shape
+    stacked = slices.ndim == 4
+    M = slices.shape[1] if stacked else 1
+    if (slices.ndim not in (3, 4) or slices.shape[0] != GRAM_SLICES or slices.shape[-2] != D
+            or slices.dtype != torch.bfloat16):
+        raise ValueError(f"slices must be ({GRAM_SLICES}, [M,] {D}, W8) bf16, got "
+                         f"{tuple(slices.shape)} {slices.dtype}")
+    W = out.shape[-1]
+    want = (M, B, W) if stacked else (B, W)
+    if tuple(out.shape) != want or out.dtype != torch.float32 or W > slices.shape[-1]:
+        raise ValueError(f"out must be float32 {want} with W <= {slices.shape[-1]}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if not (mask.device == slices.device == out.device):
+        raise ValueError("mask_gram tensors must share one device")
+    if mask.device.type == "cpu":
+        out.copy_(mask_gram_reference(mask, slices, W))
+        return
+    if mask.device.type != "cuda":
+        raise ValueError(f"the mask_gram kernel needs CUDA tensors, got {mask.device}")
+    if mask.stride(1) != 1 and D > 1:
+        raise ValueError("the mask_gram kernel takes a mask with unit column stride")
+    if not (slices.is_contiguous() and out.is_contiguous()) or slices.shape[-1] % 8:
+        raise ValueError("the mask_gram kernel takes contiguous slices of a width a multiple "
+                         "of 8 and a contiguous out")
+    lib = _library()
+    stream = torch.cuda.current_stream(mask.device).cuda_stream
+    index = mask.device.index if mask.device.index is not None else torch.cuda.current_device()
+    err = lib.mask_gram_bf16x3(index, mask.data_ptr(), mask.stride(0), slices.data_ptr(),
+                               slices.shape[-1], out.data_ptr(), B, D, W, M, stream)
+    if err != 0:
+        raise RuntimeError(f"mask_gram kernel launch failed (B={B}, D={D}, W={W}, M={M}): "
+                           f"{lib.spd_estep_error_string(err).decode()}")
+    GRAM_LAUNCHES["kernel"] += 1
 
 
 def _check_chol_shape(M: torch.Tensor) -> None:

@@ -10,7 +10,11 @@ observed rows of ``C``:
   G as slabs (``kernels.uses_slabs``, the JAX package's
   ``config.g_slab_inputs``), CC holds only the slab columns
   (:func:`outer_slab`, ``slab_width(k)`` of the k^2: 0.5625 at k=64), and
-  the matmul builds only the lower wedge the kernel reads;
+  the matmul builds only the lower wedge the kernel reads.  In float32 on
+  the card that product is :func:`ops.kernels.mask_gram` (the bool mask
+  times CC's exact three-way bf16 split on the tensor cores with float32
+  sums; :func:`gram_operand` chooses); float64 and CPU tensors keep
+  ``torch.matmul`` (:func:`masked_gram`);
 * the per-sample factorization of ``M_n = sigma^2 I + G_n`` and everything
   derived from it (posterior state, covariance or second moment,
   log-likelihood, noise-update trace) is :func:`ops.kernels.spd_estep`: the
@@ -104,6 +108,39 @@ def gram_columns(C: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return outer_slab(C) if kernels.uses_slabs(C.shape[-1], dtype) else outer_flat(C)
 
 
+class GramOperand(NamedTuple):
+    """What ``mask @ CC`` contracts: the columns, and their bf16 slices
+    (``kernels.gram_slices``) where the Gram kernel serves the product."""
+
+    cols: torch.Tensor              # (D, W) or (M, D, W), :func:`gram_columns`
+    slices: Optional[torch.Tensor]  # (3, [M,] D, W8) bf16, or None
+
+
+def gram_operand(C: torch.Tensor, dtype: torch.dtype) -> GramOperand:
+    """:func:`gram_columns` and, for float32 columns on the card, their
+    slices: the one place that chooses the Gram's path.  Float64 would
+    need seven slices, and CPU tensors keep the plain product.  Built once
+    per call, outside the block loop."""
+    CC = gram_columns(C, dtype)
+    on_kernel = CC.dtype == torch.float32 and CC.device.type == "cuda"
+    return GramOperand(CC, kernels.gram_slices(CC) if on_kernel else None)
+
+
+def masked_gram(mask, mask_f, gram: GramOperand) -> torch.Tensor:
+    """``mask @ CC`` of one block: (B, W), or (M, B, W) for stacked
+    columns.  With slices the Gram kernel (``kernels.mask_gram``) writes it
+    from the bool ``mask``; without, ``torch.matmul`` of the float mask
+    ``mask_f``.  ``kernels.GRAM_LAUNCHES`` counts the path."""
+    CC, slices = gram
+    if slices is None:
+        kernels.GRAM_LAUNCHES["library"] += 1
+        return torch.matmul(mask_f, CC)
+    out = torch.empty((*CC.shape[:-2], mask.shape[0], CC.shape[-1]), dtype=CC.dtype,
+                      device=CC.device)
+    kernels.mask_gram(mask, slices, out)
+    return out
+
+
 class BlockPosterior(NamedTuple):
     """E-step quantities of one block of samples."""
 
@@ -112,20 +149,24 @@ class BlockPosterior(NamedTuple):
     rnorm: torch.Tensor    # (B,) |R|^2
     d_obs: torch.Tensor    # (B,) observed-entry counts
     out: tuple             # spd_estep outputs for the requested want
+    mask_f: torch.Tensor   # (B, D) the mask at the compute dtype
 
 
-def block_posterior(C, CC, mean, sigma, data, mask_f, want: str, group=None) -> BlockPosterior:
+def block_posterior(C, gram: GramOperand, mean, sigma, data, mask, want: str,
+                    group=None) -> BlockPosterior:
     """The E-step of one block (`ppca_model.rs:195-208`, batched): the
     matmul prep, summed over the model ``group`` if given, then the SPD
-    kernel's ``want`` variant.  ``CC`` is :func:`gram_columns` at the
-    compute dtype: G goes to the kernel as slabs where it takes them."""
+    kernel's ``want`` variant.  ``gram`` is :func:`gram_operand` at the
+    compute dtype (``data``'s): G goes to the kernel as slabs where it
+    takes them.  ``mask`` is the block's bool mask."""
     k = C.shape[1]
     n = data.shape[0]
+    mask_f = mask.to(data.dtype)
     R = mask_f * (data - mean)
-    b, G, rnorm, d_obs = all_reduce_sum((R @ C, mask_f @ CC, (R * R).sum(-1), mask_f.sum(-1)),
-                                        group)
+    b, G, rnorm, d_obs = all_reduce_sum((R @ C, masked_gram(mask, mask_f, gram),
+                                         (R * R).sum(-1), mask_f.sum(-1)), group)
     out = kernels.spd_estep(sigma, kernels.estep_gram(G, n, k), b, rnorm, d_obs, want=want)
-    return BlockPosterior(R, b, rnorm, d_obs, out)
+    return BlockPosterior(R, b, rnorm, d_obs, out, mask_f)
 
 
 def _blocks(n: int, block_size: int):
@@ -140,12 +181,12 @@ def _compute_dtype(data: torch.Tensor, C: torch.Tensor) -> torch.dtype:
 def llks(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.Tensor:
     """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
     dtype = _compute_dtype(data, C)
-    CC = gram_columns(C, dtype)
+    gram = gram_operand(C, dtype)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
         with span("ppca.block"):
-            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                                   mask[lo:hi].to(dtype), "llk", group)
+            post = block_posterior(C, gram, mean, sigma, data[lo:hi].to(dtype), mask[lo:hi],
+                                   "llk", group)
             out.append(post.out[0])
     return _cat(out, data, dtype)
 
@@ -154,12 +195,12 @@ def infer(C, mean, sigma, data, mask, *, block_size: int, group=None):
     """Posterior states and covariances ``(states (N,k), covs (N,k,k))``
     (`ppca_model.rs:221-227`)."""
     dtype = _compute_dtype(data, C)
-    CC = gram_columns(C, dtype)
+    gram = gram_operand(C, dtype)
     states_, covs = [], []
     for lo, hi in _blocks(data.shape[0], block_size):
         with span("ppca.block"):
-            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                                   mask[lo:hi].to(dtype), "infer", group)
+            post = block_posterior(C, gram, mean, sigma, data[lo:hi].to(dtype), mask[lo:hi],
+                                   "infer", group)
             states_.append(post.out[0])
             covs.append(post.out[1])
     k = C.shape[1]
@@ -170,12 +211,12 @@ def states(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.
     """Posterior state means only, (N, k) — the path behind smooth and
     extrapolate (`ppca_model.rs:231-261`)."""
     dtype = _compute_dtype(data, C)
-    CC = gram_columns(C, dtype)
+    gram = gram_operand(C, dtype)
     out = []
     for lo, hi in _blocks(data.shape[0], block_size):
         with span("ppca.block"):
-            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype),
-                                   mask[lo:hi].to(dtype), "states", group)
+            post = block_posterior(C, gram, mean, sigma, data[lo:hi].to(dtype), mask[lo:hi],
+                                   "states", group)
             out.append(post.out[0])
     return _cat(out, data, dtype, C.shape[1])
 
@@ -208,21 +249,21 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None
     E-step inputs, so they are the whole rows' already."""
     D, k = C.shape
     dtype = _compute_dtype(data, C)
-    CC = gram_columns(C, dtype)
+    gram = gram_operand(C, dtype)
     sigma2 = sigma * sigma
     cross = torch.zeros((D, k), dtype=dtype, device=data.device)
     # (D, k*k), or as slabs (D, slab_width(k)) where the kernel takes them
-    S = torch.zeros((D, CC.shape[-1]), dtype=dtype, device=data.device)
+    S = torch.zeros((D, gram.cols.shape[-1]), dtype=dtype, device=data.device)
     total_dev = torch.zeros(D, dtype=dtype, device=data.device)
     totals = torch.zeros(D, dtype=dtype, device=data.device)
     # scalar statistics are kept per block and summed at the end
     sq_parts, dev_parts, llk_parts = [], [], []
     for lo, hi in _blocks(data.shape[0], block_size):
         with span("ppca.block"):
-            mask_f = mask[lo:hi].to(dtype)
             w = weights[lo:hi].to(dtype)
-            post = block_posterior(C, CC, mean, sigma, data[lo:hi].to(dtype), mask_f, "fullt",
-                                   group)
+            post = block_posterior(C, gram, mean, sigma, data[lo:hi].to(dtype), mask[lo:hi],
+                                   "fullt", group)
+            mask_f = post.mask_f
             s, SM, llk_b, sq_b = post.out
             sw = s * w[:, None]
             cross += post.R.T @ sw

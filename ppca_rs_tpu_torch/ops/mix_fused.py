@@ -8,9 +8,12 @@ blocked pass does it all:
 * the per-sample masked Grams and projections of all M components are
   batched matmuls against the stacked ``Cs (M, D, k)``; on the general
   route the Grams are built as the kernel's slabs where it takes them
-  (``masked_linalg.gram_columns``), and the S statistic is accumulated as
-  slabs and unpacked once (the JAX package's ``config.g_slab_inputs`` and
-  ``s_slab_stats``); the table route keeps square tables;
+  (``masked_linalg.gram_operand``), in float32 on the card by the Gram
+  kernel (``masked_linalg.masked_gram``: the bool mask times the columns'
+  bf16 slices, written in place as (M, B, W)), and the S statistic is
+  accumulated as slabs and unpacked once (the JAX package's
+  ``config.g_slab_inputs`` and ``s_slab_stats``); the table route keeps
+  square tables;
 * the SPD kernel is independent per sample, so the M components' blocks
   are stacked on its batch axis, component-major (sample ``m * B + n`` is
   row n under component m), with one sigma per sample
@@ -110,16 +113,18 @@ def _projections(Cs, center: _Center, datab, mask_f):
     return md0, b, rnorm
 
 
-def _general_inputs(Cs, CCs, center: _Center, datab, mask_f, group):
-    """``(md0, G (M, B, CCs' width), b, rnorm, d_obs)`` of one block of the
-    general route: :func:`_projections`, the Gram ``mask @ CC_m`` (already in
-    the kernel's component-major order; slabs or k*k as ``CCs`` is, from
-    ``masked_linalg.gram_columns``) and the observed counts, the last four
-    summed over the model ``group`` in one all_reduce if given."""
+def _general_inputs(Cs, gram, center: _Center, datab, mask, group):
+    """``(mask_f, md0, G (M, B, the columns' width), b, rnorm, d_obs)`` of
+    one block of the general route from its bool ``mask``: the float mask,
+    :func:`_projections`, the Gram ``mask @ CC_m`` (already in the kernel's
+    component-major order; slabs or k*k as ``gram``, from
+    ``masked_linalg.gram_operand``, is) and the observed counts, the last
+    four summed over the model ``group`` in one all_reduce if given."""
+    mask_f = mask.to(datab.dtype)
     md0, b, rnorm = _projections(Cs, center, datab, mask_f)
-    G, b, rnorm, d_obs = all_reduce_sum((torch.matmul(mask_f, CCs), b, rnorm, mask_f.sum(-1)),
-                                        group)
-    return md0, G, b, rnorm, d_obs
+    G, b, rnorm, d_obs = all_reduce_sum(
+        (ml.masked_gram(mask, mask_f, gram), b, rnorm, mask_f.sum(-1)), group)
+    return mask_f, md0, G, b, rnorm, d_obs
 
 
 def _residual(means, datab, mask_f):
@@ -167,16 +172,19 @@ def _weighted_S(mask_f, SM, resp):
     return torch.bmm(mask_f.T.expand(M, -1, -1), SMw)
 
 
-def _block_post(Cs, CCs, means, sigmas, datab, mask_f, want: str, group=None):
+def _block_post(Cs, gram, means, sigmas, datab, mask, want: str, group=None):
     """Per-component posteriors of one block with the residual
-    materialized: ``(R (M, B, D), (llks, s, mat, sq))``."""
+    materialized, from its bool ``mask``: ``(mask_f, R (M, B, D), (llks,
+    s, mat, sq))``."""
+    mask_f = mask.to(datab.dtype)
     R = _residual(means, datab, mask_f)
     G, b, rnorm, d_obs = all_reduce_sum(
-        (torch.matmul(mask_f, CCs), torch.bmm(R, Cs), (R * R).sum(-1), mask_f.sum(-1)), group)
-    return R, _estep(sigmas, G, b, rnorm, d_obs, want)
+        (ml.masked_gram(mask, mask_f, gram), torch.bmm(R, Cs), (R * R).sum(-1), mask_f.sum(-1)),
+        group)
+    return mask_f, R, _estep(sigmas, G, b, rnorm, d_obs, want)
 
 
-def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f, w,
+def _block_mix_fast(Cs, gram, center: _Center, sigmas, log_weights, datab, mask, w,
                     group=None) -> MixEMStats:
     """One block of the fused EM with no (M, B, D) temporary: projections
     from :func:`_projections`, the Gram ``mask @ CC_m`` (M, B, k*k) as one
@@ -189,7 +197,7 @@ def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f
     :func:`_block_mix`, which is immune)."""
     M, D, _ = Cs.shape
     _, dm, _ = center
-    md0, G, b, rnorm, d_obs = _general_inputs(Cs, CCs, center, datab, mask_f, group)
+    mask_f, md0, G, b, rnorm, d_obs = _general_inputs(Cs, gram, center, datab, mask, group)
     llks, s, SM, sq_b = _estep(sigmas, G, b, rnorm, d_obs, "fullt")
     resp, llk = _responsibilities(llks, log_weights, w)
     srw = s * resp[..., None]
@@ -212,11 +220,12 @@ def _block_mix_fast(Cs, CCs, center: _Center, sigmas, log_weights, datab, mask_f
     )
 
 
-def _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w, group=None) -> MixEMStats:
+def _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask, w, group=None) -> MixEMStats:
     """One block of the fused EM with the (M, B, D) residual and deviation
     materialized (``config.mix_exact_rnorm``).  The deviation is this
     rank's columns, so its squared norm is summed over the model group."""
-    R, (llks, s, SM, sq_b) = _block_post(Cs, CCs, means, sigmas, datab, mask_f, "fullt", group)
+    mask_f, R, (llks, s, SM, sq_b) = _block_post(Cs, gram, means, sigmas, datab, mask, "fullt",
+                                                 group)
     resp, llk = _responsibilities(llks, log_weights, w)
     dev = mask_f * (datab - torch.bmm(s, Cs.mT) - means[:, None, :])   # (M, B, D)
     (dev_sq,) = all_reduce_sum([(resp * (dev * dev).sum(-1)).sum(-1)], group)
@@ -253,18 +262,18 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
                                 weights, block_size=block_size)
     M, D, k = Cs.shape
     dtype = _compute_dtype(data, Cs)
-    CCs = ml.gram_columns(Cs, dtype)
+    gram = ml.gram_operand(Cs, dtype)
     center = None if config.mix_exact_rnorm else _center_prep(Cs, means)
     acc = None
     for lo, hi in _blocks(data.shape[0], block_size):
         with span("ppca.block"):
-            datab, mask_f = data[lo:hi].to(dtype), mask[lo:hi].to(dtype)
-            w = weights[lo:hi].to(dtype)
+            datab, w = data[lo:hi].to(dtype), weights[lo:hi].to(dtype)
             if center is None:
-                new = _block_mix(Cs, CCs, means, sigmas, log_weights, datab, mask_f, w, group)
+                new = _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask[lo:hi], w,
+                                 group)
             else:
-                new = _block_mix_fast(Cs, CCs, center, sigmas, log_weights, datab, mask_f, w,
-                                      group)
+                new = _block_mix_fast(Cs, gram, center, sigmas, log_weights, datab, mask[lo:hi],
+                                      w, group)
             acc = _accumulate(acc, new)
     if acc is None:
         opts = dict(dtype=dtype, device=data.device)
@@ -519,11 +528,11 @@ def mix_em_finalize(Cs, means, sigmas, stats: MixEMStats, *, transformation_prec
 # readouts
 
 
-def _block_llks_kernel(Cs, CCs, center: _Center, sigmas, datab, mask_f, want: str, group=None):
+def _block_llks_kernel(Cs, gram, center: _Center, sigmas, datab, mask, want: str, group=None):
     """llk / states / infer of one block of the general route: the Gram and
     the projections of all components, then one kernel launch.  Returns
     ``(llks (M, B), s (M, B, k), Sigma (M, B, k, k), sq)`` as :func:`_estep`."""
-    _, G, b, rnorm, d_obs = _general_inputs(Cs, CCs, center, datab, mask_f, group)
+    _, _, G, b, rnorm, d_obs = _general_inputs(Cs, gram, center, datab, mask, group)
     return _estep(sigmas, G, b, rnorm, d_obs, want)
 
 
@@ -534,19 +543,20 @@ def _readout_blocks(Cs, means, sigmas, data, mask, want: str, block_size: int, p
     dtype = _compute_dtype(data, Cs)
     center = _center_prep(Cs, means)
     if pidx is None:
-        CCs = ml.gram_columns(Cs, dtype)
+        gram = ml.gram_operand(Cs, dtype)
     else:
         tables = compute_mix_tables(Cs, sigmas, patterns.to(dtype))
     for lo, hi in _blocks(data.shape[0], block_size):
         # closed before the yield: no range stays open while the caller runs
         with span("ppca.block"):
-            datab, mask_f = data[lo:hi].to(dtype), mask[lo:hi].to(dtype)
+            datab = data[lo:hi].to(dtype)
             if pidx is None:
-                llks, s, Sig, _ = _block_llks_kernel(Cs, CCs, center, sigmas, datab, mask_f,
-                                                     want, group)
+                llks, s, Sig, _ = _block_llks_kernel(Cs, gram, center, sigmas, datab,
+                                                     mask[lo:hi], want, group)
             else:
                 llks, s, Sig, _, _, _ = _block_post_pat(Cs, means, sigmas, tables, datab,
-                                                        mask_f, pidx[lo:hi], center)
+                                                        mask[lo:hi].to(dtype), pidx[lo:hi],
+                                                        center)
         yield datab, mask[lo:hi], llks, s, Sig
 
 

@@ -32,8 +32,8 @@ F64 = torch.float64
 def block_post(x):
     Ct = torch.as_tensor(C, dtype=F64)
     data = torch.as_tensor(x, dtype=F64)[None, :]
-    return ml.block_posterior(Ct, ml.outer_flat(Ct), torch.zeros(3, dtype=F64), SIGMA, data,
-                              torch.ones_like(data), "infer")
+    return ml.block_posterior(Ct, ml.gram_operand(Ct, F64), torch.zeros(3, dtype=F64), SIGMA,
+                              data, torch.ones_like(data, dtype=torch.bool), "infer")
 
 
 def test_quadratic_form_golden():
