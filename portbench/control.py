@@ -7,9 +7,11 @@ at the cell's own size, on a CUDA card:
 
 For each seed it makes the cell's inputs and the float64 reference, then
 reads the numbers that decide ``correct`` for: the program (``program``:
-the set-up's steps of a training cell, one pass of a readout cell, through the timed path's own calls); the control, the reference in
-TF32 put in the program's place (``control``); and the program with each
-fault of ``portbench.faults`` planted (``fault:<name>``).  The benchmark's
+its set-up, and one pass of the window where the kind's check follows one
+(``CHECK_AFTER_WINDOW``), through the timed path's own calls); the control,
+the reference in TF32 put in the program's place (``control``); and the
+program with each fault the kind's drive names planted (``fault:<name>``,
+:func:`portbench.faults.plant`).  The benchmark's
 own runs never run this; the tests call :func:`readings` on the CPU with
 small sizes.
 """
@@ -39,12 +41,12 @@ def readings(cell, seed: int, device: str, control: bool, faults) -> dict:
     program_config.device = torch.device(device)
     drive, kind = cell.drive, cell.traffic["kind"]
     gen = torch.Generator(device=device).manual_seed(seed)
-    inputs = cell.system.make_inputs(cell.config, gen, device, train=kind == "train")
+    inputs = cell.system.make_inputs(cell.config, gen, device, train=drive.STARTS)
     off = Tracer(False, torch.device(device).type)
 
     def program():
         session = drive.setup(cell, inputs, device, off, seed)
-        if kind == "readout":
+        if drive.CHECK_AFTER_WINDOW:
             drive.window(cell, session, 0.0, off, device)
         drive.release(session)
         common.release(device)
@@ -74,7 +76,6 @@ def main(argv=None) -> int:
     p.add_argument("--program-seeds", default="", help="seeds that read the program alone")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
-    from portbench import faults as fault_mod
     from portbench.harness import _cache_dirs
     from portbench.spec import Spec
 
@@ -88,7 +89,7 @@ def main(argv=None) -> int:
     from ppca_rs_tpu_torch.ops import _build
 
     _build.load()
-    faults = fault_mod.FAULTS[cell.traffic["kind"]]
+    faults = cell.drive.FAULTS
     full = [int(s) for s in args.seeds.split(",") if s]
     alone = [int(s) for s in args.program_seeds.split(",") if s and int(s) not in full]
     rows = []

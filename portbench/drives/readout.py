@@ -37,6 +37,15 @@ from . import common
 #: Rows a block of the check against the reference.
 CHECK_BLOCK = 1 << 16
 
+#: The inputs carry no training start: the model is the one that made the rows.
+STARTS = False
+#: The check compares the window's passes.
+CHECK_AFTER_WINDOW = True
+#: The numbers that decide ``correct`` (:class:`compare.ReadoutGap`).
+NUMBERS = ("score_rel", "impute_rel")
+#: The faults of :mod:`portbench.faults` this kind can have.
+FAULTS = ("half", "alter")
+
 
 def setup(cell, inputs: dict, device, tracer, seed: int) -> dict:
     prog = cell.system

@@ -22,11 +22,25 @@ from ..reference.linalg import F64
 from ..systems import common as sc
 from . import common
 
+#: The inputs carry a training start.
+STARTS = True
+#: The check compares the set-up's steps, not a pass of the window.
+CHECK_AFTER_WINDOW = False
+#: The numbers that decide ``correct`` (:func:`compare.train`).
+NUMBERS = ("llk_rel", "param_rel")
+#: The faults of :mod:`portbench.faults` this kind can have.
+FAULTS = ("unchanged", "half", "alter")
+
 
 def setup(cell, inputs: dict, device, tracer, seed: int) -> dict:
-    prog, cfg, mix = cell.system, cell.config, cell.traffic
     dataset = sc.dataset(inputs)
-    trainer = prog.trainer(dataset)
+    return steps(cell, cell.system.trainer(dataset), len(dataset), inputs, device, tracer)
+
+
+def steps(cell, trainer, rows: int, inputs: dict, device, tracer) -> dict:
+    """Drive ``trainer`` over its ``rows`` rows from the seed's start
+    through ``check_steps`` iterations; the session the window takes."""
+    prog, cfg, mix = cell.system, cell.config, cell.traffic
     start = prog.program_model(inputs["start"], cfg, device)
     llks, stamps = [], []
 
@@ -44,7 +58,7 @@ def setup(cell, inputs: dict, device, tracer, seed: int) -> dict:
     pace = sum(steps[1:]) / len(steps[1:]) if len(steps) > 1 else steps[0]
     tracer.warm()
     return {"trainer": trainer, "model": model, "pace": pace, "checked_llks": llks,
-            "checked_params": prog.program_params(model), "dataset": dataset}
+            "checked_params": prog.program_params(model), "rows": rows}
 
 
 def window(cell, session: dict, seconds: float, tracer, device) -> dict:
@@ -61,7 +75,7 @@ def window(cell, session: dict, seconds: float, tracer, device) -> dict:
             if it == 1:
                 tracer.start()
             elif it == 1 + traced:
-                tracer.stop(units=traced, rows=traced * len(session["dataset"]))
+                tracer.stop(units=traced, rows=traced * session["rows"])
             tracer.mark("portbench.iteration" if not tracer.done else None)
         leave.append(common.now())
 
@@ -87,7 +101,7 @@ def window(cell, session: dict, seconds: float, tracer, device) -> dict:
 
 
 def release(session: dict) -> None:
-    for key in ("trainer", "model", "dataset"):
+    for key in ("trainer", "model"):
         session.pop(key, None)
 
 

@@ -9,17 +9,18 @@ program's functions and restores them on exit.
   1e-3: a step's llk, or a readout pass's score of the largest magnitude
   (a model's llk, a mixture's log-posterior).
 
-One card runs the cells, so no exchange between cards can be left out.
+Those are the ``train`` and ``readout`` kinds' faults.  Each kind's drive
+module names the faults it can have (``FAULTS``); another kind plants its
+own, by its drive module's ``plant(name)``.  One card runs the cells, so
+no exchange between cards can be left out.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 
 import torch
-
-#: The faults each kind of traffic can have.
-FAULTS = {"train": ("unchanged", "half", "alter"), "readout": ("half", "alter")}
 
 ALTER = 1e-3
 
@@ -50,8 +51,18 @@ def _altered(out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@contextlib.contextmanager
 def plant(name: str, kind: str):
+    """A context manager that plants fault ``name`` of traffic ``kind``."""
+    drive = importlib.import_module(f"portbench.drives.{kind}")
+    if name not in drive.FAULTS:
+        raise ValueError(f"no fault {name!r} for {kind} traffic")
+    if hasattr(drive, "plant"):
+        return drive.plant(name)
+    return _plant(name, kind)
+
+
+@contextlib.contextmanager
+def _plant(name: str, kind: str):
     from ppca_rs_tpu_torch.models import mix as pmix
     from ppca_rs_tpu_torch.models import ppca as pmodel
     from ppca_rs_tpu_torch.models import routes

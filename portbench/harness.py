@@ -106,8 +106,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
         torch.zeros(1, device=device)
     marks.append(("kernel library and context", time.perf_counter()))
     gen = torch.Generator(device=device).manual_seed(seed)
-    inputs = cell.system.make_inputs(cell.config, gen, device,
-                                     train=cell.traffic["kind"] == "train")
+    inputs = cell.system.make_inputs(cell.config, gen, device, train=cell.drive.STARTS)
     from .drives import common
 
     common.sync(device)

@@ -16,6 +16,11 @@ STARTED = time.perf_counter()
 import os  # noqa: E402
 import sys  # noqa: E402
 
+# One host thread for the libraries' CPU work: the passes and iterations are
+# launched from one thread, and idle worker threads only take its cores.
+for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+    os.environ[_var] = "1"
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[0] = ROOT
 

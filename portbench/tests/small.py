@@ -10,9 +10,21 @@ SIZES = {
 READOUT = {"check_rows": 16}
 
 
+def sizes(cfg: dict) -> dict:
+    """The CPU cut of a configuration: its entry in ``SIZES``, else 2048
+    rows, D <= 96, k <= 16 and at most 3 components."""
+    if cfg["name"] in SIZES:
+        return SIZES[cfg["name"]]
+    cut = {"rows": 2048, "output_size": min(cfg["output_size"], 96),
+           "state_size": min(cfg["state_size"], 16)}
+    if "components" in cfg:
+        cut["components"] = min(cfg["components"], 3)
+    return cut
+
+
 def cell(name: str, spec: Spec = None):
     c = (spec or Spec()).cell(name)
-    c.config.update(SIZES[c.config["name"]])
-    if c.traffic["kind"] == "readout":
+    c.config.update(sizes(c.config))
+    if "check_rows" in c.traffic:
         c.traffic.update(READOUT)
     return c

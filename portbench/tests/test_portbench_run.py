@@ -9,12 +9,15 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from portbench import control, faults, harness
+from portbench.spec import Spec
 from portbench.tests import small
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+KINDS = {name: Spec().cell(name) for name in CELLS}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -59,8 +62,7 @@ def test_benchmark_files_alone_give_no_result(tmp_path):
     assert proc.returncode != 0 and proc.stdout.strip() == ""
 
 
-PAIRS = [(name, fault) for name in CELLS
-         for fault in faults.FAULTS["train" if name.endswith(".train") else "readout"]]
+PAIRS = [(name, fault) for name in CELLS for fault in KINDS[name].drive.FAULTS]
 
 
 @pytest.mark.parametrize("name,fault", PAIRS)
@@ -68,14 +70,13 @@ def test_planted_fault_is_not_correct(name, fault):
     """The run's rest, past the look for a card, with the timed path broken
     underneath: ``correct`` comes out false."""
     cell = small.cell(name)
-    assert fault in faults.FAULTS[cell.traffic["kind"]]
     with faults.plant(fault, cell.traffic["kind"]):
         result = harness.execute(cell, 77, 0.05, False, "cpu")
     assert result["correct"] is False
     assert any(c["value"] > c["limit"] for c in result["checks"].values())
 
 
-READOUTS = [name for name in CELLS if not name.endswith(".train")]
+READOUTS = [name for name in CELLS if "verbs" in KINDS[name].traffic]
 
 
 @pytest.mark.parametrize("name", READOUTS)
@@ -117,3 +118,23 @@ def test_cells_on_the_card(card):
         assert proc.returncode == 0, proc.stderr[-3000:]
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         assert result["correct"] and result["device"]["platform"] == "gpu"
+
+
+def test_streamed_setup_agrees_with_the_resident_one():
+    """On the same inputs, the streamed set-up's steps (every chunk copied
+    to the host and back through the streaming trainer) give the resident
+    set-up's llks and parameters."""
+    from portbench import compare
+    from portbench.tracing import Tracer
+
+    got = {}
+    for name in ("masked_k64.train", "masked_k64.stream"):
+        cell = small.cell(name)
+        gen = torch.Generator().manual_seed(2 ** 33 + 5)
+        inputs = cell.system.make_inputs(cell.config, gen, "cpu", train=True)
+        session = cell.drive.setup(cell, inputs, "cpu", Tracer(False, "cpu"), 5)
+        got[name] = cell.drive.outputs(session)
+    want, streamed = got["masked_k64.train"], got["masked_k64.stream"]
+    gaps = compare.train(streamed["llks"], streamed["params"], want["llks"], want["params"])
+    assert len(streamed["llks"]) == 2
+    assert gaps["llk_rel"] <= 1e-6 and gaps["param_rel"] <= 1e-6, gaps

@@ -2,9 +2,9 @@
 
 import pytest
 
-from portbench import peaks, readers, tracing
+from portbench import peaks, readers, tracing, transfer
 from portbench.spec import Spec
-from portbench.work import readout, spd_estep, train
+from portbench.work import readout, spd_estep, stream, train
 
 
 def test_spd_estep_counts_by_hand():
@@ -79,8 +79,48 @@ def test_readers_read_nothing_from_an_empty_trace():
         assert reader(view) is None
 
 
+def _spans_view(work, untraced_unit_s=None):
+    """Window 0-1000 ns: kernels 0-200 and 300-400, a host-to-device copy
+    350-450 that the second kernel half hides, and a copy back that is no
+    host-to-device copy; an EM step (statistics 0-250, M-step 250-500)
+    and a readout verb 700-1000 with a block 700-850.  Busy (0, 200) and
+    (300, 450); every program span has idle time in it."""
+    device = [tracing.Interval("sm90_xmma_gemm", 0, 200, "kernel"),
+              tracing.Interval("spd_estep_tile_kernel", 300, 400, "kernel"),
+              tracing.Interval("Memcpy HtoD (Pinned -> Device)", 350, 450, "gpu_memcpy"),
+              tracing.Interval("Memcpy DtoH (Device -> Pageable)", 950, 950, "gpu_memcpy")]
+    host = [tracing.Interval(name, a, b, "user_annotation") for name, a, b in (
+        ("ppca.em_step", 0, 700), ("ppca.em_stats", 0, 250), ("ppca.block", 0, 250),
+        ("ppca.em_finalize", 250, 500), ("ppca.readout", 700, 1000), ("ppca.block", 700, 850))]
+    return tracing.TraceView((0, 1000), device, host, 2, 100,
+                             {"D": 4, "k": 2, "M": 1, "rows": 100, "itemsize": 4}, work,
+                             untraced_unit_s)
+
+
 @pytest.mark.parametrize("metric", [m["name"] for m in Spec().bench["per_layer"]])
 def test_each_metric_reader_file(metric):
-    view = _view([("sm90_xmma_gemm", 0, 300), ("spd_estep_tile_kernel", 300, 400)])
-    value = Spec().reader(metric).read(view)
+    """Every per-layer reader reads above 0 on a trace with the program's
+    spans and a copy from the host, with the work of its first cell."""
+    spec = Spec()
+    entry = [m for m in spec.bench["per_layer"] if m["name"] == metric][0]
+    cells = entry.get("workloads", [w["name"] for w in spec.bench["workloads"]])
+    value = spec.reader(metric).read(_spans_view(spec.cell(cells[0]).work))
     assert value is not None and value > 0
+
+
+def test_copy_readers_by_hand():
+    """The copy 350-450 runs alone 400-450: 50 ns exposed of the 1000 ns
+    window, or of the two units' untraced 2 x 250 ns.  Its 100 rows of D=4
+    are 100 x (16 + 4 + 4) bytes in 100 ns, 24 GB/s of the link's 64."""
+    view = _spans_view(stream)
+    assert transfer.copies(view) == [(350, 450)]
+    assert transfer.exposed_ns(view) == 50
+    assert transfer.copy_exposed_pct(view) == pytest.approx(5.0)
+    assert transfer.h2d_roofline_pct(view) == pytest.approx(37.5)
+    assert stream.h2d_bytes({"D": 1024, "itemsize": 4}, 1) == 5124
+    view.untraced_unit_s = 250e-9
+    assert transfer.copy_exposed_pct(view) == pytest.approx(10.0)
+    view.device[1].end = 460   # a kernel now covers the whole copy
+    assert transfer.copy_exposed_pct(view) == 0.0
+    view.device = [iv for iv in view.device if "HtoD" not in iv.name]
+    assert transfer.copy_exposed_pct(view) is None and transfer.h2d_roofline_pct(view) is None
