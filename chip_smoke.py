@@ -1661,6 +1661,7 @@ def phase_pattern(smi: str):
     from ppca_rs_tpu_torch import PPCAModel, config
     from ppca_rs_tpu_torch.ops import kernels
     from ppca_rs_tpu_torch.ops import masked_linalg as ml
+    from ppca_rs_tpu_torch.ops import pattern_dedup as pd
 
     t0 = time.perf_counter()
     dataset, drawn = make_pattern_dataset()
@@ -1685,9 +1686,17 @@ def phase_pattern(smi: str):
           f"sorted copy {time.perf_counter() - t0:.3f} s, segments of "
           f"{min(order[2])}-{max(order[2])} rows")
 
+    pd.reset_counts()
     model, train_launches = train("pattern", dataset, SEED + 4, smi)
+    counts = dict(pd.COUNTS)
     check(train_launches["fullt"] == 0, f"the pattern path factored per sample: {train_launches}")
     check(train_launches["full"] >= N_ITERS, f"full launches {train_launches['full']} < {N_ITERS}")
+    # N_ITERS statistics passes, each over every segment, then train()'s one model.llk
+    check(counts["tables"] == N_ITERS + 1 and counts["segments"] == N_ITERS * P_PATTERN
+          and counts["rows"] == (N_ITERS + 1) * N_PATTERN,
+          f"the iterations did not all take the per-segment EM: {counts}")
+    print(f"[pattern] the route's work during training and its llk (pattern_dedup.COUNTS): "
+          f"{counts}")
 
     sub = dataset.slice(0, N_READOUT)
     check(sub.pattern_info() is not None, "the readout rows were not taken as structured")

@@ -71,6 +71,9 @@ class Config:
     #: ms at 8,192 rows a segment, 41-58 vs 73-80 ms at 4,096, 32-56 vs 37
     #: ms at 2,048, 33-48 vs 19-22 ms at 1,024: they cross between 2,048
     #: and 4,096, below this gate, which both take (the JAX package's rule).
+    #: The single model's times are of the per-segment EM's earlier blocks
+    #: of 8,192 rows and ~35 launches; its blocks of :meth:`segment_rows`
+    #: and a dozen launches are not measured against this gate.
     pat_sorted_min_rows: int = 8192
 
     #: Compute the fused mixture EM's per-component residual norms from a
@@ -102,6 +105,15 @@ class Config:
         takes 2048 and k=512 takes 512 (``ppca_rs_tpu/config.py``'s
         ``block_size_for`` also shrinks blocks with k)."""
         return self.mix_block_rows(1, k, itemsize)
+
+    def segment_rows(self, D: int, itemsize: int) -> int:
+        """Rows per block of the per-segment EM
+        (``ops/pattern_dedup.em_stats_sorted``), never fewer than
+        :attr:`block_size`.  Its temporaries are (rows, D) and (rows, k) only,
+        so a block holds MIX_BLOCK_MAX_BYTES of rows: 131,072 at D=1024 in
+        float32, where a segment of 31,250 rows is one block of a dozen
+        launches instead of four blocks of ~35."""
+        return max(self.block_size, MIX_BLOCK_MAX_BYTES // (D * itemsize))
 
     def resolve_device(self, device=None) -> torch.device:
         """The device for tensors built from host arrays: ``device`` if

@@ -9,7 +9,8 @@ pass on the host, ``native/packing.py``), ``numpy()``
 round-trips with NaN fill, ``dump``/``load``/pickle use the container the
 JAX package uses, so a dataset dumped by either package loads in the other.
 ``pattern_info``/``pattern_order`` detect structured missingness for the
-pattern path (``ops/pattern_dedup.py``).  ``chunks``/``concat`` split and
+pattern path (``ops/pattern_dedup.py``), in the ``ppca.pattern_detect`` and
+``ppca.pattern_order`` spans.  ``chunks``/``concat`` split and
 join datasets for out-of-core work (``streaming.py``); ``astype`` stores
 the values in another dtype, such as bfloat16.
 
@@ -32,6 +33,7 @@ import torch
 
 from .config import config
 from .native import packing
+from .utils.profiling import span
 from .utils.serialization import dump_bytes, load_bytes
 
 
@@ -302,7 +304,8 @@ class Dataset:
                         torch.ones((1, self.data.shape[1]), dtype=torch.bool, device=self.device))
             return None
         p_cap = min(config.pattern_max, n // config.pattern_min_ratio)
-        self._patterns = _detect_patterns(self.mask, p_cap) or False
+        with span("ppca.pattern_detect"):
+            self._patterns = _detect_patterns(self.mask, p_cap) or False
         return self._patterns or None
 
     def detect_patterns(self, include_dense: bool = False):
@@ -341,9 +344,11 @@ class Dataset:
             self._pattern_order = False
             return None
         pidx, patterns = info
-        perm = torch.argsort(pidx, stable=True)
-        counts = tuple(int(c) for c in torch.bincount(pidx, minlength=patterns.shape[0]).tolist())
-        self._pattern_order = (self.data.index_select(0, perm), perm, counts)
+        with span("ppca.pattern_order"):
+            perm = torch.argsort(pidx, stable=True)
+            counts = tuple(int(c) for c in
+                           torch.bincount(pidx, minlength=patterns.shape[0]).tolist())
+            self._pattern_order = (self.data.index_select(0, perm), perm, counts)
         return self._pattern_order
 
     def empty_dimensions(self) -> List[int]:

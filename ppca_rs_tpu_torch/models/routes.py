@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+from ..config import config
 from ..dataset import Dataset
 from ..ops import dense_fast as df
 from ..ops import masked_linalg as ml
@@ -57,7 +58,9 @@ def readout(verb: str, way: Route, C, mean, sigma, dataset: Dataset, block_size:
 
 def em_stats(way: Route, C, mean, sigma, dataset: Dataset, block_size: int, group=None):
     """The EM statistics of the dataset's rows on route ``way``
-    (``DenseEMStats`` on the dense route, ``EMStats`` otherwise)."""
+    (``DenseEMStats`` on the dense route, ``EMStats`` otherwise), in blocks
+    of ``block_size`` rows; the per-segment EM over the rows sorted by
+    pattern takes its own larger blocks (``config.segment_rows``)."""
     weights = dataset.weights_dev
     if way.kind == "dense":
         return df.em_stats(C, mean, sigma, dataset.data, weights, block_size=block_size,
@@ -68,7 +71,9 @@ def em_stats(way: Route, C, mean, sigma, dataset: Dataset, block_size: int, grou
     if way.order is not None:
         data_sorted, perm, counts = way.order
         return pd.em_stats_sorted(C, mean, sigma, data_sorted, weights[perm], way.pattern[1],
-                                  counts, block_size=block_size)
+                                  counts, block_size=config.segment_rows(
+                                      data_sorted.shape[1],
+                                      ml._compute_dtype(data_sorted, C).itemsize))
     return pd.em_stats(C, mean, sigma, dataset.data, dataset.mask, *way.pattern, weights,
                        block_size=block_size)
 

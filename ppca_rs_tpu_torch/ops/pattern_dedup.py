@@ -21,18 +21,40 @@ and the per-sample work is plain dense matmuls; :func:`em_stats` runs over
 the rows in their own order and groups the per-pattern sums with
 ``index_add_``, for data too large for the sorted copy.  Pattern detection
 is ``Dataset.pattern_info``.  Rows are blocked by plain loops over row
-slices.
+slices, each block a ``ppca.block`` span (closed before a generator's
+``yield``), the tables a ``ppca.pattern_tables`` span, and :data:`COUNTS`
+counts the work where it is done.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence
 
 import torch
 
+from ..utils.profiling import span
 from . import kernels
 from . import masked_linalg as ml
 from .masked_linalg import _blocks, _cat, _compute_dtype
+
+
+#: The route's work, counted where it is done: pattern tables factored
+#: (``tables``, one a call of :func:`compute_tables`), segments walked by
+#: the per-segment EM (``segments``), and row blocks with their rows
+#: (``blocks``, ``rows``) in every form and readout verb.
+COUNTS: Dict[str, int] = {"tables": 0, "segments": 0, "blocks": 0, "rows": 0}
+
+
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+def _count_blocks(rows: int, block_size: int) -> None:
+    """Count a loop over ``rows`` rows in blocks of ``block_size`` (once a
+    loop, not once a block: the loop is the host's hot path)."""
+    COUNTS["blocks"] += -(-rows // block_size)
+    COUNTS["rows"] += rows
 
 
 class PatternTables(NamedTuple):
@@ -52,12 +74,14 @@ def compute_tables(C, sigma, patterns_f) -> PatternTables:
     P = patterns_f.shape[0]
     k = C.shape[1]
     dtype, device = patterns_f.dtype, patterns_f.device
-    G = (patterns_f @ ml.outer_flat(C).to(dtype)).reshape(P, k, k)
-    zeros = torch.zeros(P, dtype=dtype, device=device)
-    _, Sigma, pat_llk, sq = kernels.spd_estep(
-        sigma, G, torch.zeros((P, k), dtype=dtype, device=device), zeros,
-        patterns_f.sum(-1), want="full")
-    return PatternTables(Sigma.reshape(P, k * k), pat_llk, sq)
+    with span("ppca.pattern_tables"):
+        COUNTS["tables"] += 1
+        G = (patterns_f @ ml.outer_flat(C).to(dtype)).reshape(P, k, k)
+        zeros = torch.zeros(P, dtype=dtype, device=device)
+        _, Sigma, pat_llk, sq = kernels.spd_estep(
+            sigma, G, torch.zeros((P, k), dtype=dtype, device=device), zeros,
+            patterns_f.sum(-1), want="full")
+        return PatternTables(Sigma.reshape(P, k * k), pat_llk, sq)
 
 
 class _BlockPosterior(NamedTuple):
@@ -100,9 +124,12 @@ def _tables_for(C, sigma, data, patterns):
 
 
 def _posteriors(C, mean, sigma, data, mask, pidx, tables, dtype, block_size):
+    _count_blocks(data.shape[0], block_size)
     for lo, hi in _blocks(data.shape[0], block_size):
-        yield lo, hi, _block_states_llk(C, mean, sigma, tables, data[lo:hi].to(dtype),
-                                        mask[lo:hi].to(dtype), pidx[lo:hi])
+        with span("ppca.block"):
+            post = _block_states_llk(C, mean, sigma, tables, data[lo:hi].to(dtype),
+                                     mask[lo:hi].to(dtype), pidx[lo:hi])
+        yield lo, hi, post
 
 
 def llks(C, mean, sigma, data, mask, pidx, patterns, *, block_size: int) -> torch.Tensor:
@@ -168,21 +195,25 @@ def em_stats(C, mean, sigma, data, mask, pidx, patterns, weights, *,
     psw = torch.zeros((P, k), **opts)
     wR = torch.zeros(D, **opts)
     dev_sq = llk = torch.zeros((), **opts)
-    for lo, hi, post in _posteriors(C, mean, sigma, data, mask, pidx, tables, dtype, block_size):
-        w = weights[lo:hi].to(dtype)
-        pb = pidx[lo:hi]
-        s = post.s
-        sw = s * w[:, None]
-        cross += post.R.T @ sw
-        Souter.index_add_(0, pb, (sw[:, :, None] * s[:, None, :]).reshape(hi - lo, k * k))
-        wsum.index_add_(0, pb, w)
-        psw.index_add_(0, pb, sw)
-        wR += w @ post.R
-        # the masked path's residual identity (masked_linalg.em_stats), clamped
-        bs = (post.b * s).sum(-1)
-        dev_sq = dev_sq + (w * torch.clamp(post.rnorm - bs - sigma2 * (s * s).sum(-1),
-                                           min=0.0)).sum()
-        llk = llk + (w * post.llk).sum()
+    _count_blocks(data.shape[0], block_size)
+    for lo, hi in _blocks(data.shape[0], block_size):
+        with span("ppca.block"):
+            post = _block_states_llk(C, mean, sigma, tables, data[lo:hi].to(dtype),
+                                     mask[lo:hi].to(dtype), pidx[lo:hi])
+            w = weights[lo:hi].to(dtype)
+            pb = pidx[lo:hi]
+            s = post.s
+            sw = s * w[:, None]
+            cross += post.R.T @ sw
+            Souter.index_add_(0, pb, (sw[:, :, None] * s[:, None, :]).reshape(hi - lo, k * k))
+            wsum.index_add_(0, pb, w)
+            psw.index_add_(0, pb, sw)
+            wR += w @ post.R
+            # the masked path's residual identity (masked_linalg.em_stats), clamped
+            bs = (post.b * s).sum(-1)
+            dev_sq = dev_sq + (w * torch.clamp(post.rnorm - bs - sigma2 * (s * s).sum(-1),
+                                               min=0.0)).sum()
+            llk = llk + (w * post.llk).sum()
     return _assemble(C, patterns_f, tables, cross, Souter, wsum, psw, wR, dev_sq, llk)
 
 
@@ -193,9 +224,21 @@ def em_stats_sorted(C, mean, sigma, data_sorted, weights_sorted, patterns,
     ``counts[p]`` is the number of rows of pattern p; segment p is rows
     ``[sum(counts[:p]), sum(counts[:p + 1]))``.  Inside a segment the mask
     is the constant row ``patterns[p]``, so no mask is read, the states are
-    ``s = (R C) Sigma_p / sigma^2`` against the segment's one table entry,
+    ``s = R (C Sigma_p / sigma^2)`` against the segment's one table entry,
     and the second-moment statistic is the plain segment Gram
     ``(w s)^T s``.  An exact regrouping of :func:`em_stats`'s sums.
+
+    A row block is a dozen launches, so that the card, not the host's loop,
+    sets the pace (``config.segment_rows`` makes a segment of the benchmark's
+    size one block): the centred rows in one ``addcmul`` against the
+    segment's ``-m_p * mean``; the projections ``b`` and the states in one
+    product against ``[C | C Sigma_p / sigma^2]``, written beside a column of
+    ones; the cross statistic and ``w R`` in one product ``R^T [w s | w]``;
+    the segment's second moments, ``w s`` sums and weight sum in one
+    ``[s | 1]^T [w s | w]``; and each row's ``|R|^2 - b.s`` and residual
+    (clamped at 0 as ``masked_linalg.em_stats`` clamps it, the row's own
+    difference taken before any sum) summed against the weights in one
+    product.
     """
     D, k = C.shape
     n = data_sorted.shape[0]
@@ -205,36 +248,44 @@ def em_stats_sorted(C, mean, sigma, data_sorted, weights_sorted, patterns,
     if len(counts) != P or sum(counts) != n:
         raise ValueError(f"counts {len(counts)}/{sum(counts)} do not partition "
                          f"{P} patterns x {n} rows")
-    Sig3 = tables.Sigma.reshape(P, k, k)
-    sigma2 = sigma * sigma
     opts = dict(dtype=dtype, device=data_sorted.device)
-    cross = torch.zeros((D, k), **opts)
-    Souter = torch.zeros((P, k, k), **opts)
-    wsum = torch.zeros(P, **opts)
-    psw = torch.zeros((P, k), **opts)
-    wR = torch.zeros(D, **opts)
-    dev_sq = quad = torch.zeros((), **opts)
+    C, mean = C.to(dtype), mean.to(dtype)
+    sigma2 = torch.as_tensor(sigma, **opts) ** 2
+    neg_mean = patterns_f * -mean                                       # (P, D)
+    Sig3 = tables.Sigma.reshape(P, k, k)
+    bs_cols = torch.cat([C.expand(P, D, k), C @ (Sig3 / sigma2)], dim=2)  # (P, D, 2k)
+    # each block's [b | s | 1], and its rows' (b.s - |R|^2, clamped residual)
+    rows_max = min(block_size, max(counts, default=0))
+    T = torch.empty((rows_max, 2 * k + 1), **opts)
+    T[:, 2 * k] = 1.0
+    E = torch.empty((rows_max, 2), **opts)
+    acc = torch.zeros((D, k + 1), **opts)          # [cross | w R]
+    seg = torch.zeros((P, k + 1, k + 1), **opts)   # per pattern [[w s s^T, w s], [w s^T, w]]
+    sums = torch.zeros(2, **opts)                  # -sum w (|R|^2 - b.s), -dev_sq
     start = 0
     for p, c in enumerate(counts):
-        m_p, Sp = patterns_f[p], Sig3[p]
+        COUNTS["segments"] += 1
+        _count_blocks(c, block_size)
         for lo, hi in _blocks(c, block_size):
-            rows = slice(start + lo, start + hi)
-            w = weights_sorted[rows].to(dtype)
-            R = m_p * (data_sorted[rows].to(dtype) - mean)
-            b = R @ C
-            s = (b @ Sp) / sigma2
-            sw = s * w[:, None]
-            cross += R.T @ sw
-            Souter[p] += sw.T @ s
-            psw[p] += sw.sum(0)
-            wsum[p] += w.sum()
-            wR += w @ R
-            rnorm = (R * R).sum(-1)
-            bs = (b * s).sum(-1)
-            dev_sq = dev_sq + (w * torch.clamp(rnorm - bs - sigma2 * (s * s).sum(-1),
-                                               min=0.0)).sum()
-            quad = quad + (w * (rnorm - bs)).sum()
+            with span("ppca.block"):
+                rows = slice(start + lo, start + hi)
+                w = weights_sorted[rows].to(dtype)
+                R = torch.addcmul(neg_mean[p], data_sorted[rows].to(dtype), patterns_f[p])
+                t, e = T[:hi - lo], E[:hi - lo]
+                torch.mm(R, bs_cols[p], out=t[:, :2 * k])
+                s1 = t[:, k:]
+                sw1 = s1 * w[:, None]
+                acc.addmm_(R.T, sw1)
+                seg[p].addmm_(s1.T, sw1)
+                dots = (t[:, :2 * k].unflatten(1, (2, k)) * t[:, None, k:2 * k]).sum(-1)
+                r = torch.linalg.vector_norm(R, dim=-1)
+                torch.addcmul(dots[:, 0], r, r, value=-1, out=e[:, 0])
+                torch.addcmul(e[:, 0], dots[:, 1], sigma2, out=e[:, 1])
+                e[:, 1].clamp_(max=0.0)
+                sums.addmv_(e.T, w)
         start += c
-    llk = (wsum * tables.pat_llk).sum() - 0.5 * quad / sigma2
-    return _assemble(C, patterns_f, tables, cross, Souter.reshape(P, k * k), wsum, psw, wR,
-                     dev_sq, llk)
+    wsum = seg[:, k, k]
+    llk = (wsum * tables.pat_llk).sum() + 0.5 * sums[0] / sigma2
+    return _assemble(C, patterns_f, tables, acc[:, :k].contiguous(),
+                     seg[:, :k, :k].reshape(P, k * k), wsum, seg[:, k, :k], acc[:, k],
+                     -sums[1], llk)
