@@ -55,6 +55,20 @@ fourteen phases; any failed check raises and the script exits non-zero:
    product's; the kernel timed at the main shapes and at k=256 (W=65,536,
    B=2048, the panel path's) beside its bound, the plain version, the
    library bf16 product (``library_ms``) and the SIMT product;
+2c. the S kernel (``[S]`` lines; ``kernels.mask_s``, the M-step statistic
+   mask^T (scale * SM) added into S: the bool mask against the scaled
+   second moments' three bf16 slices, cut on chip, promoted into float32
+   sums): at the main path's shapes (B=8192, D=1024, slab k=64 and 128;
+   the mixture's D=512, 8 x 640; k=256's square columns at B=2048) and at
+   a model-axis block's D=520 and ragged ones, on SM, weights and
+   responsibilities from the port's own E-step, against float64, with the
+   max relative error and the diagonal's signed mean relative error beside
+   those of the SIMT float32 product the route ran, each bounded
+   (``TOL_S``, ``TOL_S_DIAG``) and at the main path's shapes held to at
+   most ``S_ERR_RATIO`` times the SIMT product's; the kernel timed at the
+   main shapes beside its bound, the plain version and the SIMT product
+   (``library_ms``); phases 3, 7 and 8 count its launches
+   (``kernels.S_LAUNCHES``) and no library S;
 3. the masked path at full width: masked PPCA EM at D=1024, k=64, 50%
    missing at random, N=1,048,576 float32 rows made on the card from a
    seed (pattern detection must demote them), five trainer iterations,
@@ -485,6 +499,31 @@ GRAM_REPS = 20
 PEAK_BF16_FLOPS = 989e12
 #: The Gram launches of the training runs (kernels.GRAM_LAUNCHES), by tag.
 GRAM_COUNTS: dict = {}
+#: The S kernel's cases (phase 2c): (B, D, k, M, timed), S's columns as the
+#: routes build them (slabs where ``kernels.uses_slabs`` holds, else k^2).
+#: The main path's: k=64 and 128 slabs at B=8192, D=1024 (phases 3 and 7),
+#: the mixture's 8 components of k=32 at D=512 (phase 8), k=256's square
+#: columns at B=2048 (phase 11a); a model-axis block's D=520 (not a multiple
+#: of 16: the converters read the mask themselves), ragged B, D and odd W.
+S_CASES = ((8192, 1024, 64, 1, True), (8192, 1024, 128, 1, True), (8192, 512, 32, 8, True),
+           (2048, 1024, 256, 1, True), (8192, 520, 64, 1, False), (131, 257, 40, 1, False),
+           (131, 80, 13, 1, False), (17, 40, 13, 3, False))
+#: The main path's cases, where the kernel's errors are held to the SIMT
+#: float32 product's of the route it replaces, read in the same phase (at
+#: most S_ERR_RATIO times each): its max relative error, whose float32 sum
+#: promotes 256 runs a tile row (an H100: 2.37x the SIMT product's at k=64,
+#: 1.18x at k=128, under it at the mixture's and k=256's shapes), and its
+#: diagonal's signed mean relative error (1.3x the SIMT product's at k=64,
+#: under it elsewhere).
+S_MAIN = 4
+S_ERR_RATIO = 2.5
+#: Any case fails above these: the max relative error and the diagonal's
+#: signed mean relative error (the kernel up to 9.6e-7 and 7.9e-9; S cut to
+#: one bf16 slice reads 1.6e-4, a TF32 product 3.4e-5).
+TOL_S = 2e-6
+TOL_S_DIAG = 5e-8
+#: The S launches of the training runs (kernels.S_LAUNCHES), by tag.
+S_COUNTS: dict = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -635,6 +674,141 @@ def phase_mask_gram(smi: str) -> dict:
     check(bool(names) and all("gemm" in n and "spd_" not in n for n in names),
           f"gram: the profiler shows the kernel as {names}")
     print(f"[gram] the profiler names the kernel {names[0]!r}")
+    keys = list(rows)
+    main = dict(rows[keys[0]])
+    main.update({f"at_{key.replace(' ', '_')}": rows[key] for key in keys[1:]})
+    return main
+
+
+# --------------------------------------------------------------------- #
+# phase 2c
+
+
+def s_case(B: int, D: int, k: int, M: int, gen):
+    """(bool mask, SM, scale, the SIMT float32 product the route ran, the
+    diagonal's column indices) of one block from the port's own E-step:
+    ``fullt``'s second moments of rows drawn as the benchmark draws them
+    (C ~ N(0,1) 2/sqrt(k); 50% observed, or 80% and 8 components' real
+    responsibilities for a mixture), non-unit weights with a zero-weight
+    and an all-masked row; square SM's entries above the diagonal, which
+    the kernel leaves unwritten and the M-step never reads, zeroed."""
+    from ppca_rs_tpu_torch.ops import kernels
+    from ppca_rs_tpu_torch.ops import masked_linalg as ml
+    from ppca_rs_tpu_torch.ops import mix_fused as mf
+
+    opts = dict(generator=gen, device="cuda")
+    p = MIX_OBSERVED if M > 1 else 0.5
+    mask = torch.rand((B, D), **opts) < p
+    mask[1] = False
+    w = torch.rand(B, **opts) + 0.5
+    w[2] = 0.0
+    if M == 1:
+        C = torch.randn((D, k), **opts) * 2 / k ** 0.5
+        mean = torch.randn(D, **opts)
+        data = torch.where(mask, torch.randn((B, k), **opts) @ C.T + mean
+                           + 0.5 * torch.randn((B, D), **opts), 0.0)
+        gram = ml.gram_operand(C, torch.float32)
+        _, SM, _, _ = ml.block_posterior(C, gram, mean, 0.5, data, mask, "fullt").out
+        SM = SM.reshape(B, -1)
+        scale = w
+        simt = lambda: torch.matmul((mask.float() * w[:, None]).T, SM)   # noqa: E731
+    else:
+        Cs = torch.randn((M, D, k), **opts)
+        means = 3 * torch.randn((M, D), **opts)
+        sigmas = torch.full((M,), 0.3, device="cuda")
+        pick = torch.randint(0, M, (B,), **opts)
+        z = torch.randn((B, k), **opts)
+        data = torch.where(mask, torch.einsum("bk,bdk->bd", z, Cs[pick]) + means[pick]
+                           + 0.3 * torch.randn((B, D), **opts), 0.0)
+        gram = ml.gram_operand(Cs, torch.float32)
+        _, _, G, b, rnorm, d_obs = mf._general_inputs(Cs, gram, mf._center_prep(Cs, means), data,
+                                                      mask, None)
+        llks, _, SM, _ = mf._estep(sigmas, G, b, rnorm, d_obs, "fullt")
+        scale, _ = mf._responsibilities(llks, torch.full((M,), -math.log(M), device="cuda"), w)
+        SM = SM.reshape(M, B, -1)
+        simt = lambda: torch.bmm(mask.float().T.expand(M, -1, -1), SM * scale[..., None])  # noqa: E731
+    if not kernels.uses_slabs(k, torch.float32):
+        SM = torch.tril(SM.view(*SM.shape[:-1], k, k)).reshape(SM.shape)
+        diag = torch.arange(k, device="cuda") * (k + 1)
+    else:
+        rows, cols = kernels.slab_coords(k, "cuda")
+        diag = torch.nonzero(rows == cols).flatten()
+    return mask, SM.contiguous(), scale.contiguous(), simt, diag
+
+
+def phase_mask_s(smi: str) -> dict:
+    """The S kernel against float64 at the main path's and at ragged shapes,
+    beside the SIMT float32 product of the route it replaces, and timed at
+    the timed cases.  Returns the k=64 case's row for the kernels line,
+    with the others under ``at_<case>``."""
+    from ppca_rs_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    rows = {}
+    for i, (B, D, k, M, timed) in enumerate(S_CASES):
+        mask, SM, scale, simt_fn, diag = s_case(B, D, k, M, gen)
+        W = SM.shape[-1]
+        width = kernels.mask_s_tile_width(D, W, M)
+        tag = f"B={B} D={D} k={k}{f' M={M}' if M > 1 else ''} W={W} (tiles of {width})"
+        S = torch.zeros((M, D, W) if M > 1 else (D, W), device="cuda")
+        kernels.reset_launch_counts()
+        kernels.mask_s(mask, SM, scale, S)
+        torch.cuda.synchronize()
+        check(kernels.S_LAUNCHES == {"kernel": 1, "library": 0}, f"S {tag}: not launched")
+        check(bool(torch.isfinite(S).all()), f"S {tag}: a non-finite entry")
+        exact = torch.matmul(mask.T.double(), scale.double()[..., None] * SM.double())
+        simt = simt_fn()
+        err, signed = gram_errors(S, exact, diag)
+        err_simt, signed_simt = gram_errors(simt, exact, diag)
+        check(err <= TOL_S, f"S {tag}: max rel err {err:.3e} above {TOL_S}")
+        check(abs(signed) <= TOL_S_DIAG,
+              f"S {tag}: the diagonal's signed mean rel err {signed:+.3e} above {TOL_S_DIAG} in size")
+        row = dict(B=B, D=D, k=k, M=M, W=W, tile_width=width, max_rel_err=err,
+                   diag_signed_rel=signed, simt_max_rel_err=err_simt,
+                   simt_diag_signed_rel=signed_simt)
+        held = err <= S_ERR_RATIO * err_simt and abs(signed) <= S_ERR_RATIO * abs(signed_simt)
+        note = (f"; within {S_ERR_RATIO}x the SIMT product's: {'held' if held else 'MISSED'}"
+                if i < S_MAIN else "")
+        print(f"[S] {tag}: max rel err kernel {err:.3e} / SIMT f32 {err_simt:.3e}; diagonal signed "
+              f"mean rel err kernel {signed:+.3e} / SIMT {signed_simt:+.3e}{note}")
+        check(held or i >= S_MAIN, f"S {tag}: the kernel's errors are not within {S_ERR_RATIO}x "
+              "the SIMT float32 product's")
+        if timed:
+            flops = 3 * 2 * B * D * W * M
+            nbytes = B * D + 4 * M * B * W + 4 * M * B + 2 * 4 * M * D * W
+            b_ms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+            reps = GRAM_REPS if B * W * M <= 8192 * 8704 else GRAM_REPS // 2
+            ms = cuda_ms(lambda: kernels.mask_s(mask, SM, scale, S), reps)
+            plain_out = torch.empty_like(S)
+            plain_ms = cuda_ms(lambda: plain_out.copy_(kernels.mask_s_reference(mask, SM, scale)),
+                               max(2, reps // 4))
+            library_ms = cuda_ms(simt_fn, reps)
+            row.update(ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=plain_ms,
+                       library_ms=library_ms, tflops=flops / ms / 1e9,
+                       peak_share=b_ms / ms if by == "operations" else None)
+            print(f"[time] mask_s {tag}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of "
+                  f"slice work, {100 * flops / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1f}% of the bf16 "
+                  f"peak), {bound_note(b_ms, by, PEAK_BF16_FLOPS)}; plain {plain_ms:.4f} ms; "
+                  f"library (the SIMT f32 product it replaces) {library_ms:.4f} ms ({smi})")
+        rows[tag] = row
+        del mask, SM, scale, S, exact, simt, simt_fn
+        torch.cuda.empty_cache()
+    # the kernel's name as the profiler shows it: the benchmark counts it as a
+    # product (a name with "gemm", none with "spd_")
+    from torch.profiler import ProfilerActivity, profile
+
+    mask, SM, scale, _, _ = s_case(BATCH, D_MAIN, K_MAIN, 1, gen)
+    S = torch.zeros(D_MAIN, SM.shape[-1], device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(KERNEL_REPS):
+            kernels.mask_s(mask, SM, scale, S)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "mask_s" in e.key
+             and getattr(e, "device_time_total", 0) > 0]
+    check(bool(names) and all("gemm" in n and "spd_" not in n for n in names),
+          f"S: the profiler shows the kernel as {names}")
+    print(f"[S] the profiler names the kernel {names[0]!r}")
     keys = list(rows)
     main = dict(rows[keys[0]])
     main.update({f"at_{key.replace(' ', '_')}": rows[key] for key in keys[1:]})
@@ -1410,12 +1584,15 @@ def train(tag: str, dataset, seed: int, smi: str, k: int = K_MAIN, n_models=None
     GRAM_COUNTS[tag] = dict(kernels.GRAM_LAUNCHES)
     check(kernels.GRAM_LAUNCHES["library"] == 0,
           f"{tag}: {kernels.GRAM_LAUNCHES['library']} masked Grams left the Gram kernel")
+    S_COUNTS[tag] = dict(kernels.S_LAUNCHES)
+    check(kernels.S_LAUNCHES["library"] == 0,
+          f"{tag}: {kernels.S_LAUNCHES['library']} M-step statistics left the S kernel")
     per_iter = [b - a for a, b in zip(stamps, stamps[1:])]
     check(all(math.isfinite(v) for v in llks), f"{tag}: non-finite llk in {llks}")
     for a, b in zip(llks, llks[1:]):
         check(b >= a - LLK_SLACK * abs(a), f"{tag}: llk decreased: {a} -> {b}")
     print(f"[{tag}] launches during training: {launches}, of them on slab G "
-          f"{dict(kernels.SLAB_LAUNCHES)}; masked Grams {GRAM_COUNTS[tag]}")
+          f"{dict(kernels.SLAB_LAUNCHES)}; masked Grams {GRAM_COUNTS[tag]}; S {S_COUNTS[tag]}")
     print(f"[{tag}] seconds per EM iteration at N={len(dataset)}: "
           + ", ".join(f"{s:.4f}" for s in per_iter)
           + f"; mean of iterations 2-{n_iters}: {sum(per_iter[1:]) / (n_iters - 1):.4f} s "
@@ -4234,6 +4411,8 @@ def main() -> int:
     done("2")
     gram = phase_mask_gram(smi)
     done("2b")
+    s_row = phase_mask_s(smi)
+    done("2c")
     model, dataset, masked_launches = phase_main(smi)
     card_vs_cpu("card-vs-cpu", model, dataset.slice(0, N_CPU), used=("fullt", "llk"))
     del model, dataset
@@ -4330,6 +4509,15 @@ def main() -> int:
          "replaces": None, "launches": GRAM_COUNTS["main"]["kernel"],
          "at_k128_launches": GRAM_COUNTS["k128"]["kernel"],
          "at_mix_launches": GRAM_COUNTS["mix"]["kernel"], **gram})
+    # the S kernel: phase 2c's cases, launched on phases 3, 7 and 8's paths
+    kernels_line["kernels"].append(
+        {"name": "mask_s", "route": "cuda", "source": "ppca_rs_tpu_torch/csrc/mask_s.cu",
+         "replaces": None, "launches": S_COUNTS["main"]["kernel"],
+         "at_k128_launches": S_COUNTS["k128"]["kernel"],
+         "at_mix_launches": S_COUNTS["mix"]["kernel"], **s_row})
+    for tag in ("main", "k128", "mix"):
+        check(S_COUNTS[tag]["kernel"] > 0 and S_COUNTS[tag]["library"] == 0,
+              f"{tag}: S launches {S_COUNTS[tag]}")
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched by its path")
     print(json.dumps(kernels_line))

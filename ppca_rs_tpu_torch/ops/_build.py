@@ -149,6 +149,12 @@ def load() -> ctypes.CDLL:
             # device, CC, the slices, CC's rows, W, the slices' row width, stream
             lib.gram_split_bf16x3.argtypes = [ctypes.c_int, p, p, ll, ll, ll, p]
             lib.gram_split_bf16x3.restype = ctypes.c_int
+            # device, mask, its row stride, SM, scale, S, B, D, W, M, stream
+            lib.mask_s_bf16x3.argtypes = [ctypes.c_int, p, ll, p, p, p, ll, ll, ll, ll, p]
+            lib.mask_s_bf16x3.restype = ctypes.c_int
+            # device, D, W, M
+            lib.mask_s_tile_width.argtypes = [ctypes.c_int, ll, ll, ll]
+            lib.mask_s_tile_width.restype = ctypes.c_int
             lib.spd_estep_error_string.argtypes = [ctypes.c_int]
             lib.spd_estep_error_string.restype = ctypes.c_char_p
             _lib = lib

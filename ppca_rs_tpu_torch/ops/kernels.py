@@ -71,6 +71,13 @@ products promoted into float32 sums (``csrc/mask_gram.cu``, which
 replaces no TPU kernel: the JAX package leaves ``mask @ CC`` to XLA's
 dot), on CUDA tensors, and :func:`mask_gram_reference`, the same three
 products in float32, on CPU tensors.
+
+:func:`mask_s` adds the M-step statistic ``mask^T (scale * SM)`` of a block
+into the running float32 S, exact to float32 sums on the bf16 tensor cores
+by the same arithmetic: the bool mask against the three bf16 slices of the
+scaled second moments, cut on chip (``csrc/mask_s.cu``, which replaces no
+TPU kernel either), on float32 CUDA tensors, and
+:func:`mask_s_reference`, the plain product, on CPU and float64 tensors.
 """
 
 from __future__ import annotations
@@ -104,6 +111,10 @@ GRAM_LAUNCHES: Dict[str, int] = {"kernel": 0, "library": 0}
 SPLIT_LAUNCHES: Dict[str, int] = {"kernel": 0}
 #: bf16 slices of the exact split of a float32 Gram column (:func:`gram_slices`).
 GRAM_SLICES = 3
+#: The M-step statistic S of each block by the path it took: ``kernel``
+#: (:func:`mask_s` on the card) or ``library`` (:func:`mask_s_reference`:
+#: CPU and float64 tensors).
+S_LAUNCHES: Dict[str, int] = {"kernel": 0, "library": 0}
 
 #: The largest k the tile design serves a spd_estep variant, by element
 #: size (``estep_tile_max_k`` in ``csrc/spd_common.cuh``); :func:`launch`
@@ -121,6 +132,8 @@ def reset_launch_counts() -> None:
     for name in GRAM_LAUNCHES:
         GRAM_LAUNCHES[name] = 0
     SPLIT_LAUNCHES["kernel"] = 0
+    for name in S_LAUNCHES:
+        S_LAUNCHES[name] = 0
 
 
 def uses_slabs(k: int, dtype: torch.dtype) -> bool:
@@ -650,6 +663,69 @@ def mask_gram(mask: torch.Tensor, slices: torch.Tensor, out: torch.Tensor) -> No
         raise RuntimeError(f"mask_gram kernel launch failed (B={B}, D={D}, W={W}, M={M}): "
                            f"{lib.spd_estep_error_string(err).decode()}")
     GRAM_LAUNCHES["kernel"] += 1
+
+
+def mask_s_reference(mask: torch.Tensor, SM: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mask_s`, on any device: ``mask^T
+    (scale * SM)`` in SM's dtype, ``(D, W)``, or ``(M, D, W)`` for SM
+    ``(M, B, W)`` and scale ``(M, B)``."""
+    return torch.matmul(mask.T.to(SM.dtype), scale[..., None] * SM)
+
+
+def mask_s(mask: torch.Tensor, SM: torch.Tensor, scale: torch.Tensor, S: torch.Tensor) -> None:
+    """``S += mask^T (scale * SM)``, the M-step statistic of one block,
+    added into the caller's running sum ``S`` in place.
+
+    ``mask`` (B, D) bool, unit column stride; ``SM`` (B, W) and ``scale``
+    (B,), or ``(M, B, W)`` and ``(M, B)`` for M components; ``S`` (D, W) or
+    (M, D, W); SM, scale and S contiguous, of one dtype.  Float32 CUDA
+    tensors launch the kernel of ``csrc/mask_s.cu`` on the current stream,
+    which raises on anything it does not take and on a failed launch; CPU
+    tensors, and float64 ones anywhere (seven bf16 slices would be needed),
+    take :func:`mask_s_reference`.  ``S_LAUNCHES`` counts the path."""
+    if mask.ndim != 2 or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be a (B, D) bool tensor, got {tuple(mask.shape)} {mask.dtype}")
+    B, D = mask.shape
+    stacked = SM.ndim == 3
+    M = SM.shape[0] if stacked else 1
+    W = SM.shape[-1]
+    lead = (M,) if stacked else ()
+    if (SM.ndim not in (2, 3) or SM.shape[-2] != B or tuple(scale.shape) != (*lead, B)
+            or tuple(S.shape) != (*lead, D, W)):
+        raise ValueError(f"SM, scale and S must be ([M,] {B}, W), ([M,] {B}) and ([M,] {D}, W) "
+                         f"beside a ({B}, {D}) mask, got {tuple(SM.shape)}, "
+                         f"{tuple(scale.shape)}, {tuple(S.shape)}")
+    if not (SM.dtype == scale.dtype == S.dtype) or SM.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"SM, scale and S must share float32 or float64, got {SM.dtype}, "
+                         f"{scale.dtype}, {S.dtype}")
+    if not (mask.device == SM.device == scale.device == S.device):
+        raise ValueError("mask_s tensors must share one device")
+    if not (SM.is_contiguous() and scale.is_contiguous() and S.is_contiguous()):
+        raise ValueError("mask_s takes a contiguous SM, scale and S")
+    if mask.device.type == "cpu" or SM.dtype == torch.float64:
+        S += mask_s_reference(mask, SM, scale)
+        S_LAUNCHES["library"] += 1
+        return
+    if mask.device.type != "cuda":
+        raise ValueError(f"the mask_s kernel needs CUDA tensors, got {mask.device}")
+    if mask.stride(1) != 1 and D > 1:
+        raise ValueError("the mask_s kernel takes a mask with unit column stride")
+    lib = _library()
+    stream = torch.cuda.current_stream(mask.device).cuda_stream
+    index = mask.device.index if mask.device.index is not None else torch.cuda.current_device()
+    err = lib.mask_s_bf16x3(index, mask.data_ptr(), mask.stride(0), SM.data_ptr(),
+                            scale.data_ptr(), S.data_ptr(), B, D, W, M, stream)
+    if err != 0:
+        raise RuntimeError(f"mask_s kernel launch failed (B={B}, D={D}, W={W}, M={M}): "
+                           f"{lib.spd_estep_error_string(err).decode()}")
+    S_LAUNCHES["kernel"] += 1
+
+
+def mask_s_tile_width(D: int, W: int, M: int = 1) -> int:
+    """The columns of S a tile of the kernel takes for (D, W, M) on the
+    current card: of 128, 144 and 160, the one that fills its
+    multiprocessors in the fewest whole waves' time.  Needs the card."""
+    return _library().mask_s_tile_width(torch.cuda.current_device(), D, W, M)
 
 
 def _check_chol_shape(M: torch.Tensor) -> None:

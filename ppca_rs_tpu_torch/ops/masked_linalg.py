@@ -20,9 +20,12 @@ observed rows of ``C``:
   log-likelihood, noise-update trace) is :func:`ops.kernels.spd_estep`: the
   CUDA kernel on the card, its plain version on the CPU;
 * the M-step statistic ``S[d] = sum_n w_n m_nd (s_n s_n^T + Sigma_n)`` is
-  the transposed matmul ``(w*m)^T @ SM`` (with slab G, over fullt's slab
+  the transposed product ``m^T (w * SM)`` (with slab G, over fullt's slab
   SM, accumulated as slabs and unpacked once: the JAX package's
-  ``config.s_slab_stats``), and the M-step's row solves
+  ``config.s_slab_stats``), added into S block by block by
+  :func:`ops.kernels.mask_s` (in float32 on the card the bool mask against
+  the scaled SM's exact three-way bf16 split on the tensor cores, float32
+  sums; float64 and CPU tensors the plain product), and the M-step's row solves
   ``(S[d] + lambda I) c_d = cross[d]`` are the same kernel with
   ``sigma = sqrt(lambda)``.
 
@@ -260,15 +263,14 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None
     sq_parts, dev_parts, llk_parts = [], [], []
     for lo, hi in _blocks(data.shape[0], block_size):
         with span("ppca.block"):
-            w = weights[lo:hi].to(dtype)
-            post = block_posterior(C, gram, mean, sigma, data[lo:hi].to(dtype), mask[lo:hi],
-                                   "fullt", group)
+            w, maskb = weights[lo:hi].to(dtype), mask[lo:hi]
+            post = block_posterior(C, gram, mean, sigma, data[lo:hi].to(dtype), maskb, "fullt",
+                                   group)
             mask_f = post.mask_f
             s, SM, llk_b, sq_b = post.out
             sw = s * w[:, None]
             cross += post.R.T @ sw
-            mw = mask_f * w[:, None]
-            S += mw.T @ SM.reshape(hi - lo, -1)
+            kernels.mask_s(maskb, SM.reshape(hi - lo, -1), w, S)
             sq_parts.append((w * sq_b).sum())
             # No residual materialization: with M s = b and G = M - sigma^2 I,
             # s^T G s = b.s - sigma^2 |s|^2, so the masked residual norm is

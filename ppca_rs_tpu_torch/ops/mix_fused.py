@@ -11,7 +11,8 @@ blocked pass does it all:
   (``masked_linalg.gram_operand``), in float32 on the card by the Gram
   kernel (``masked_linalg.masked_gram``: the bool mask times the columns'
   bf16 slices, written in place as (M, B, W)), and the S statistic is
-  accumulated as slabs and unpacked once (the JAX package's
+  added block by block into one running (M, D, W) sum by
+  ``kernels.mask_s`` and unpacked once (the JAX package's
   ``config.g_slab_inputs`` and ``s_slab_stats``); the table route keeps
   square tables;
 * the SPD kernel is independent per sample, so the M components' blocks
@@ -78,10 +79,12 @@ class MixEMStats(NamedTuple):
 
 
 def _accumulate(acc: Optional[MixEMStats], new: MixEMStats) -> MixEMStats:
-    """Sum two blocks' statistics (resp_max by maximum)."""
+    """Sum two blocks' or chunks' statistics (resp_max by maximum).  A
+    field that is one tensor on both sides is a running sum that the blocks
+    add into in place (the general route's S), taken as it is."""
     if acc is None:
         return new
-    return MixEMStats(*(a + b for a, b in zip(acc, new)))._replace(
+    return MixEMStats(*(b if a is b else a + b for a, b in zip(acc, new)))._replace(
         resp_max=torch.maximum(acc.resp_max, new.resp_max))
 
 
@@ -162,14 +165,13 @@ def _responsibilities(llks, log_weights, w):
     return torch.exp(joint - lse) * w, (w * lse).sum()
 
 
-def _weighted_S(mask_f, SM, resp):
-    """``S[m] = mask^T (resp_m SM_m)``, (M, D, SM's width a sample: k*k, or
-    slab_width(k) for slab SM): SM is the block's own kernel output, scaled
-    in place, and the M products are one batched matmul against the shared
-    mask (a stride-0 batch, no copy)."""
+def _add_S(S, mask, SM, resp):
+    """``S[m] += mask^T (resp_m SM_m)`` into the running ``S`` (M, D, SM's
+    width a sample: k*k, or slab_width(k) for slab SM), from the block's
+    bool ``mask`` (``kernels.mask_s``); returns S."""
     M, B = resp.shape
-    SMw = SM.view(M, B, -1).mul_(resp[..., None])
-    return torch.bmm(mask_f.T.expand(M, -1, -1), SMw)
+    kernels.mask_s(mask, SM.view(M, B, -1), resp, S)
+    return S
 
 
 def _block_post(Cs, gram, means, sigmas, datab, mask, want: str, group=None):
@@ -184,12 +186,13 @@ def _block_post(Cs, gram, means, sigmas, datab, mask, want: str, group=None):
     return mask_f, R, _estep(sigmas, G, b, rnorm, d_obs, want)
 
 
-def _block_mix_fast(Cs, gram, center: _Center, sigmas, log_weights, datab, mask, w,
+def _block_mix_fast(Cs, gram, center: _Center, sigmas, log_weights, datab, mask, w, S,
                     group=None) -> MixEMStats:
     """One block of the fused EM with no (M, B, D) temporary: projections
     from :func:`_projections`, the Gram ``mask @ CC_m`` (M, B, k*k) as one
     batched matmul (already in the kernel's component-major order), and the
     residual statistics from ``s^T G s = b.s - sigma^2 |s|^2`` (M s = b).
+    The block's S is added into the running ``S``, which its stats carry.
 
     Precision: ``rnorm`` is the expanded quadratic, whose float32
     cancellation relative to the residual grows with the spread of the
@@ -209,7 +212,7 @@ def _block_mix_fast(Cs, gram, center: _Center, sigmas, log_weights, datab, mask,
     totals = resp @ mask_f
     return MixEMStats(
         cross=cross,
-        S=_weighted_S(mask_f, SM, resp),
+        S=_add_S(S, mask, SM, resp),
         square_error=(resp * sq_b).sum(-1),
         dev_sq=(resp * dev).sum(-1),
         total_dev=resp @ md0 - dm * totals - (Cs * c2).sum(-1),
@@ -220,10 +223,13 @@ def _block_mix_fast(Cs, gram, center: _Center, sigmas, log_weights, datab, mask,
     )
 
 
-def _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask, w, group=None) -> MixEMStats:
+def _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask, w, S,
+               group=None) -> MixEMStats:
     """One block of the fused EM with the (M, B, D) residual and deviation
     materialized (``config.mix_exact_rnorm``).  The deviation is this
-    rank's columns, so its squared norm is summed over the model group."""
+    rank's columns, so its squared norm is summed over the model group.
+    The block's S is added into the running ``S``, as in
+    :func:`_block_mix_fast`."""
     mask_f, R, (llks, s, SM, sq_b) = _block_post(Cs, gram, means, sigmas, datab, mask, "fullt",
                                                  group)
     resp, llk = _responsibilities(llks, log_weights, w)
@@ -231,7 +237,7 @@ def _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask, w, group=None)
     (dev_sq,) = all_reduce_sum([(resp * (dev * dev).sum(-1)).sum(-1)], group)
     return MixEMStats(
         cross=torch.bmm(R.mT, s * resp[..., None]),
-        S=_weighted_S(mask_f, SM, resp),
+        S=_add_S(S, mask, SM, resp),
         square_error=(resp * sq_b).sum(-1),
         dev_sq=dev_sq,
         total_dev=torch.bmm(resp[:, None, :], dev).squeeze(1),
@@ -264,16 +270,17 @@ def mix_em_stats(Cs, means, sigmas, log_weights, data, mask, weights, *,
     dtype = _compute_dtype(data, Cs)
     gram = ml.gram_operand(Cs, dtype)
     center = None if config.mix_exact_rnorm else _center_prep(Cs, means)
+    S = torch.zeros((M, D, gram.cols.shape[-1]), dtype=dtype, device=data.device)
     acc = None
     for lo, hi in _blocks(data.shape[0], block_size):
         with span("ppca.block"):
             datab, w = data[lo:hi].to(dtype), weights[lo:hi].to(dtype)
             if center is None:
-                new = _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask[lo:hi], w,
+                new = _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask[lo:hi], w, S,
                                  group)
             else:
                 new = _block_mix_fast(Cs, gram, center, sigmas, log_weights, datab, mask[lo:hi],
-                                      w, group)
+                                      w, S, group)
             acc = _accumulate(acc, new)
     if acc is None:
         opts = dict(dtype=dtype, device=data.device)

@@ -280,8 +280,9 @@ def test_build_command_and_source_key(tmp_path, monkeypatch):
     (nvcc itself runs on the card)."""
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cu = [p.name for p in _build.sources() if p.suffix == ".cu"]
-    assert cu == ["mask_gram.cu", "spd_chol.cu", "spd_estep.cu", "spd_estep_tile_f32.cu",
-                  "spd_estep_tile_f64.cu", "spd_panel_f32.cu", "spd_panel_f64.cu"]
+    assert cu == ["mask_gram.cu", "mask_s.cu", "spd_chol.cu", "spd_estep.cu",
+                  "spd_estep_tile_f32.cu", "spd_estep_tile_f64.cu", "spd_panel_f32.cu",
+                  "spd_panel_f64.cu"]
     for name in cu:
         cmd = _build.compile_command(_build.SOURCE_DIR / name, tmp_path / "a.o")
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
