@@ -2899,14 +2899,14 @@ def par_counts(fn):
     """``fn()``'s result, with the kernel launches and the statistics
     all_reduces it made (counts set to 0 just before it)."""
     from ppca_rs_tpu_torch.ops import kernels
-    from ppca_rs_tpu_torch.parallel import api
+    from ppca_rs_tpu_torch.parallel import placement
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    api.reset_counts()
+    placement.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(kernels.LAUNCHES), dict(api.STATS_REDUCES)
+    return out, dict(kernels.LAUNCHES), dict(placement.STATS_REDUCES)
 
 
 def par_reduce_ms(nbytes: int, group) -> float:
@@ -2946,7 +2946,7 @@ def par_data_axis(rank: int, out: Path) -> dict:
     (shard_dataset_local), PAR_ITERS PPCATrainer iterations, model.llk,
     infer and the posterior sampler on N_PAR_ROWS_READ local rows."""
     from ppca_rs_tpu_torch import PPCATrainer
-    from ppca_rs_tpu_torch.parallel import DATA_AXIS, api, distributed, make_mesh
+    from ppca_rs_tpu_torch.parallel import DATA_AXIS, distributed, make_mesh
     from ppca_rs_tpu_torch.parallel.mesh import axis_group
 
     mesh = make_mesh(2, 1)
@@ -3039,7 +3039,7 @@ def par_model_axis(rank: int, out: Path) -> dict:
 def par_patterns(rank: int, out: Path) -> dict:
     """10d: phase 5's data, 500,000 rows a rank: collective detection, the
     sorted per-segment EM on each rank, two iterations and model.llk."""
-    from ppca_rs_tpu_torch.models.ppca import _route
+    from ppca_rs_tpu_torch.models import routes
     from ppca_rs_tpu_torch.parallel import distributed, make_mesh
 
     mesh = make_mesh(2, 1)
@@ -3053,7 +3053,7 @@ def par_patterns(rank: int, out: Path) -> dict:
     t0 = time.perf_counter()
     pidx, patterns = sds.detect_patterns()
     t_detect = time.perf_counter() - t0
-    route = _route(sds)
+    route = routes.route(sds)
     start = par_start(out, "start_pattern")
 
     def run():

@@ -7,18 +7,17 @@ size (`mix.rs:41-64`).
 
 Every N-sized computation is fused across components (``ops/mix_fused``):
 EM, the per-component llks, infer, smooth and extrapolate are each ONE pass
-over the data whatever M is.  A dataset whose masks repeat (or that is fully
-observed: one pattern) takes the table route, all others the general masked
-route; on the table route the EM runs per pattern segment when
-``Dataset.pattern_order`` gives the rows sorted by pattern (the JAX
-package's rule).  Heterogeneous state sizes ride the same pass zero-padded
-to the largest k (:meth:`PPCAMix._stacked_params`).  The reference-shaped
-per-component loop (:meth:`PPCAMix._iterate_loop`) stays as the independent
-implementation the fused step is tested against.
+over the data whatever M is.  Each verb has one body: where the dataset
+lives comes from ``parallel/placement.place``, which route its rows take
+(the table route or the general one, the EM per pattern segment when the
+rows sorted by pattern are available) from ``models/routes.route`` with
+``mixture=True``.  Heterogeneous state sizes ride the same pass
+zero-padded to the largest k (:meth:`PPCAMix._stacked_params`).  The
+reference-shaped per-component loop (:meth:`PPCAMix._iterate_loop`) stays
+as the independent implementation the fused step is tested against.
 
-A sharded dataset (``parallel/``) takes ``parallel/api.py``'s mixture verbs:
-readouts give this rank's rows; the llk and the EM steps cover all rows
-and are the same on every rank.  Its table route needs
+On a sharded dataset readouts give this rank's rows; the llk and the EM
+steps cover all rows and are the same on every rank.  Its table route needs
 ``detect_patterns(include_dense=True)`` first.
 """
 
@@ -33,12 +32,12 @@ from ..config import config
 from ..dataset import Dataset
 from ..ops import masked_linalg as ml
 from ..ops import mix_fused as mf
-from ..parallel import api
-from ..parallel.mesh import dataset_mesh
+from ..parallel.placement import LOCAL, Placement, place
 from ..prior import Prior
 from ..utils.profiling import span
 from ..utils.rng import ensure_generator
 from ..utils.serialization import dump_bytes, load_bytes
+from . import routes
 from .ppca import (InferredMasked, PosteriorSampler, PPCAModel, device_priors,
                    extrapolated_cov_diag, smoothed_cov_diag, smoothed_cov_full)
 
@@ -156,44 +155,30 @@ class PPCAMix:
         return (Cs, torch.stack([m.mean for m in self._models]),
                 torch.stack([m.isotropic_noise for m in self._models]))
 
-    def _pattern(self, dataset: Dataset):
-        """``(pidx, patterns)`` for the table route, or None for the general
-        route.  Fully observed data is the single-pattern case: that is the
-        mixtures' dense route."""
-        return dataset.pattern_info(include_dense=True)
+    def _placed(self, dataset: Dataset):
+        """``(placement, Cs, means, sigmas)``: where ``dataset`` lives, and
+        the stacked parameters with this rank's columns of the transforms
+        and means."""
+        where = place(dataset)
+        Cs, means, sigmas = self._stacked_params()
+        return (where, *where.columns(Cs, means), sigmas)
 
-    def _sorted(self, dataset: Dataset):
-        """``(data_sorted, weights_sorted, counts)`` for the per-segment EM
-        (``mix_fused.mix_em_stats_pat_sorted``) when the table route applies
-        and ``Dataset.pattern_order`` gives the sorted copy, else None.  The
-        weights are sorted on every call: ``with_weights`` twins share the
-        sorted copy."""
-        if dataset.all_observed() or self._pattern(dataset) is None:
-            return None
-        order = dataset.pattern_order()
-        if order is None:
-            return None
-        data_sorted, perm, counts = order
-        return data_sorted, dataset.weights_dev[perm], counts
-
-    def _block_rows(self, dataset: Dataset, Cs: torch.Tensor) -> int:
+    def _route_args(self, dataset: Dataset, Cs: torch.Tensor, group=None,
+                    sort: bool = False) -> dict:
+        """``mix_fused``'s keywords for the dataset's rows on their route
+        (``routes.route``; the rows sorted by pattern with ``sort``), in
+        blocks of ``config.mix_block_rows``, with the model ``group``."""
+        way = routes.route(dataset, mixture=True, sort=sort)
         itemsize = ml._compute_dtype(dataset.data, Cs).itemsize
-        return config.mix_block_rows(len(self._models), Cs.shape[2], itemsize)
-
-    def _route_args(self, dataset: Dataset, Cs: torch.Tensor) -> dict:
-        pat = self._pattern(dataset)
-        return dict(block_size=self._block_rows(dataset, Cs),
-                    pidx=None if pat is None else pat[0],
-                    patterns=None if pat is None else pat[1])
+        return dict(routes.mix_keywords(way, dataset), group=group,
+                    block_size=config.mix_block_rows(len(self._models), Cs.shape[2], itemsize))
 
     def _component_llks(self, dataset: Dataset) -> torch.Tensor:
         """(N, M) per-component per-sample log-likelihoods, one fused pass
         (the reference makes M, `mix.rs:283-288`)."""
-        Cs, means, sigmas = self._stacked_params()
-        if dataset_mesh(dataset) is not None:
-            return api.mix_llks(Cs, means, sigmas, dataset, **self._route_args(dataset, Cs))
+        where, Cs, means, sigmas = self._placed(dataset)
         return mf.mix_llks(Cs, means, sigmas, dataset.data, dataset.mask,
-                           **self._route_args(dataset, Cs))
+                           **self._route_args(dataset, Cs, where.group))
 
     # ------------------------------------------------------------------ #
     # likelihood (mix.rs:136-189)
@@ -208,9 +193,7 @@ class PPCAMix:
         """Weighted total mixture log-likelihood (`mix.rs:162-174`)."""
         if dataset.is_empty():
             return 0.0
-        if dataset_mesh(dataset) is not None:
-            return float(api.row_sum(self.llks(dataset), dataset))
-        return float((self.llks(dataset) * dataset.weights_dev).sum())
+        return float(place(dataset).row_sum(self.llks(dataset), dataset.weights_dev))
 
     def infer_cluster(self, dataset: Dataset) -> torch.Tensor:
         """(N, M) per-sample *log*-posterior over components: the reference
@@ -264,14 +247,10 @@ class PPCAMix:
         reference makes M llk and M infer passes, `mix.rs:205-236`); each
         component's readout is sliced back to its own k."""
         with span("ppca.readout"):
-            Cs, means, sigmas = self._stacked_params()
-            if dataset_mesh(dataset) is not None:
-                log_post, states, covs = api.mix_infer(Cs, means, sigmas, self._log_weights,
-                                                       dataset, **self._route_args(dataset, Cs))
-            else:
-                log_post, states, covs = mf.mix_infer(Cs, means, sigmas, self._log_weights,
-                                                      dataset.data, dataset.mask,
-                                                      **self._route_args(dataset, Cs))
+            where, Cs, means, sigmas = self._placed(dataset)
+            log_post, states, covs = mf.mix_infer(Cs, means, sigmas, self._log_weights,
+                                                  dataset.data, dataset.mask,
+                                                  **self._route_args(dataset, Cs, where.group))
             inferred = [InferredMasked(m, states[i, :, :m.state_size],
                                        covs[i, :, :m.state_size, :m.state_size])
                         for i, m in enumerate(self._models)]
@@ -279,14 +258,10 @@ class PPCAMix:
 
     def _smooth_fused(self, dataset: Dataset, extrapolate: bool) -> Dataset:
         with span("ppca.readout"):
-            Cs, means, sigmas = self._stacked_params()
-            if dataset_mesh(dataset) is not None:
-                out = api.mix_smooth(Cs, means, sigmas, self._log_weights, dataset,
-                                     extrapolate=extrapolate, **self._route_args(dataset, Cs))
-            else:
-                out = mf.mix_smooth(Cs, means, sigmas, self._log_weights, dataset.data,
-                                    dataset.mask, extrapolate=extrapolate,
-                                    **self._route_args(dataset, Cs))
+            where, Cs, means, sigmas = self._placed(dataset)
+            out = mf.mix_smooth(Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask,
+                                extrapolate=extrapolate,
+                                **self._route_args(dataset, Cs, where.group))
             new = Dataset.unmasked(out)
             new._shard = dataset._shard
             return new
@@ -319,35 +294,30 @@ class PPCAMix:
         come out exactly 0)."""
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
-        if dataset_mesh(dataset) is not None:
-            params = self._stacked_params()
-            new, llk = api.mix_em_step(*params, self._log_weights, dataset,
-                                       device_priors(prior, params[0]),
-                                       **self._route_args(dataset, params[0]),
-                                       order=self._sorted(dataset))
-            return self._from_stacked(*new), llk
         with span("ppca.em_step"):
-            params = self._stacked_params()
-            order = self._sorted(dataset)
+            where, Cs, means, sigmas = self._placed(dataset)
+            args = self._route_args(dataset, Cs, where.group, sort=True)
             with span("ppca.em_stats"):
-                stats = self._em_stats(dataset, *params, order=order)
+                stats = where.reduce(self._em_stats(dataset, Cs, means, sigmas, **args))
             with span("ppca.em_finalize"):
-                new = self._finalize(*params, stats, prior)
+                new = self._finalize(Cs, means, sigmas, stats, prior, where)
             return new, stats.llk
 
-    def _em_stats(self, dataset: Dataset, Cs, means, sigmas, order=None) -> mf.MixEMStats:
-        """The fused EM statistics of ``dataset``'s rows on its route, for
-        the stacked parameters ``Cs, means, sigmas`` of this mixture; per
-        pattern segment with ``order`` (:meth:`_sorted`), which streamed
-        chunks do not pass, as in the JAX package."""
+    def _em_stats(self, dataset: Dataset, Cs, means, sigmas, **route_args) -> mf.MixEMStats:
+        """The fused EM statistics of ``dataset``'s rows for the stacked
+        parameters ``Cs, means, sigmas`` of this mixture, on the route
+        :meth:`_route_args` gives (streamed chunks: with no sorted copy, as
+        in the JAX package)."""
         return mf.mix_em_stats(Cs, means, sigmas, self._log_weights, dataset.data, dataset.mask,
-                               dataset.weights_dev, **self._route_args(dataset, Cs), order=order)
+                               dataset.weights_dev, **route_args)
 
-    def _finalize(self, Cs, means, sigmas, stats: mf.MixEMStats,
-                  prior: Optional[Prior]) -> "PPCAMix":
-        """The M-step from the statistics."""
-        return self._from_stacked(*mf.mix_em_finalize(Cs, means, sigmas, stats,
-                                                      **device_priors(prior, Cs)))
+    def _finalize(self, Cs, means, sigmas, stats: mf.MixEMStats, prior: Optional[Prior],
+                  where: Placement = LOCAL) -> "PPCAMix":
+        """The M-step from the statistics, of this rank's columns ``Cs,
+        means`` of ``where``, gathered whole."""
+        new_Cs, new_means, new_sigmas, new_lw = mf.mix_em_finalize(
+            Cs, means, sigmas, stats, **device_priors(prior, Cs), group=where.group)
+        return self._from_stacked(*where.gather(new_Cs, new_means), new_sigmas, new_lw)
 
     def _from_stacked(self, new_Cs, new_means, new_sigmas, new_lw) -> "PPCAMix":
         """The mixture of the new stacked parameters; each new transform is
@@ -367,7 +337,7 @@ class PPCAMix:
         (:meth:`PPCAModel.iterate_with_prior`, each on its own route).  The
         independent implementation the fused step is tested against;
         unsharded datasets only."""
-        if dataset_mesh(dataset) is not None:
+        if place(dataset).mesh is not None:
             raise ValueError("_iterate_loop takes an unsharded dataset")
         prior = prior or Prior()
         joint = self._component_llks(dataset) + self._log_weights

@@ -7,14 +7,13 @@ Port of ``ppca_rs_tpu/models/ppca.py`` (itself a rebuild of
     y = C x + mu + eps       # observed, D dims
     eps ~ N(0, sigma^2 I_D)  # isotropic noise
 
-Each dataset takes one of three routes (``models/routes.py``): fully
-observed data the dense path (``ops/dense_fast``), structured missingness the
-pattern path (``ops/pattern_dedup``), everything else the general masked path
-(``ops/masked_linalg``).  Computations run on the device of the model's
-parameters, which must match the dataset's.  A sharded dataset
-(``parallel/``) takes the sharded verbs of ``parallel/api.py``: readouts
-give this rank's rows, the llk and the EM steps cover all rows and are the
-same on every rank, and every rank must call them at the same point.
+Every verb has one body: it asks ``parallel/placement.place`` where the
+dataset lives and ``models/routes.route`` which route its rows take, and
+runs that route with the placement's columns, reduction and gather.
+Computations run on the device of the model's parameters, which must match
+the dataset's.  On a sharded dataset readouts give this rank's rows, the
+llk and the EM steps cover all rows and are the same on every rank, and
+every rank must call them at the same point.
 """
 
 from __future__ import annotations
@@ -29,8 +28,7 @@ from ..config import config
 from ..dataset import Dataset
 from ..ops import kernels
 from ..ops import masked_linalg as ml
-from ..parallel import api
-from ..parallel.mesh import dataset_mesh
+from ..parallel.placement import place
 from ..prior import Prior
 from ..utils.profiling import span
 from ..utils.rng import ensure_generator
@@ -50,9 +48,6 @@ def _as_vector(arr, name: str) -> np.ndarray:
     elif a.ndim != 1:
         raise ValueError(f"{name} must be a vector; got shape {a.shape}")
     return a
-
-
-_route = routes.route
 
 
 class PPCAModel(nn.Module):
@@ -114,8 +109,7 @@ class PPCAModel(nn.Module):
         if empty:
             C[torch.as_tensor(empty, device=device)] = 0.0
         mean = torch.zeros(D, dtype=dtype, device=device)
-        if dataset_mesh(dataset) is not None:
-            api.replicate([C])
+        place(dataset).replicate([C])
         return PPCAModel._from_params(C, mean, torch.ones((), dtype=dtype, device=device))
 
     # ------------------------------------------------------------------ #
@@ -195,10 +189,7 @@ class PPCAModel(nn.Module):
         ranks' rows for a sharded dataset."""
         if dataset.is_empty():
             return 0.0
-        if dataset_mesh(dataset) is not None:
-            return float(api.llk(*self._params(), dataset,
-                                 block_size=self._block_rows(dataset)))
-        return float((self.llks(dataset) * dataset.weights_dev).sum())
+        return float(place(dataset).row_sum(self.llks(dataset), dataset.weights_dev))
 
     def llks(self, dataset: Dataset) -> torch.Tensor:
         """Per-sample log-likelihoods, (N,) (`ppca_model.rs:152-159`)."""
@@ -206,12 +197,12 @@ class PPCAModel(nn.Module):
             return self._readout("llks", dataset)
 
     def _readout(self, verb: str, dataset: Dataset):
-        """``verb`` ("llks", "states" or "infer") of the dataset's route."""
-        if dataset_mesh(dataset) is not None:
-            return api.readout(verb, *self._params(), dataset,
-                               block_size=self._block_rows(dataset))
-        return routes.readout(verb, routes.route(dataset), *self._params(), dataset,
-                              self._block_rows(dataset))
+        """``verb`` ("llks", "states" or "infer") of the dataset's rows on
+        their route."""
+        where = place(dataset)
+        C, mean = where.columns(self.transform, self.mean)
+        return routes.readout(verb, routes.route(dataset), C, mean, self.isotropic_noise, dataset,
+                              self._block_rows(dataset), where.group)
 
     # ------------------------------------------------------------------ #
     # sampling (ppca_model.rs:164-191)
@@ -260,13 +251,10 @@ class PPCAModel(nn.Module):
         and place on its mesh: a sharded dataset's are this rank's rows and
         columns."""
         with span("ppca.readout"):
-            if dataset_mesh(dataset) is not None:
-                out = api.smooth(*self._params(), dataset, block_size=self._block_rows(dataset),
-                                 extrapolate=extrapolate)
-            else:
-                out = self._readout("states", dataset) @ self.transform.T + self.mean
-                if extrapolate:
-                    out = torch.where(dataset.mask, dataset.data, out)
+            C, mean = place(dataset).columns(self.transform, self.mean)
+            out = self._readout("states", dataset) @ C.T + mean
+            if extrapolate:
+                out = torch.where(dataset.mask, dataset.data, out)
             new = Dataset.unmasked(out, dataset.weights_dev)
             new._shard = dataset._shard
             return new
@@ -301,19 +289,19 @@ class PPCAModel(nn.Module):
             # the reference panics with expect("non-empty dataset")
             # (ppca_model.rs:358); raise instead of returning a NaN model.
             raise ValueError("cannot iterate on an empty dataset")
-        C, mean, sigma = self._params()
-        if dataset_mesh(dataset) is not None:
-            new, llk = api.em_step(C, mean, sigma, dataset, device_priors(prior, C),
-                                   block_size=self._block_rows(dataset))
-            return PPCAModel._from_params(*new), llk
         with span("ppca.em_step"):
-            priors = device_priors(prior, C)
+            priors = device_priors(prior, self.transform)
+            where = place(dataset)
+            C, mean = where.columns(self.transform, self.mean)
+            sigma = self.isotropic_noise
             way = routes.route(dataset)
             with span("ppca.em_stats"):
-                stats = routes.em_stats(way, C, mean, sigma, dataset, self._block_rows(dataset))
+                stats = where.reduce(routes.em_stats(way, C, mean, sigma, dataset,
+                                                     self._block_rows(dataset), where.group))
             with span("ppca.em_finalize"):
-                new = routes.em_finalize(way, C, mean, sigma, stats, priors)
-            return PPCAModel._from_params(*new), stats.llk
+                C, mean, sigma = routes.em_finalize(way, C, mean, sigma, stats, priors, where.group)
+                C, mean = where.gather(C, mean)
+            return PPCAModel._from_params(C, mean, sigma), stats.llk
 
     def _iterate_with_llk(self, dataset: Dataset, prior: Optional[Prior]) -> Tuple["PPCAModel", float]:
         """EM step: (new model, llk of *this* model on the dataset)."""
@@ -324,9 +312,7 @@ class PPCAModel(nn.Module):
                   prior: Optional[Prior] = None) -> Tuple["PPCAModel", torch.Tensor]:
         """``n_iters`` (MAP-)EM iterations.  Returns ``(model, llks)`` with
         ``llks[i]`` the log-likelihood of the model *before* iteration ``i``;
-        nothing is copied to the host between iterations.  A sharded
-        dataset's steps each end in their collectives, as in a loop of
-        :meth:`iterate`."""
+        nothing is copied to the host between iterations."""
         if dataset.is_empty():
             raise ValueError("cannot iterate on an empty dataset")
         model, llks = self, []

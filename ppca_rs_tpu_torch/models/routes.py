@@ -1,14 +1,16 @@
-"""How a dataset's computations run: the dense, pattern or masked route.
+"""How a dataset's computations run: the one place that picks a route.
 
 Each dataset takes one of three routes (:func:`route`): fully observed data
 the dense path (``ops/dense_fast``), structured missingness the pattern path
-(``ops/pattern_dedup``), everything else the general masked path
-(``ops/masked_linalg``) (`ppca_rs_tpu/models/ppca.py:_impl_and_block`).
-The functions below call the route's readouts, EM statistics and M-step
-with the parameters they are given; a sharded dataset's verbs
-(``parallel/api.py``) pass the rank's block of columns and the model
-process group, which the pattern route never gets (a sharded dataset finds
-patterns on the data axis only).
+(``ops/pattern_dedup``; a mixture's table route in ``ops/mix_fused``),
+everything else the general masked path (``ops/masked_linalg``)
+(`ppca_rs_tpu/models/ppca.py:_impl_and_block`).  The same rules serve a
+single model, a mixture and a streamed chunk.  The functions below call the
+route's readouts, EM statistics and M-step with the parameters they are
+given; where the dataset lives is not theirs to decide
+(``parallel/placement.py``): a sharded dataset's rank passes its block of
+columns and the model process group, which the pattern route never gets (a
+sharded dataset finds patterns on the data axis only).
 """
 
 from __future__ import annotations
@@ -32,16 +34,24 @@ class Route(NamedTuple):
     order: Optional[tuple] = None
 
 
-def route(dataset: Dataset) -> Route:
-    """Dense if every entry is observed; the pattern path if the masks
-    repeat (``Dataset.pattern_info``), with the per-segment EM when
-    ``Dataset.pattern_order`` is available; the masked path otherwise."""
-    if dataset.all_observed():
+def route(dataset: Dataset, *, mixture: bool = False, sort: bool = True) -> Route:
+    """The route of ``dataset``'s rows.  A single model's: dense if every
+    entry is observed; the pattern path if the masks repeat
+    (``Dataset.pattern_info``); the masked path otherwise.  A mixture
+    (``mixture``) has no dense route: fully observed data is the table
+    route's single pattern (``pattern_info(include_dense=True)``).  The
+    pattern route takes the rows sorted by pattern (``Dataset.pattern_order``)
+    when they are available and the data is not fully observed, unless
+    ``sort`` is off: a streamed chunk gets no sorted copy, nor does a
+    mixture's readout."""
+    if not mixture and dataset.all_observed():
         return Route("dense")
-    pattern = dataset.pattern_info()
-    if pattern is not None:
-        return Route("pattern", pattern, dataset.pattern_order())
-    return Route("masked")
+    pattern = dataset.pattern_info(include_dense=mixture)
+    if pattern is None:
+        return Route("masked")
+    if not sort or dataset.all_observed():
+        return Route("pattern", pattern)
+    return Route("pattern", pattern, dataset.pattern_order())
 
 
 def readout(verb: str, way: Route, C, mean, sigma, dataset: Dataset, block_size: int,
@@ -83,3 +93,17 @@ def em_finalize(way: Route, C, mean, sigma, stats, priors: dict, group=None):
     new_sigma)``, the rank's rows with a model ``group``."""
     finalize = df.em_finalize if way.kind == "dense" else ml.em_finalize
     return finalize(C, mean, sigma, stats, **priors, group=group)
+
+
+def mix_keywords(way: Route, dataset: Dataset) -> dict:
+    """``ops/mix_fused``'s keywords for a mixture's route ``way``: ``pidx``
+    and ``patterns`` on the table route (None on the general route), and
+    with the sorted copy ``order``, ``(data_sorted, weights_sorted,
+    counts)`` for ``mix_em_stats``.  The weights are sorted on every call:
+    ``with_weights`` twins share the sorted copy."""
+    pidx, patterns = way.pattern or (None, None)
+    if way.order is None:
+        return dict(pidx=pidx, patterns=patterns)
+    data_sorted, perm, counts = way.order
+    return dict(pidx=pidx, patterns=patterns,
+                order=(data_sorted, dataset.weights_dev[perm], counts))

@@ -186,6 +186,17 @@ def _block_post(Cs, gram, means, sigmas, datab, mask, want: str, group=None):
     return mask_f, R, _estep(sigmas, G, b, rnorm, d_obs, want)
 
 
+def _block_fields(llks, log_weights, w, S, mask, mask_f, SM, sq_b):
+    """``(resp, fields)``: the block's responsibilities
+    (:func:`_responsibilities`) and the :class:`MixEMStats` fields both EM
+    block bodies make alike from them -- S added into the running ``S``,
+    ``square_error``, ``totals``, ``resp_sum``, ``resp_max`` and ``llk``."""
+    resp, llk = _responsibilities(llks, log_weights, w)
+    return resp, dict(S=_add_S(S, mask, SM, resp), square_error=(resp * sq_b).sum(-1),
+                      totals=resp @ mask_f, resp_sum=resp.sum(-1), resp_max=resp.amax(-1),
+                      llk=llk)
+
+
 def _block_mix_fast(Cs, gram, center: _Center, sigmas, log_weights, datab, mask, w, S,
                     group=None) -> MixEMStats:
     """One block of the fused EM with no (M, B, D) temporary: projections
@@ -202,24 +213,17 @@ def _block_mix_fast(Cs, gram, center: _Center, sigmas, log_weights, datab, mask,
     _, dm, _ = center
     mask_f, md0, G, b, rnorm, d_obs = _general_inputs(Cs, gram, center, datab, mask, group)
     llks, s, SM, sq_b = _estep(sigmas, G, b, rnorm, d_obs, "fullt")
-    resp, llk = _responsibilities(llks, log_weights, w)
+    resp, fields = _block_fields(llks, log_weights, w, S, mask, mask_f, SM, sq_b)
     srw = s * resp[..., None]
     c2 = torch.bmm(mask_f.T.expand(M, -1, -1), srw)            # (M, D, k) mask^T (s resp)
-    cross = torch.bmm(md0.T.expand(M, -1, -1), srw) - dm[:, :, None] * c2
     sigma2 = (sigmas * sigmas)[:, None]
     # clamp: epsilon-negative in float32 iff |dev|^2 ~ 0 (see dense_fast)
     dev = torch.clamp(rnorm - (b * s).sum(-1) - sigma2 * (s * s).sum(-1), min=0.0)
-    totals = resp @ mask_f
     return MixEMStats(
-        cross=cross,
-        S=_add_S(S, mask, SM, resp),
-        square_error=(resp * sq_b).sum(-1),
+        cross=torch.bmm(md0.T.expand(M, -1, -1), srw) - dm[:, :, None] * c2,
         dev_sq=(resp * dev).sum(-1),
-        total_dev=resp @ md0 - dm * totals - (Cs * c2).sum(-1),
-        totals=totals,
-        resp_sum=resp.sum(-1),
-        resp_max=resp.amax(-1),
-        llk=llk,
+        total_dev=resp @ md0 - dm * fields["totals"] - (Cs * c2).sum(-1),
+        **fields,
     )
 
 
@@ -232,19 +236,14 @@ def _block_mix(Cs, gram, means, sigmas, log_weights, datab, mask, w, S,
     :func:`_block_mix_fast`."""
     mask_f, R, (llks, s, SM, sq_b) = _block_post(Cs, gram, means, sigmas, datab, mask, "fullt",
                                                  group)
-    resp, llk = _responsibilities(llks, log_weights, w)
+    resp, fields = _block_fields(llks, log_weights, w, S, mask, mask_f, SM, sq_b)
     dev = mask_f * (datab - torch.bmm(s, Cs.mT) - means[:, None, :])   # (M, B, D)
     (dev_sq,) = all_reduce_sum([(resp * (dev * dev).sum(-1)).sum(-1)], group)
     return MixEMStats(
         cross=torch.bmm(R.mT, s * resp[..., None]),
-        S=_add_S(S, mask, SM, resp),
-        square_error=(resp * sq_b).sum(-1),
         dev_sq=dev_sq,
         total_dev=torch.bmm(resp[:, None, :], dev).squeeze(1),
-        totals=resp @ mask_f,
-        resp_sum=resp.sum(-1),
-        resp_max=resp.amax(-1),
-        llk=llk,
+        **fields,
     )
 
 

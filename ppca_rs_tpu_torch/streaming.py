@@ -12,11 +12,11 @@ concatenated data, up to the order of summation.
     model = StreamingPPCATrainer(chunks).train(state_size=16, n_iters=10)
 
 A chunk is a :class:`Dataset` or a zero-argument callable returning one
-(lazy loading).  Each chunk takes its own route, as a resident dataset
-does: the dense pass when fully observed (converted to the common
-statistics), the pattern tables (``pattern_dedup.em_stats``, which needs no
-sorted copy of the chunk) when its masks repeat, the general masked pass
-otherwise.
+(lazy loading).  Each chunk takes its own route, which
+``models/routes.route`` picks by a resident dataset's rules but with no
+sorted copy (``sort=False``): the pattern route's tables take the chunk's
+rows in any order.  A fully observed chunk's dense statistics are converted
+to the common form the pass sums.
 
 Device rules.  Parameters and statistics live on the model's device, which
 the trainers take from ``config.device`` (the card by default; without one
@@ -32,14 +32,13 @@ chunk passed again is not examined again.  ``prefetch`` bounds how far the
 host runs ahead of the device: after enqueueing the statistics of chunk i
 it waits for those of chunk i - prefetch to finish (:func:`_accumulate`).
 
-Across ranks (``parallel/``): with a ``mesh``, each rank streams its own
-chunks -- plain datasets, or data-axis-sharded ones, whose mesh is used
-when none is given -- and computes their statistics locally; the pass's
-statistics and row count are summed over the mesh's data axis once, after
-the rank's last chunk (``parallel.api.reduce_stats``; a mixture's
-``combine_mix_stats``), so ranks may stream different numbers of chunks.
-Model-axis chunks are refused: their D-indexed statistics would be
-column-local.
+Across ranks: with a ``mesh``, each rank streams its own chunks -- plain
+datasets, or data-axis-sharded ones, whose mesh is used when none is
+given -- and computes their statistics locally; the pass's statistics and
+row count are summed over the mesh's data axis once, after the rank's last
+chunk (``parallel/placement.Placement.reduce``), so ranks may stream
+different numbers of chunks.  Model-axis chunks are refused: their
+D-indexed statistics would be column-local.
 """
 
 from __future__ import annotations
@@ -50,14 +49,14 @@ import torch
 
 from .config import config
 from .dataset import Dataset
+from .models import routes
 from .models.mix import PPCAMix
-from .models.ppca import PPCAModel
+from .models.ppca import PPCAModel, device_priors
 from .ops import dense_fast as df
 from .ops import masked_linalg as ml
 from .ops import mix_fused as mf
-from .ops import pattern_dedup as pd
-from .parallel import api
 from .parallel.mesh import MODEL_AXIS, DeviceMesh, axis_size, dataset_mesh
+from .parallel.placement import Placement, count_rows, replicate
 from .prior import Prior
 from .trainer import Metric, MetricsCallback, _train
 
@@ -191,27 +190,22 @@ def _chunk_mesh(ds: Dataset, seen: list):
         seen.append(mesh)
 
 
-def _pass_total(total, n: int, mesh, seen: list, reduce_fn):
+def _pass_total(total, n: int, mesh, seen: list):
     """The pass's statistics and row count over the data axis of ``mesh``
-    (or of the chunks' mesh): one statistics all_reduce after the last
-    chunk, and one of the row count."""
+    (or of the chunks' mesh): one statistics reduction after the last
+    chunk, and one all_reduce of the row count."""
     mesh = mesh if mesh is not None else (seen[0] if seen else None)
     if mesh is None:
         return total, n
-    return reduce_fn(total, mesh), api.count_rows(n, mesh)
+    return Placement(mesh).reduce(total), count_rows(n, mesh)
 
 
 def _chunk_stats(model: PPCAModel, ds: Dataset) -> ml.EMStats:
-    """EM statistics of one chunk's rows on its route (fully observed: the
-    dense pass; repeating masks: the pattern tables; otherwise the masked
-    pass)."""
-    args, bs = model._params(), model._block_rows(ds)
-    if ds.all_observed():
-        return _dense_to_masked_stats(df.em_stats(*args, ds.data, ds.weights_dev, block_size=bs))
-    pat = ds.pattern_info()
-    if pat is not None:
-        return pd.em_stats(*args, ds.data, ds.mask, *pat, ds.weights_dev, block_size=bs)
-    return ml.em_stats(*args, ds.data, ds.mask, ds.weights_dev, block_size=bs)
+    """EM statistics of one chunk's rows on its route (``routes.route``
+    with no sorted copy), in the common form."""
+    way = routes.route(ds, sort=False)
+    stats = routes.em_stats(way, *model._params(), ds, model._block_rows(ds))
+    return _dense_to_masked_stats(stats) if way.kind == "dense" else stats
 
 
 def _stats_add(a: ml.EMStats, b: ml.EMStats) -> ml.EMStats:
@@ -223,7 +217,7 @@ def _step(model: PPCAModel, chunks: Sequence[ChunkLike], prior: Optional[Prior],
     """One streamed EM iteration: ``(new model, llk of model as a 0-dim
     tensor, number of samples)``, over all ranks with a mesh."""
     C, mean, sigma = model._params()
-    tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(C.dtype, C.device)
+    priors = device_priors(prior, C)
     _data_axis_only(mesh)
     seen: list = []
 
@@ -232,9 +226,8 @@ def _step(model: PPCAModel, chunks: Sequence[ChunkLike], prior: Optional[Prior],
         return _chunk_stats(model, ds)
 
     total, n = _accumulate(chunks, C.device, stats, _stats_add, prefetch)
-    total, n = _pass_total(total, n, mesh, seen, api.reduce_stats)
-    new = ml.em_finalize(C, mean, sigma, total, transformation_precision=tprec,
-                         noise_prior=noise_prior, mean_prior=mean_prior)
+    total, n = _pass_total(total, n, mesh, seen)
+    new = ml.em_finalize(C, mean, sigma, total, **priors)
     return PPCAModel._from_params(*new), total.llk, n
 
 
@@ -260,10 +253,10 @@ def _mix_step(mix: PPCAMix, chunks: Sequence[ChunkLike], prior: Optional[Prior],
 
     def stats(ds):
         _chunk_mesh(ds, seen)
-        return mix._em_stats(ds, *params)
+        return mix._em_stats(ds, *params, **mix._route_args(ds, params[0]))
 
     total, n = _accumulate(chunks, mix.device, stats, mf._accumulate, prefetch)
-    total, n = _pass_total(total, n, mesh, seen, api.combine_mix_stats)
+    total, n = _pass_total(total, n, mesh, seen)
     return mix._finalize(*params, total, prior), total.llk, n
 
 
@@ -289,7 +282,7 @@ def _initialized(make, chunks: List[ChunkLike], mesh):
     model = make(first)
     if mesh is not None and dataset_mesh(first) is None:
         models = model.models if isinstance(model, PPCAMix) else [model]
-        api.replicate([m.transform for m in models])
+        replicate([m.transform for m in models])
     return model
 
 

@@ -11,7 +11,7 @@ import ppca_rs_tpu as jp
 import ppca_rs_tpu_torch as tp
 from ppca_rs_tpu_torch import interop
 from ppca_rs_tpu_torch.config import config as tconfig
-from ppca_rs_tpu_torch.models.ppca import _route
+from ppca_rs_tpu_torch.models import routes
 
 torch.set_num_threads(1)
 
@@ -79,7 +79,7 @@ def test_astype_bfloat16_matches_jax(rng, route):
     jds = jp.Dataset(data, weights=w).astype(jnp.bfloat16)
     base = tp.Dataset(data, weights=w, dtype=torch.float64)
     tds = base.astype(torch.bfloat16)
-    assert tds.dtype == torch.bfloat16 and _route(tds).kind == route
+    assert tds.dtype == torch.bfloat16 and routes.route(tds).kind == route
     assert tds.mask.data_ptr() == base.mask.data_ptr()
     stored = tds.data.float().numpy()
     np.testing.assert_array_equal(stored, np.asarray(jds.data.astype(jnp.float32)))

@@ -7,9 +7,9 @@ plain version stands in for the kernel with the same contract: a wrapper
 fills SM above the diagonal with NaN, as unwritten device memory may hold
 it.  One EM step on each route that launches fullt -- the masked route, the
 general mixture route, a streamed masked iteration over two chunks, and
-``parallel/api.em_step`` in a world of one -- must then still equal the JAX
-package's in float64 at the suite's 1e-9: every consumer takes S from its
-lower triangle alone.
+the placed step (``parallel/placement``) in a world of one -- must then
+still equal the JAX package's in float64 at the suite's 1e-9: every
+consumer takes S from its lower triangle alone.
 """
 
 import numpy as np
@@ -22,7 +22,8 @@ import ppca_rs_tpu_torch as tp
 from ppca_rs_tpu_torch import interop
 from ppca_rs_tpu_torch.config import config as tconfig
 from ppca_rs_tpu_torch.ops import kernels as tk
-from ppca_rs_tpu_torch.parallel import api, distributed
+from ppca_rs_tpu_torch.models import routes
+from ppca_rs_tpu_torch.parallel import distributed, placement
 from ppca_rs_tpu_torch.parallel import mesh as pmesh
 
 torch.set_num_threads(1)
@@ -131,9 +132,15 @@ def test_one_em_step_reads_only_the_lower_triangle(route, rng, nan_above, reques
         tprec, noise_prior, mean_prior = tp.Prior().device_pieces(torch.float64, torch.device("cpu"))
         priors = dict(transformation_precision=tprec, noise_prior=noise_prior,
                       mean_prior=mean_prior)
-        (new_C, new_mean, new_sigma), _ = api.em_step(
-            torch.from_numpy(C), torch.from_numpy(mean), torch.tensor(noise, dtype=torch.float64),
-            sds, priors, block_size=32)
+        # one step through the seam PPCAModel._em_step runs, in blocks of 32 rows
+        where, way = placement.place(sds), routes.route(sds)
+        Cl, meanl = where.columns(torch.from_numpy(C), torch.from_numpy(mean))
+        sigma = torch.tensor(noise, dtype=torch.float64)
+        stats = where.reduce(routes.em_stats(way, Cl, meanl, sigma, sds, 32, where.group))
+        new_C, new_mean, new_sigma = routes.em_finalize(way, Cl, meanl, sigma, stats, priors,
+                                                        where.group)
+        new_C, new_mean = where.gather(new_C, new_mean)
+        assert where.mesh is mesh
         want = jm.iterate(jds)
         close(new_C, want.transform)
         close(new_mean, want.mean)

@@ -21,6 +21,7 @@ import ppca_rs_tpu as jp
 from ppca_rs_tpu_torch import interop
 from ppca_rs_tpu_torch import streaming
 from ppca_rs_tpu_torch.config import config as tconfig
+from ppca_rs_tpu_torch.models import routes
 from ppca_rs_tpu_torch.ops import kernels as tk
 
 torch.set_num_threads(1)
@@ -151,7 +152,7 @@ def test_heterogeneous_mixture_matches_jax():
     256 on the general route (fullt, llk and the row solve at M x rows
     samples): one EM step and infer_cluster against the JAX package."""
     tds, jds, tmix, jmix = make_mixes()
-    assert tmix._pattern(tds) is None
+    assert routes.route(tds, mixture=True).kind == "masked"
     close(tmix.infer_cluster(tds), jmix.infer_cluster(jds))
     tnew, tllk = tmix._iterate_with_llk(tds, None)
     jnew, jllk = jmix._iterate_with_llk(jds, jp.Prior())

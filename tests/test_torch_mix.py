@@ -25,6 +25,7 @@ import ppca_rs_tpu as jp
 import ppca_rs_tpu_torch as tp
 from ppca_rs_tpu_torch import interop
 from ppca_rs_tpu_torch.config import config as tconfig
+from ppca_rs_tpu_torch.models import routes
 from ppca_rs_tpu_torch.ops import kernels as tk
 
 torch.set_num_threads(1)
@@ -115,7 +116,7 @@ def test_readouts_match(rng, route, M):
     data, mask, weights = make_data(rng, route)
     jds, tds = both_datasets(data, mask, weights)
     jmix, tmix = both_mixes(make_params(rng, M))
-    assert (tmix._pattern(tds) is None) == (route == "masked")
+    assert (routes.route(tds, mixture=True).kind == "masked") == (route == "masked")
     close(tmix.llks(tds), jmix.llks(jds))
     assert tmix.llk(tds) == pytest.approx(jmix.llk(jds), rel=TOL)
     close(tmix.infer_cluster(tds), jmix.infer_cluster(jds))

@@ -106,9 +106,9 @@ def run_rank(world, rank, store, out_dir):
     mf.mix_em_stats_pat_sorted = lambda *a, **kw: (calls.append(1), inner(*a, **kw))[1]
     mix = interop.mix_from_arrays(*mix_params(CASES["hetero"], 3))
     out = {}
-    parallel.api.reset_counts()
+    parallel.placement.reset_counts()
     new, llk = mix._iterate_with_llk(sds, tp.Prior().with_isotropic_noise_prior(3.0, 2.0))
-    out["reduces"] = parallel.api.STATS_REDUCES["calls"]
+    out["reduces"] = parallel.placement.STATS_REDUCES["calls"]
     out["step"] = flat(new, llk)
     _, out["llks"] = mix.iterate_n(sds, 2)
     out["trained"] = flat(tp.PPCAMixTrainer(sds).train(start=mix, n_models=3, state_size=4,
@@ -369,7 +369,9 @@ def test_sharded_sorted_route_matches_one_process(ranks, world, monkeypatch):
     values, _, _, _, weights = patterned(2)
     ds = tp.Dataset(values, weights=weights, dtype=F64)
     mix = interop.mix_from_arrays(*mix_params(CASES["hetero"], 3))
-    assert mix._sorted(ds) is not None
+    from ppca_rs_tpu_torch.models import routes
+
+    assert routes.route(ds, mixture=True).order is not None
     new, llk = mix._iterate_with_llk(ds, tp.Prior().with_isotropic_noise_prior(3.0, 2.0))
     _, llks = mix.iterate_n(ds, 2)
     trained = tp.PPCAMixTrainer(ds).train(start=mix, n_models=3, state_size=4, n_iters=2,

@@ -379,11 +379,11 @@ def test_state_size_zero_iterates_like_jax(rng, route):
     """State size 0 (a noise-only model) on each route: one EM iteration
     gives the JAX package's finite model (the masked and pattern routes
     used to fail reshaping 0 elements)."""
-    from ppca_rs_tpu_torch.models.ppca import _route
+    from ppca_rs_tpu_torch.models import routes
 
     data, mask, weights = zero_state_data(rng, route)
     jds, tds = both_datasets(data, mask, weights)
-    assert _route(tds).kind == route
+    assert routes.route(tds).kind == route
     C0, mean = np.zeros((data.shape[1], 0)), rng.normal(size=data.shape[1])
     jm, jllk = jp.PPCAModel(isotropic_noise=0.8, transform=C0, mean=mean)._iterate_with_llk(jds, None)
     tm, tllk = interop.model_from_arrays(C0, mean, 0.8)._iterate_with_llk(tds, None)
@@ -397,16 +397,16 @@ def test_state_size_zero_pattern_infer_matches_masked(rng, monkeypatch):
     """Pattern-route ``infer`` at state size 0 answers as the masked route
     does: (N, 0) states and (N, 0, 0) covariances (the JAX package's
     pattern route raises here, so the masked route is the reference)."""
-    from ppca_rs_tpu_torch.models.ppca import _route
+    from ppca_rs_tpu_torch.models import routes
 
     data, mask, weights = zero_state_data(rng, "pattern")
     tds = interop.dataset_from_arrays(data, mask, weights)
     model = interop.model_from_arrays(np.zeros((data.shape[1], 0)), np.zeros(data.shape[1]), 0.8)
-    assert _route(tds).kind == "pattern"
+    assert routes.route(tds).kind == "pattern"
     pat = model.infer(tds)
     monkeypatch.setattr(tconfig, "use_pattern_dedup", False)
     plain = interop.dataset_from_arrays(data, mask, weights)
-    assert _route(plain).kind == "masked"
+    assert routes.route(plain).kind == "masked"
     masked = model.infer(plain)
     n = data.shape[0]
     assert tuple(pat.states().shape) == tuple(masked.states().shape) == (n, 0)

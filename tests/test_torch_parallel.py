@@ -186,7 +186,7 @@ class Rank:
     def dense(self):
         sds = self.parallel.shard_dataset(self.dataset(dense_data()), self.mesh)
         model = self.model()
-        self.put("dense.route", self.tp.models.ppca._route(sds).kind)
+        self.put("dense.route", self.tp.models.routes.route(sds).kind)
         self.put("dense.llks", model.llks(sds))
         new, llk = model._iterate_with_llk(sds, self.prior())
         self.put_model("dense.em", new, llk)
@@ -224,7 +224,7 @@ class Rank:
         pidx, patterns = info
         self.put(f"{tag}.patterns", patterns)
         self.put(f"{tag}.pidx_ok", bool(torch.equal(patterns[pidx], sds.mask)))
-        route = self.tp.models.ppca._route(sds)
+        route = self.tp.models.routes.route(sds)
         self.put(f"{tag}.route", route.kind)
         self.put(f"{tag}.sorted", route.order is not None)
         model = self.model()
@@ -264,9 +264,9 @@ class Rank:
             callback=lambda it, m: metrics.append((m.llk, m.aic, m.bic)))
         self.put("stream.metrics", np.asarray(metrics))
         self.put_model("stream.trained", trained)
-        self.parallel.api.reset_counts()
+        self.parallel.placement.reset_counts()
         new, llk = tp.iterate_streamed(model, [lambda c=c: c for c in chunks], mesh=self.mesh)
-        self.put("stream.reduces", self.parallel.api.STATS_REDUCES["calls"])
+        self.put("stream.reduces", self.parallel.placement.STATS_REDUCES["calls"])
         self.put_model("stream.step", new, llk)
         # the JAX package's way: every rank streams the same sharded chunks
         sharded = [self.parallel.shard_dataset(self.dataset(data[a:b], weights[a:b]), self.mesh)
@@ -330,7 +330,7 @@ class Rank:
     def model_axis_rules(self):
         sds = self.parallel.shard_dataset(self.dataset(*patterned_data()), self.mesh)
         self.put("rules.detect", sds.detect_patterns() is None)
-        self.put("rules.route", self.tp.models.ppca._route(sds).kind)
+        self.put("rules.route", self.tp.models.routes.route(sds).kind)
         for tag, chunks, mesh in (("stream", [sds], None),
                                   ("stream_mesh", [self.dataset(*patterned_data())], self.mesh)):
             try:
