@@ -2496,6 +2496,145 @@ def resident_step(model, dataset, reps: int = 2):
     return new, llk, times, torch.cuda.max_memory_reserved()
 
 
+def counted_pass(model, chunks, sync_free: bool):
+    """One streamed EM iteration (``streaming._step``, prefetch 1) from an
+    emptied cache: (new model, llk, host chunks brought in
+    (``streaming.COUNTS``: slices copied, routes decided), peak requested
+    device memory in bytes).  With ``sync_free`` the pass runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
+    device's stream (a copy from pageable memory, a read of a device
+    value), but the pass's own event waits, raises.  The llk is read after
+    it."""
+    from ppca_rs_tpu_torch import streaming
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    streaming.reset_counts()
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, llk, _ = streaming._step(model, chunks, None, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = dict(streaming.COUNTS)
+    llk = float(llk)
+    torch.cuda.synchronize()
+    return new, llk, counts, torch.cuda.memory_stats()["requested_bytes.all.peak"]
+
+
+def merged(spans):
+    """The union of (start, end) intervals, as sorted disjoint intervals."""
+    out = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def overlap_pass(model, chunks):
+    """One streamed EM iteration (prefetch 1), untraced, with CUDA events
+    on the copy stream around each slice's copy and on the compute stream
+    around each piece's statistics: (seconds by the host clock ending in a
+    device sync, copy seconds, copy seconds with no statistics running).
+    A piece's statistics span from when the compute stream reaches them
+    to their end, the gaps between their kernels included, so the exposed
+    copy time is a lower bound."""
+    from ppca_rs_tpu_torch import streaming
+
+    spans = {"copy": [], "stats": []}
+    copy_fn, accumulate = streaming._Transfer.__call__, streaming._accumulate
+
+    def timed(stream, kind, fn, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        out = fn(*args)
+        end.record(stream)
+        spans[kind].append((start, end))
+        return out
+
+    def transfer(self, ds):
+        return timed(self.stream, "copy", copy_fn, self, ds)
+
+    def timed_accumulate(chunks, device, stats_fn, add_fn, prefetch):
+        stats = functools.partial(timed, torch.cuda.current_stream(device), "stats", stats_fn)
+        return accumulate(chunks, device, stats, add_fn, prefetch)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.Event(enable_timing=True)
+    base.record()
+    streaming._Transfer.__call__, streaming._accumulate = transfer, timed_accumulate
+    try:
+        t0 = time.perf_counter()
+        _, llk, _ = streaming._step(model, chunks, None, 1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        streaming._Transfer.__call__, streaming._accumulate = copy_fn, accumulate
+    float(llk)
+    at = {kind: [(base.elapsed_time(a) / 1e3, base.elapsed_time(b) / 1e3) for a, b in pairs]
+          for kind, pairs in spans.items()}
+    busy = merged(at["stats"])
+    copy_s = sum(hi - lo for lo, hi in at["copy"])
+    hidden = sum(max(0.0, min(hi, b) - max(lo, a)) for lo, hi in at["copy"] for a, b in busy)
+    return secs, copy_s, copy_s - hidden
+
+
+def phase_stream_steady(model, host, ref, bound: int) -> None:
+    """9a, the steady pass: with the routes recorded on the host chunks,
+    one streamed iteration copies every chunk in slices, decides no route
+    and makes no stream synchronization but its own event waits; its
+    result is the prefetch runs' bit for bit.  One more, untraced, with
+    events on the copy and compute streams, gives the copy time no
+    statistics hide.  Then the same rows as two new chunks of several
+    slices each: their first pass decides their routes on their masks and
+    copies them in slices, with a peak at most two of their masks above
+    the next pass's; the next, with no synchronization, holds less than
+    two whole chunks (what the pass held at prefetch=1 before it sliced),
+    and the slices being the eight chunks' own, gives their result bit for
+    bit."""
+    from ppca_rs_tpu_torch import Dataset, streaming
+
+    def same(new, llk) -> bool:
+        return llk == ref[1] and all(torch.equal(x, y) for x, y in
+                                     zip(new._params(), ref[0]._params()))
+
+    n_slices = sum(len(streaming._slices(c)) for c in host)
+    new, llk, counts, peak = counted_pass(model, lazy(host), True)
+    check(counts == {"slices": n_slices, "routes": 0},
+          f"stream: the steady pass brought in {counts}, not {n_slices} slices and no route")
+    check(same(new, llk), "stream: the steady pass under the sync check differs from prefetch=0")
+    print(f"[stream] steady pass (routes recorded), prefetch=1, under "
+          f"set_sync_debug_mode('error'): no synchronization; {counts}; peak requested "
+          f"{peak / 2**30:.3f} GiB (prefetch=1 bound, reserved: {bound / 2**30:.3f} GiB)")
+    secs, copy_s, exposed = overlap_pass(model, lazy(host))
+    print(f"[stream] steady pass timed by events: {secs:.4f} s by the host clock; copies "
+          f"{copy_s:.4f} s, of them {exposed:.4f} s ({100 * exposed / copy_s:.2f}% of the copy "
+          f"time, {100 * exposed / secs:.2f}% of the pass) with no statistics running")
+    half = len(host) // 2
+    halves = host_copies([Dataset.concat(host[:half]), Dataset.concat(host[half:])], pinned=True)
+    per_half = len(streaming._slices(halves[0])) + len(streaming._slices(halves[1]))
+    _, _, counts_f, peak_f = counted_pass(model, lazy(halves), False)
+    check(counts_f == {"slices": per_half, "routes": 2} and per_half > 2,
+          f"stream: first pass of two chunks {counts_f}, not {per_half} slices and 2 routes")
+    new_h, llk_h, counts_h, peak_h = counted_pass(model, lazy(halves), True)
+    check(counts_h == {"slices": per_half, "routes": 0},
+          f"stream: steady pass of two chunks {counts_h}, not {per_half} slices and no route")
+    masks = halves[0].mask.nbytes
+    check(peak_f <= peak_h + 2 * masks,
+          f"stream: first pass peak {peak_f} B not within two masks ({masks} B each) above the "
+          f"steady pass's {peak_h} B")
+    check(peak_h < 2 * chunk_bytes(halves[0]),
+          f"stream: sliced peak {peak_h} B not below two whole chunks' {2 * chunk_bytes(halves[0])} B")
+    check(same(new_h, llk_h), "stream: 2 chunks in slices differ from 8 chunks of the same slices")
+    print(f"[stream] the same rows as 2 pinned chunks of {len(halves[0])} rows: first pass "
+          f"{counts_f}, peak requested {peak_f / 2**30:.3f} GiB; steady pass {counts_h}, no "
+          f"synchronization, peak requested {peak_h / 2**30:.3f} GiB (two whole chunks: "
+          f"{2 * chunk_bytes(halves[0]) / 2**30:.3f} GiB), the 8 chunks' result bit for bit")
+
+
 def model_diffs(a, b) -> dict:
     return {"transform": rel_err(a.transform, b.transform), "mean": rel_err(a.mean, b.mean),
             "isotropic_noise": rel_err(a.isotropic_noise.reshape(1), b.isotropic_noise.reshape(1))}
@@ -2585,7 +2724,9 @@ def phase_stream_masked(smi: str):
             check(llk == ref[1] and all(torch.equal(x, y) for x, y in
                                         zip(new._params(), ref[0]._params())),
                   f"stream: prefetch={p} is not bit-identical to prefetch=0")
-    bound = 2 * per_chunk + (1 << 30)
+    # a host chunk is one slice here, and prefetch=1 holds slices i - 1 to
+    # i + 1 (streaming._accumulate)
+    bound = 3 * per_chunk + (1 << 30)
     peak1 = max(r[3] for r in runs[1])
     for p, rs in runs.items():
         secs = [r[2] for r in rs]
@@ -2594,9 +2735,10 @@ def phase_stream_masked(smi: str):
               + f" ({smi}); {total / min(secs) / 1e9:.2f} GB/s of chunks; peak reserved device "
               f"memory {max(r[3] for r in rs) / 2**30:.3f} GiB")
     print(f"[stream] prefetch 0/1/2 bit-identical; launches per streamed iteration fullt "
-          f"{n_blocks}, states 1; prefetch=1 peak reserved {peak1 / 2**30:.3f} GiB (bound: 2 chunks + "
+          f"{n_blocks}, states 1; prefetch=1 peak reserved {peak1 / 2**30:.3f} GiB (bound: 3 chunks + "
           f"1 GiB = {bound / 2**30:.3f} GiB)")
     check(peak1 <= bound, f"stream: prefetch=1 peak {peak1} B above {bound} B")
+    phase_stream_steady(model, host, ref, bound)
 
     pageable = host_copies(host, pinned=False)
     new_pg, llk_pg, secs_pg, counted, peak_pg = stream_once(model, lazy(pageable), 1)

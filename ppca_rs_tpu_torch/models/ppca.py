@@ -342,10 +342,13 @@ class PPCAModel(nn.Module):
         return PPCAModel._from_params(new_C * signs[None, :], self.mean, self.isotropic_noise)
 
 
+_FLAT_PRIOR = Prior()
+
+
 def device_priors(prior: Optional[Prior], like: torch.Tensor) -> dict:
     """The M-step's prior arguments on ``like``'s device and dtype (no
-    prior: the flat one)."""
-    tprec, noise_prior, mean_prior = (prior or Prior()).device_pieces(like.dtype, like.device)
+    prior: the flat one, one instance, so its tensors are made once)."""
+    tprec, noise_prior, mean_prior = (prior or _FLAT_PRIOR).device_pieces(like.dtype, like.device)
     return dict(transformation_precision=tprec, noise_prior=noise_prior, mean_prior=mean_prior)
 
 

@@ -160,12 +160,23 @@ def _slab_coords_cpu(k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.tensor(rows), torch.tensor(cols)
 
 
-def slab_coords(k: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(row, column) of each slab element, in order: two (slab_width(k),)
-    index tensors on ``device``."""
-    slab_width(k)
+@functools.lru_cache(maxsize=None)
+def _slab_coords_on(k: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     rows, cols = _slab_coords_cpu(k)
     return rows.to(device), cols.to(device)
+
+
+def slab_coords(k: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, column) of each slab element, in order: two (slab_width(k),)
+    index tensors on ``device``, made once per (k, device) and shared by
+    every caller, who only reads them.  The copy to the device is made by
+    the first call alone: a copy from pageable memory waits for the whole
+    stream, so a statistics pass that made its own would hold the host
+    back until the device's work before it is done."""
+    slab_width(k)
+    if device is None or torch.device(device).type == "cpu":
+        return _slab_coords_cpu(k)
+    return _slab_coords_on(k, torch.device(device))
 
 
 def slab_pack(G: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ class Prior:
         "_isotropic_noise_alpha",
         "_isotropic_noise_beta",
         "_transformation_precision",
+        "_on_device",
     )
 
     def __init__(self):
@@ -39,6 +40,7 @@ class Prior:
         self._isotropic_noise_alpha: Optional[float] = None
         self._isotropic_noise_beta: Optional[float] = None
         self._transformation_precision: float = 0.0
+        self._on_device: dict = {}   # (dtype, device) -> device_pieces()
 
     def _copy(self) -> "Prior":
         new = Prior()
@@ -118,18 +120,24 @@ class Prior:
 
     def device_pieces(self, dtype: torch.dtype, device):
         """(tprec, noise_prior, mean_prior) as tensors on ``device`` for the
-        EM step; absent priors stay None."""
-        def t(x):
-            return torch.as_tensor(x, dtype=dtype, device=device)
+        EM step; absent priors stay None.  Made once per (dtype, device) and
+        kept, the prior being immutable: the scalars are filled on the
+        device and the mean prior's arrays copied there, so later steps
+        neither launch nor copy (a copy from pageable memory would wait for
+        the device's stream).  Callers only read them."""
+        key = (dtype, torch.device(device))
+        if key not in self._on_device:
+            def t(x):
+                return torch.full((), x, dtype=dtype, device=device)
 
-        tprec = t(self._transformation_precision)
-        noise_prior = None
-        if self.has_isotropic_noise_prior():
-            noise_prior = (t(self._isotropic_noise_alpha), t(self._isotropic_noise_beta))
-        mean_prior = None
-        if self.has_mean_prior():
-            mean_prior = (t(self._mean), t(self._mean_precision))
-        return tprec, noise_prior, mean_prior
+            noise_prior = mean_prior = None
+            if self.has_isotropic_noise_prior():
+                noise_prior = (t(self._isotropic_noise_alpha), t(self._isotropic_noise_beta))
+            if self.has_mean_prior():
+                mean_prior = tuple(torch.as_tensor(x, dtype=dtype, device=device)
+                                   for x in (self._mean, self._mean_precision))
+            self._on_device[key] = (t(self._transformation_precision), noise_prior, mean_prior)
+        return self._on_device[key]
 
     def __repr__(self) -> str:
         parts = []

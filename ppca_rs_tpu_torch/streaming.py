@@ -22,15 +22,19 @@ Device rules.  Parameters and statistics live on the model's device, which
 the trainers take from ``config.device`` (the card by default; without one
 they raise unless the caller asks for the CPU).  A chunk elsewhere is
 copied there before its statistics are computed: from pinned host memory
-(``data.is_pinned()``) asynchronously on a copy stream of its own, so the
-copy overlaps the statistics of the chunk before; from pageable memory by a
-plain synchronous ``.to``.  The compute stream waits on an event recorded
+(``data.is_pinned()``) asynchronously on the device's copy stream, so the
+copy overlaps the statistics before it; from pageable memory by a plain
+synchronous ``.to``.  The compute stream waits on an event recorded
 after the copy, and the copied tensors are held for the compute stream
-(``record_stream``) until its work on them is done.  A chunk's route is
-decided on the device the first time and recorded on the host chunk, so a
-chunk passed again is not examined again.  ``prefetch`` bounds how far the
-host runs ahead of the device: after enqueueing the statistics of chunk i
-it waits for those of chunk i - prefetch to finish (:func:`_accumulate`).
+(``record_stream``) until its work on them is done.  A host chunk's route
+is decided once, on a copy of its mask alone, and recorded on the chunk
+(:meth:`_Transfer.decide_route`), so a chunk passed again is not examined
+again.  Every host chunk is copied and reduced in slices of whole row
+blocks that take its route, the copy of one slice overlapping the
+statistics of the slices before (``COUNTS`` counts slices and routes
+decided).  ``prefetch`` bounds how far the host runs ahead of the device:
+after enqueueing the statistics of piece i it waits for those of piece
+i - prefetch to finish (:func:`_accumulate`).
 
 Across ranks: with a ``mesh``, each rank streams its own chunks -- plain
 datasets, or data-axis-sharded ones, whose mesh is used when none is
@@ -43,7 +47,9 @@ D-indexed statistics would be column-local.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+import contextlib
+import functools
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -67,18 +73,64 @@ def _resolve(chunk: ChunkLike) -> Dataset:
     return chunk() if callable(chunk) else chunk
 
 
+#: Host chunks brought to the device in this process: ``slices`` copied
+#: (:func:`_slices`) and ``routes`` decided (:meth:`_Transfer.decide_route`,
+#: once a chunk).  Reset by :func:`reset_counts`.
+COUNTS: Dict[str, int] = {"slices": 0, "routes": 0}
+
+
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one copy stream of ``device``, for every pass: the caching
+    allocator keeps freed blocks per stream, so a new stream a pass would
+    find none of the last pass's copies' blocks to reuse."""
+    return torch.cuda.Stream(device)
+
+
 class _Transfer:
-    """Brings chunks to ``device``: CUDA copies run on one copy stream, and
-    the current (compute) stream waits for each before using it."""
+    """Brings chunks to ``device``: CUDA copies run on the device's copy
+    stream, and the current (compute) stream waits for each (:meth:`wait`)
+    just before using it."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.stream = _copy_stream(device) if device.type == "cuda" else None
+        self.copied: Optional[torch.cuda.Event] = None
+
+    def brings(self, ds: Dataset) -> bool:
+        """Whether ``ds`` lives on another device, so that it is copied."""
+        return ds.device != self.device
+
+    def decide_route(self, src: Dataset) -> None:
+        """Decide the route of the host chunk ``src`` unless it carries one
+        (:func:`_route_known`): by the rules of ``routes.route`` (every
+        entry observed, else the pattern table or its absence), on a copy
+        of the mask alone on the copy stream, whose verdict the host waits
+        for; then record it on ``src`` (:func:`_keep_route`).  Its slices
+        take it and decide nothing."""
+        if _route_known(src):
+            return
+        n, D = src.data.shape
+        with torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext():
+            probe = Dataset.from_parts(
+                torch.zeros((), dtype=src.data.dtype, device=self.device).expand(n, D),
+                src.mask.to(self.device, non_blocking=src.mask.is_pinned()))
+            if not probe.all_observed():
+                probe.pattern_info()
+            _keep_route(src, probe)
+        COUNTS["routes"] += 1
 
     def __call__(self, ds: Dataset) -> Dataset:
         """``ds`` on the device, with its route caches: ``ds`` itself if it
-        is there already."""
-        if ds.device == self.device:
+        is there already.  A copy on the copy stream leaves the event after
+        it in ``copied`` (None otherwise), for :meth:`wait`."""
+        self.copied = None
+        if not self.brings(ds):
             return ds
         if self.stream is None:
             return ds.to(self.device)
@@ -87,9 +139,8 @@ class _Transfer:
         with torch.cuda.stream(self.stream):
             moved = [t.to(self.device, non_blocking=t.is_pinned())
                      for t in (ds.data, ds.mask, ds.weights_dev, *patterns)]
-            copied = torch.cuda.Event()
-            copied.record(self.stream)
-        compute.wait_event(copied)
+            self.copied = torch.cuda.Event()
+            self.copied.record(self.stream)
         for t in moved:
             t.record_stream(compute)
         new = Dataset.from_parts(*moved[:3])
@@ -97,6 +148,12 @@ class _Transfer:
         new._all_observed = ds._all_observed
         new._patterns = tuple(moved[3:]) if patterns else ds._patterns
         return new
+
+    def wait(self, copied: Optional[torch.cuda.Event]) -> None:
+        """Make the compute stream wait for the copy that ``copied`` ends
+        before the work enqueued next (nothing for None)."""
+        if copied is not None:
+            torch.cuda.current_stream(self.device).wait_event(copied)
 
     def event(self) -> Optional[torch.cuda.Event]:
         """An event after the work enqueued so far on the compute stream
@@ -109,12 +166,10 @@ class _Transfer:
 
 
 def _keep_route(src: Dataset, ds: Dataset) -> None:
-    """Record on the host chunk ``src`` the route its device copy ``ds``
-    took (``all_observed``, the pattern table), so that the next pass copies
-    the table along instead of deciding again.  The table keeps the host
-    chunk's pinning."""
-    if ds is src:
-        return
+    """Record on the host chunk ``src`` the route decided on ``ds``, a
+    device copy of its mask (``all_observed``, the pattern table), so that
+    its slices copy the table along.  The table keeps the host chunk's
+    pinning."""
     if src._all_observed is None:
         src._all_observed = ds._all_observed
     if src._patterns is None and ds._patterns is not None:
@@ -123,43 +178,118 @@ def _keep_route(src: Dataset, ds: Dataset) -> None:
             t.to(src.device).pin_memory() if pin else t.to(src.device) for t in ds._patterns)
 
 
+def _route_known(ds: Dataset) -> bool:
+    """Whether the host chunk ``ds`` carries its route (:func:`_keep_route`),
+    so that its rows need no look to take it: fully observed, or its
+    pattern table or the verdict that it has none (which pattern detection
+    switched off leaves unwritten)."""
+    if ds._all_observed is None:
+        return False
+    return ds._all_observed or ds._patterns is not None or not config.use_pattern_dedup
+
+
+def _slices(src: Dataset) -> List[Dataset]:
+    """The host chunk ``src`` as views of its rows, each carrying the
+    chunk's route (``pidx`` cut to its rows).  A slice holds
+    ``config.segment_rows`` rows (512 MiB of values) rounded down to whole
+    blocks of ``config.block_size``, so a slice starts on a block of the
+    routes' own rows (``config.block_rows``, ``mix_block_rows``: that size
+    halved while it stays even) and its blocks are the chunk's.  A tail
+    shorter than the pattern rules' minimum (``2 * pattern_min_ratio``
+    rows) joins the slice before it, so that no slice of a fully observed
+    chunk leaves a mixture's table route."""
+    n, D = src.data.shape
+    block = config.block_size
+    step = max(block, config.segment_rows(D, src.data.element_size()) // block * block)
+    starts = list(range(0, n, step)) or [0]
+    if len(starts) > 1 and n - starts[-1] < 2 * config.pattern_min_ratio:
+        starts.pop()
+    pieces = []
+    for lo, hi in zip(starts, starts[1:] + [n]):
+        piece = Dataset.from_parts(src.data[lo:hi], src.mask[lo:hi], src.weights_dev[lo:hi])
+        piece._shard = src._shard
+        piece._all_observed = src._all_observed
+        piece._patterns = src._patterns and (src._patterns[0][lo:hi], src._patterns[1])
+        pieces.append(piece)
+    return pieces
+
+
+class _Piece(NamedTuple):
+    """One unit of a pass: ``piece``, a chunk or one of a host chunk's
+    slices, and how it comes to the device: "resident" (it is there),
+    "loaded" (a callable made it there) or "slice" (copied)."""
+
+    piece: Dataset
+    how: str
+
+
+def _pieces(chunks: Sequence[ChunkLike], transfer: _Transfer) -> Iterator[_Piece]:
+    """The pass's pieces in order: a chunk elsewhere in slices
+    (:func:`_slices`), its route decided first where it carries none; a
+    chunk on the device whole.  Each chunk is resolved when its first piece
+    is asked for."""
+    for chunk in chunks:
+        src = _resolve(chunk)
+        if transfer.brings(src):
+            transfer.decide_route(src)
+            pieces, how = _slices(src), "slice"
+            COUNTS["slices"] += len(pieces)
+        else:
+            pieces, how = [src], "loaded" if callable(chunk) else "resident"
+        for piece in pieces:
+            yield _Piece(piece, how)
+        del src, pieces, piece   # a device chunk may be freed once its work is done
+
+
 def _accumulate(chunks: Sequence[ChunkLike], device: torch.device, stats_fn, add_fn,
                 prefetch: int):
-    """The statistics of every chunk, computed on ``device`` one chunk at
-    a time and summed by ``add_fn``.  Returns ``(total, n_samples)``, the
-    rows of this rank's chunks.
+    """The statistics of every chunk, computed on ``device`` piece by piece
+    (:func:`_pieces`) and summed by ``add_fn`` in order.  Returns
+    ``(total, n_samples)``, the rows of this rank's chunks.
 
-    A chunk this loop brings in (a callable's result, or a dataset copied
-    to the device) holds device memory until its statistics are computed.
-    So after enqueueing chunk i's statistics the host waits for chunk
-    i - ``prefetch``'s to finish: at most ``prefetch + 1`` such chunks are
-    on the device at once (``prefetch=0``: one at a time), while the copy
-    and the launches of the next chunk overlap the device's work on the
-    ones before.  Chunks resident on the device already are not waited
-    for.  ``prefetch`` changes when the host waits, never what is
+    A piece is held on the device from when it is brought in (copied, or
+    made by a callable) until its statistics are computed; a piece that
+    was there already is not held.  After enqueueing the statistics of
+    piece i the host waits for those of piece i - ``prefetch`` to finish:
+    at most ``prefetch + 1`` pieces are held (``prefetch=0``: one at a
+    time).  Slices go one further: with ``prefetch >= 1`` the host copies
+    slice i + 1 before it enqueues slice i's statistics, which wait for
+    slice i's copy alone, so that the copy runs under the statistics of
+    the slices before while the host enqueues slice i's, and at most
+    ``prefetch + 2`` slices are held.  A chunk made by a callable is made
+    when the piece before it is reduced, or when a slice before it looks
+    one ahead.  ``prefetch`` changes when the host waits, never what is
     computed."""
     if not len(chunks):
         raise ValueError("need at least one chunk")
     if prefetch < 0:
         raise ValueError("prefetch must be >= 0")
     transfer = _Transfer(device)
-    total, n_samples, pending = None, 0, []
-    for chunk in chunks:
-        src = _resolve(chunk)
-        ds = transfer(src)
+    pending: list = []   # events after the statistics of held pieces, oldest first
+    ready: list = []     # (how, device dataset, its copy's event) brought in, not reduced
+    items, nxt = _pieces(chunks, transfer), None
+    total, n_samples = None, 0
+    while True:
+        while not ready or (prefetch and len(ready) < 2 and ready[-1][0] == "slice"):
+            nxt = next(items, None) if nxt is None else nxt
+            if nxt is None or (ready and nxt.how != "slice"):
+                break
+            ready.append((nxt.how, transfer(nxt.piece), transfer.copied))
+            nxt = None
+        if not ready:
+            return total, n_samples
+        how, ds, copied = ready.pop(0)
         n_samples += int(ds.data.shape[0])
+        transfer.wait(copied)
         stats = stats_fn(ds)
-        _keep_route(src, ds)
         total = stats if total is None else add_fn(total, stats)
-        brought_in = callable(chunk) or ds is not src
-        del src, ds   # the device copy may be freed once its work is done
-        if brought_in:
+        del ds   # the device copy may be freed once its work is done
+        if how != "resident":
             pending.append(transfer.event())
-            if len(pending) > prefetch:
+            while len(pending) > prefetch:
                 done = pending.pop(0)
                 if done is not None:
                     done.synchronize()
-    return total, n_samples
 
 
 def _dense_to_masked_stats(st: df.DenseEMStats) -> ml.EMStats:
@@ -236,7 +366,7 @@ def iterate_streamed(model: PPCAModel, chunks: Sequence[ChunkLike],
     """One EM iteration over a stream of chunks.  Returns ``(new_model,
     llk)``, llk the total log-likelihood of ``model`` over all chunks: the
     values of ``model._iterate_with_llk`` on the concatenated dataset.
-    ``prefetch`` bounds the chunks in flight (:func:`_accumulate`).  With
+    ``prefetch`` bounds the pieces in flight (:func:`_accumulate`).  With
     ``mesh`` (or data-axis-sharded chunks), this rank's chunks are one part
     of the stream, and every rank of the mesh calls it."""
     new, llk, _ = _step(model, chunks, prior, prefetch, mesh)
@@ -333,9 +463,12 @@ class StreamingPPCATrainer:
         prefetch: int = 1,
     ) -> PPCAModel:
         """Without ``start``, the model is initialized from the first chunk
-        on ``config.device``.  ``prefetch``: chunks the host may bring in
-        ahead of the one the device computes (1: at most two on the device
-        at once; 0: one)."""
+        on ``config.device``.  ``prefetch``: how far behind the host lets
+        the device's work fall, in slices of host chunks or in chunks made
+        on the device by callables (1: the next slice's copy overlapping
+        the statistics of the ones before, at most three slices or two
+        made chunks on the device at once; 0: one, with no overlap;
+        :func:`_accumulate`)."""
         model = start if start is not None else _initialized(
             lambda ds: PPCAModel.init(state_size, ds, generator=generator), self.chunks, self.mesh)
         return _train_streamed(model, _step, self.chunks, prior, n_iters, metric, quiet,

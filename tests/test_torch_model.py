@@ -166,6 +166,32 @@ def test_one_step_matches_reference_impl(rng, prior):
     close(inferred.extrapolated_covariances_diagonal(model, tds).numpy(), np.stack(diag_ref), 1e-9)
 
 
+@pytest.mark.parametrize("prior", ["none", "all"])
+def test_prior_tensors_are_made_once(monkeypatch, prior):
+    """The M-step's prior tensors are made on the first step for a (dtype,
+    device) and read from then on, the flat prior's too: a later step
+    neither fills a tensor nor copies one (on the card, a launch or a copy
+    that waits for the stream)."""
+    from ppca_rs_tpu_torch.models.ppca import device_priors
+
+    tprior = None
+    if prior == "all":
+        tprior = (tp.Prior().with_mean_prior(np.ones(4), np.eye(4) * 2.0)
+                  .with_isotropic_noise_prior(2.0, 0.3).with_transformation_precision(0.5))
+    like = torch.zeros((4, 2), dtype=F64)
+    first = device_priors(tprior, like)
+    assert float(first["transformation_precision"]) == (0.5 if tprior else 0.0)
+    assert (first["mean_prior"] is None) == (tprior is None)
+
+    def made(*args, **kwargs):
+        raise AssertionError("a prior tensor was made again")
+
+    for name in ("full", "as_tensor", "tensor"):
+        monkeypatch.setattr(torch, name, made)
+    again = device_priors(tprior, like)
+    assert all(again[name] is first[name] for name in first)
+
+
 def test_iterate_n_equals_repeated_iterate(rng):
     data, mask, weights = make_data(rng)
     tds = interop.dataset_from_arrays(data, mask, weights)

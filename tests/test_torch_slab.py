@@ -97,6 +97,27 @@ def test_slab_width_and_row_offsets(k):
                for off, w in zip(offsets, widths))
 
 
+@pytest.mark.parametrize("k", (24, 64))
+def test_slab_coords_are_made_once_per_device(monkeypatch, k):
+    """A second call for the same (k, device) returns the tensors of the
+    first and copies nothing: a copy from pageable host memory would wait
+    for the device's stream on every statistics pass.  The CPU's are the
+    host index itself; another device ('meta' here) gets its own copy,
+    made once."""
+    host = tk.slab_coords(k)
+    assert tk.slab_coords(k, "cpu")[0] is host[0]
+    first = tk.slab_coords(k, torch.device("meta"))
+    assert all(t.device.type == "meta" and t.shape == (WIDTHS[k],) for t in first)
+
+    def no_copy(*args, **kwargs):
+        raise AssertionError("slab_coords copied its index again")
+
+    monkeypatch.setattr(torch.Tensor, "to", no_copy)
+    again = tk.slab_coords(k, "meta")
+    assert again[0] is first[0] and again[1] is first[1]
+    assert tk.slab_coords(k)[1] is host[1]
+
+
 @pytest.mark.parametrize("k", LAYOUT_KS)
 def test_slab_pack_unpack_round_trip(rng, k):
     A = torch.from_numpy(rng.normal(size=(3, 2, k, k)))
