@@ -1983,6 +1983,32 @@ def phase_dense(smi: str):
     for name, v in diffs.items():
         check(v <= TOL_CARD_VS_CPU, f"dense vs masked {name}: {v:.3e} above {TOL_CARD_VS_CPU}")
 
+    # one whole step of the route, under set_sync_debug_mode("error"): any
+    # call that waits for the device (a factorization or solve that checks
+    # its result on the host, a scalar copied from pageable memory) raises
+    def step():
+        stats = df.em_stats(Cm, mu, sigma, dataset.data, dataset.weights_dev,
+                            block_size=config.block_size)
+        return stats.llk, *df.em_finalize(Cm, mu, sigma, stats, transformation_precision=tprec)
+
+    torch.cuda.synchronize()
+    df.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        guarded = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = dict(df.COUNTS)
+    free = step()
+    n_blocks = -(-len(dataset) // config.block_size)
+    check(counts == {"posteriors": 1, "blocks": n_blocks, "rows": len(dataset)},
+          f"dense: one step counted {counts}")
+    gaps = {name: rel_err(a.reshape(-1), b.reshape(-1)) for name, a, b in
+            zip(("llk", "transform", "mean", "isotropic_noise"), guarded, free)}
+    check(all(v <= 1e-6 for v in gaps.values()), f"dense: the guarded step differs: {gaps}")
+    print(f"[dense] one em_stats + em_finalize over {len(dataset)} rows under "
+          f"set_sync_debug_mode('error'): no synchronization; {counts}")
+
 
 # --------------------------------------------------------------------- #
 # phase 7

@@ -69,12 +69,15 @@ def readout(verb: str, way: Route, C, mean, sigma, dataset: Dataset, block_size:
 def em_stats(way: Route, C, mean, sigma, dataset: Dataset, block_size: int, group=None):
     """The EM statistics of the dataset's rows on route ``way``
     (``DenseEMStats`` on the dense route, ``EMStats`` otherwise), in blocks
-    of ``block_size`` rows; the per-segment EM over the rows sorted by
-    pattern takes its own larger blocks (``config.segment_rows``)."""
+    of ``block_size`` rows; the dense route and the per-segment EM over the
+    rows sorted by pattern, whose temporaries are (rows, D) and (rows, k)
+    only, take their own larger blocks (``config.segment_rows``)."""
     weights = dataset.weights_dev
     if way.kind == "dense":
-        return df.em_stats(C, mean, sigma, dataset.data, weights, block_size=block_size,
-                           group=group)
+        data = dataset.data
+        return df.em_stats(C, mean, sigma, data, weights, group=group,
+                           block_size=config.segment_rows(
+                               data.shape[1], ml._compute_dtype(data, C).itemsize))
     if way.kind == "masked":
         return ml.em_stats(C, mean, sigma, dataset.data, dataset.mask, weights,
                            block_size=block_size, group=group)

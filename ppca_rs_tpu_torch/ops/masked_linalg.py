@@ -224,6 +224,14 @@ def states(C, mean, sigma, data, mask, *, block_size: int, group=None) -> torch.
     return _cat(out, data, dtype, C.shape[1])
 
 
+def sum_parts(parts, dtype, device) -> torch.Tensor:
+    """The sum of per-block scalars, taken once at the end of a pass (a
+    running float32 sum would round at every block)."""
+    if not parts:
+        return torch.zeros((), dtype=dtype, device=device)
+    return torch.stack(parts).sum()
+
+
 def _cat(parts, data, dtype, *tail):
     """The per-block outputs as one (N, *tail) tensor (also for N = 0)."""
     if parts:
@@ -286,9 +294,7 @@ def em_stats(C, mean, sigma, data, mask, weights, *, block_size: int, group=None
             llk_parts.append((w * llk_b).sum())
 
     def total(parts):
-        if not parts:
-            return torch.zeros((), dtype=dtype, device=data.device)
-        return torch.stack(parts).sum()
+        return sum_parts(parts, dtype, data.device)
 
     return EMStats(cross, kernels.unpack_stats(S, k), total(sq_parts), total(dev_parts), total_dev, totals,
                    total(llk_parts))

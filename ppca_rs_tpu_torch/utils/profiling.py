@@ -7,9 +7,10 @@ trainers take it as ``profile_dir``.  ``span`` names a region of the
 program's own layers in whatever profiler is recording: ``ppca.em_step``,
 ``ppca.em_stats``, ``ppca.em_finalize``, ``ppca.block`` and
 ``ppca.readout`` (``models/``, ``ops/masked_linalg``, ``ops/mix_fused``,
-``ops/pattern_dedup``); on the pattern route also ``ppca.pattern_tables``
-(``ops/pattern_dedup.compute_tables``), ``ppca.pattern_detect`` and
-``ppca.pattern_order`` (``Dataset.pattern_info`` and ``pattern_order``).
+``ops/pattern_dedup``, ``ops/dense_fast``); on the pattern route also
+``ppca.pattern_tables`` (``ops/pattern_dedup.compute_tables``),
+``ppca.pattern_detect`` and ``ppca.pattern_order`` (``Dataset.pattern_info``
+and ``pattern_order``).
 The JAX module's ``IterationTimer`` is not carried over: nothing uses it.
 """
 

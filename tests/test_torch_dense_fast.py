@@ -168,3 +168,122 @@ def test_empty_dataset_routes_dense():
     assert model.llks(empty).shape == (0,)
     inferred = model.infer(empty)
     assert inferred.states().shape == (0, 2) and inferred.covariances_array().shape == (0, 2, 2)
+
+
+# --------------------------------------------------------------------- #
+# the route's spans, counters and failure mode
+
+
+def recorded(fn):
+    """``fn()``'s result and the names of the ``ppca.*`` ranges it recorded,
+    under a CPU profiler started and stopped by hand."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    try:
+        out = fn()
+    finally:
+        prof.stop()
+    return out, [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.name().startswith("ppca.")]
+
+
+def verb_call(verb, t):
+    """``verb`` of dense_fast on the problem's tensors ``t``: em_stats takes
+    the weights, the readout verbs do not."""
+    if verb == "em_stats":
+        return tdf.em_stats(*t, block_size=BLOCK)
+    return getattr(tdf, verb)(*t[:4], block_size=BLOCK)
+
+
+@pytest.mark.parametrize("verb", ["em_stats", "llks", "states"])
+def test_one_block_span_a_block(problem, verb):
+    """N = 150 rows in blocks of 64: three ``ppca.block`` ranges, and what
+    the verb returns is the same as with no profiler recording."""
+    C, mean, sigma, data, weights = problem
+    t, _ = both(C, mean, sigma, data, weights)
+    got, names = recorded(lambda: verb_call(verb, t))
+    assert names.count("ppca.block") == -(-N // BLOCK) == 3
+    want = verb_call(verb, t)
+    for g, w in zip(got if verb == "em_stats" else [got], want if verb == "em_stats" else [want]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("verb,posteriors", [("em_stats", 1), ("llks", 1), ("states", 1),
+                                              ("infer", 2)])
+def test_counts_a_pass(problem, verb, posteriors):
+    """One shared factorization a call (``infer``: its states' and its
+    covariance's), and the blocks and rows the pass walks."""
+    C, mean, sigma, data, weights = problem
+    t, _ = both(C, mean, sigma, data, weights)
+    tdf.reset_counts()
+    if verb in ("em_stats", "llks", "states"):
+        verb_call(verb, t)
+    else:
+        tdf.infer(*t[:4], block_size=BLOCK)
+    assert tdf.COUNTS == {"posteriors": posteriors, "blocks": 3, "rows": N}
+    tdf.reset_counts()
+    assert tdf.COUNTS == {"posteriors": 0, "blocks": 0, "rows": 0}
+
+
+def test_step_counts_and_spans_through_the_trainer(problem, monkeypatch):
+    """One trainer iteration on the dense route walks every row once, in
+    blocks of ``config.segment_rows`` rows (here lowered to 40 rows: four
+    blocks of N = 150), under one factorization; with a profiler recording,
+    each block is a ``ppca.block`` range inside ``ppca.em_stats``, and the
+    model is the same as with none."""
+    import sys
+
+    C, mean, sigma, data, weights = problem
+    monkeypatch.setattr(tconfig, "block_size", 16)
+    monkeypatch.setattr(sys.modules["ppca_rs_tpu_torch.config"], "MIX_BLOCK_MAX_BYTES", 40 * D * 8)
+    assert tconfig.segment_rows(D, 8) == 40
+    tds = interop.dataset_from_arrays(data, np.ones((N, D), bool), weights)
+    start = interop.model_from_arrays(C + 0.3, mean, 1.1)
+
+    def step():
+        return tp.PPCATrainer(tds).train(start=start, state_size=K, n_iters=1, quiet=True)
+
+    tdf.reset_counts()
+    plain = step()
+    assert tdf.COUNTS == {"posteriors": 1, "blocks": 4, "rows": N}
+    traced, names = recorded(step)
+    assert names.count("ppca.block") == 4 and names.count("ppca.em_stats") == 1
+    for name in ("transform", "mean", "isotropic_noise"):
+        assert torch.equal(getattr(traced, name), getattr(plain, name))
+
+
+def test_a_precision_that_does_not_factor_gives_nan_and_keeps_the_transform():
+    """sigma = 0 with a zero column of C: M = C^T C has a zero pivot, so the
+    shared factor is NaN (no exception, as the JAX package's Cholesky gives
+    NaN), the statistics are not finite, and the M-step keeps the old
+    transform and returns a NaN mean and sigma, as the JAX package's does."""
+    C = np.array([[1.0, 0.0], [2.0, 0.0], [3.0, 0.0]])
+    data, weights = np.arange(12.0).reshape(4, 3), np.ones(4)
+    t, j = both(C, np.zeros(3), 0.0, data, weights)
+    post = tdf.dense_posterior(t[0], t[2])
+    assert torch.isnan(post.Minv).all() and torch.isnan(post.logdet)
+    stats = tdf.em_stats(*t, block_size=BLOCK)
+    assert not torch.isfinite(stats.llk)
+    got = tdf.em_finalize(*t[:3], stats,
+                          transformation_precision=torch.tensor(0.0, dtype=torch.float64))
+    want = jdf.em_finalize(*j[:3], jdf.em_stats(*j, block_size=BLOCK),
+                           transformation_precision=jnp.float64(0.0))
+    assert torch.equal(got[0], t[0])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_a_singular_m_step_keeps_the_transform(problem):
+    """A second-moment matrix that does not solve (all weights 0, no
+    transformation prior): the solve gives NaN, not an exception, and the
+    old transform is kept."""
+    C, mean, sigma, data, _ = problem
+    t, _ = both(C, mean, sigma, data, np.zeros(N))
+    stats = tdf.em_stats(*t, block_size=BLOCK)
+    new_C, new_mean, _ = tdf.em_finalize(*t[:3], stats,
+                                         transformation_precision=torch.tensor(0.0,
+                                                                               dtype=torch.float64))
+    assert torch.equal(new_C, t[0])
+    assert torch.equal(new_mean, t[1])
